@@ -1,0 +1,21 @@
+"""stablelm-12b — dense GQA. [hf:stabilityai/stablelm-2-12b]
+
+40L, d_model=5120, 32H (GQA kv=8), head_dim=160, d_ff=13824, vocab=100352,
+rotary_pct=0.25.
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-12b",
+    family="dense",
+    num_layers=40,
+    d_model=5120,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=160,
+    d_ff=13824,
+    vocab_size=100352,
+    rope_kind="partial",
+    rotary_pct=0.25,
+    rope_theta=10000.0,
+)

@@ -1,0 +1,56 @@
+"""Serving-step factories: prefill (prompt -> last-token logits + caches) and
+decode (one token against caches), plus greedy/temperature sampling."""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+
+_SEQ_CACHE_LEAVES = ("k", "v", "c_kv", "k_rope")
+
+
+def make_prefill_step(cfg: ModelConfig):
+    def prefill_step(params, batch) -> Tuple[torch.Tensor, Any]:
+        logits, _, cache = M.forward(params, cfg, batch, mode="prefill")
+        return logits, cache
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    def decode_step(params, batch, cache) -> Tuple[torch.Tensor, Any]:
+        return M.decode(params, cfg, batch, cache)
+    return decode_step
+
+
+def sample(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
+           temperature: float = 0.0, vocab_size: int = 0) -> torch.Tensor:
+    """logits (B,1,V) -> tokens (B,1). temperature 0 = greedy.
+    Padded-vocab tail is masked out. Temperature sampling draws from
+    ``generator`` (on logits' device)."""
+    if vocab_size:
+        mask = torch.arange(logits.shape[-1], device=logits.device) < vocab_size
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    return torch.multinomial(flat, 1, generator=generator).reshape(
+        logits.shape[:-1])
+
+
+def pad_cache(cache: Dict[str, Any], cfg: ModelConfig, max_len: int
+              ) -> Dict[str, Any]:
+    """Grow prefill-sized caches (seq dim == prompt len) to ``max_len`` so
+    decode can append. Seq dim is axis 2 of k/v/c_kv/k_rope leaves."""
+    def grow(name, leaf):
+        if isinstance(leaf, dict):
+            return {k: grow(k, v) for k, v in leaf.items()}
+        if name in _SEQ_CACHE_LEAVES and leaf.shape[2] < max_len:
+            pad = [0, 0] * (leaf.ndim - 3) + [0, max_len - leaf.shape[2]]
+            return F.pad(leaf, pad)
+        return leaf
+    return {k: grow(k, v) for k, v in cache.items()}

@@ -1,0 +1,175 @@
+"""The port's kernels on the card: each CUDA/Triton kernel against its plain
+PyTorch version on the same CUDA tensors, and the model and serving path on
+the kernels against the plain path.
+
+Every test here needs a CUDA device (and Triton for RMSNorm). Whether one is
+present is decided inside the ``cuda`` fixture, never at import, so every
+pytest-xdist worker collects the same tests; without a card they skip.
+Run on the card (where JAX, which tests/conftest.py imports, is absent):
+``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_gpu.py``.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
+from repro_torch.kernels.fused_rmsnorm import ref as rn_ref
+from repro_torch.launch.serve import _positions, serve_batch
+from repro_torch.models import model as M
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# f32: the kernel sums in another order than cuBLAS; bf16: one rounding of
+# the output plus bf16 inputs, as in the JAX package's kernel tests
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def triton_cuda(cuda):
+    pytest.importorskip("triton", reason="the RMSNorm kernel is Triton")
+    return cuda
+
+
+def _randn(rng, shape, dtype, device):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [
+    (2, 256, 4, 2, 64), (1, 200, 4, 4, 32), (1, 384, 8, 1, 128),
+    (1, 200, 4, 2, 80), (1, 130, 2, 1, 256), (2, 1024, 32, 2, 128)])
+def test_flash_kernel_vs_plain(cuda, shape, dtype):
+    B, S, H, KV, hd = shape
+    rng = np.random.default_rng(0)
+    dt = DTYPES[dtype]
+    q = _randn(rng, (B, S, H, hd), dt, cuda)
+    k = _randn(rng, (B, S, KV, hd), dt, cuda)
+    v = _randn(rng, (B, S, KV, hd), dt, cuda)
+    n0 = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == n0 + 1
+    want = fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), scale=hd ** -0.5
+                                ).transpose(1, 2)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < TOL[dtype], f"{shape} {dtype}: {err}"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,valid", [
+    ((2, 512, 4, 2, 64), 301), ((1, 1024, 8, 8, 32), 1024),
+    ((2, 640, 4, 1, 128), 17), ((8, 1056, 32, 2, 128), 1025),
+    ((8, 1056, 32, 2, 128), 3), ((2, 300, 32, 32, 80), 200)])
+def test_decode_kernel_vs_plain(cuda, shape, valid, dtype):
+    B, S, H, KV, hd = shape
+    rng = np.random.default_rng(1)
+    dt = DTYPES[dtype]
+    q = _randn(rng, (B, 1, H, hd), dt, cuda)
+    k = _randn(rng, (B, S, KV, hd), dt, cuda)
+    v = _randn(rng, (B, S, KV, hd), dt, cuda)
+    vl = torch.full((), valid, dtype=torch.int32, device=cuda)
+    n0 = da_ops.launches
+    got = da_ops.decode_attention(q, k, v, vl, scale=0.1)
+    torch.cuda.synchronize()
+    assert da_ops.launches == n0 + 1
+    want = da_ref.decode_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), vl, scale=0.1
+                                       ).transpose(1, 2)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < TOL[dtype], f"{shape}@{valid} {dtype}: {err}"
+
+
+def test_decode_kernel_valid_len_zero_returns_zeros(cuda):
+    """With no valid cache row the kernel reads nothing and returns zeros;
+    the plain versions (and the JAX package) softmax over an all-masked row
+    and return the mean of V instead. The model never asks for this
+    (valid_len = index + 1 >= 1)."""
+    rng = np.random.default_rng(3)
+    q = _randn(rng, (2, 1, 4, 32), torch.float32, cuda)
+    k = _randn(rng, (2, 64, 2, 32), torch.float32, cuda)
+    vl = torch.zeros((), dtype=torch.int32, device=cuda)
+    got = da_ops.decode_attention(q, k, k, vl, scale=0.1)
+    assert not bool(got.any())
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("rows,d",[(1, 32), (37, 128), (70, 256), (8, 4096),
+                                    (8192, 4096), (5, 3000)])
+def test_rmsnorm_kernel_vs_plain(triton_cuda, rows, d, dtype):
+    rng = np.random.default_rng(2)
+    dt = DTYPES[dtype]
+    x = _randn(rng, (rows, d), dt, triton_cuda)
+    w = _randn(rng, (d,), dt, triton_cuda) * 0.1
+    n0 = rn_ops.launches
+    got = rn_ops.rmsnorm(x, w, eps=1e-5)
+    torch.cuda.synchronize()
+    assert rn_ops.launches == n0 + 1
+    want = rn_ref.rmsnorm_ref(x, w, eps=1e-5)
+    err = (got.float() - want.float()).abs().max().item()
+    # f32: rsqrt and the row sum's order; bf16: one output rounding
+    assert err < (2e-5 if dtype == "float32" else 0.05), f"{rows}x{d}: {err}"
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 24, device=cuda)          # head_dim 24
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, q, q, scale=1.0)
+    q = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q, q, q, scale=1.0)
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "stablelm-3b", "qwen2-vl-7b"])
+def test_model_kernel_path_matches_plain_path(triton_cuda, arch):
+    cfg = get_smoke_config(arch, dtype="float32")
+    params = M.init_params(cfg, seed=0, device=triton_cuda)
+    B, S = 2, 40
+    gen = torch.Generator(device=triton_cuda).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=triton_cuda, dtype=torch.int32)
+    batch = {"tokens": tokens, "positions": _positions(cfg, B, S,
+                                                       device=triton_cuda)}
+    plain = dataclasses.replace(cfg, use_pallas=False)
+    lk, _, ck = M.forward(params, cfg, batch, mode="prefill")
+    lp, _, cp = M.forward(params, plain, batch, mode="prefill")
+    assert (lk - lp).abs().max().item() < 1e-4
+    from repro_torch.distributed.serve_step import pad_cache
+    ck, cp = pad_cache(ck, cfg, S + 4), pad_cache(cp, cfg, S + 4)
+    db = {"tokens": tokens[:, :1],
+          "positions": _positions(cfg, B, 1, start=S, device=triton_cuda)}
+    dk, _ = M.decode(params, cfg, db, ck)
+    dp, _ = M.decode(params, plain, db, cp)
+    assert (dk - dp).abs().max().item() < 1e-4
+
+
+def test_serve_batch_runs_every_kernel(triton_cuda):
+    cfg = get_smoke_config("chatglm3-6b")
+    for ops in (fa_ops, da_ops, rn_ops):
+        ops.launches = 0
+    n, new = 3, 5
+    res = serve_batch(cfg, n_requests=n, prompt_len=24, max_new_tokens=new,
+                      quiet=True, device=triton_cuda)
+    L = cfg.num_layers
+    assert fa_ops.launches == L
+    assert da_ops.launches == L * (new - 1)
+    assert rn_ops.launches == (2 * L + 1) * new
+    assert res["tokens"].shape == (n, 24 + new)
