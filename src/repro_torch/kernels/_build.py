@@ -1,8 +1,9 @@
 """Build the CUDA C++ kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each kernel folder holds ``csrc/<name>.cu`` with a plain C interface. At first
-use it is compiled for ``sm_90a`` into ``<checkout>/build/kernels/`` under a
-name keyed by a hash of its source and flags, so an edited source rebuilds
+Each kernel folder holds ``csrc/<name>.cu`` with a plain C interface; the
+sources share the device helpers of ``common.cuh``. At first use a source is
+compiled for ``sm_90a`` into ``<checkout>/build/kernels/`` under a name keyed
+by a hash of it, ``common.cuh`` and the flags, so an edited source rebuilds
 and an unchanged one loads at once. ``build_all`` starts one ``nvcc`` per
 source, all together. A failed build raises; there is no fallback.
 """
@@ -42,6 +43,7 @@ def _source(name: str) -> Path:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256(_source(name).read_bytes())
+    h.update((KERNELS_DIR / "common.cuh").read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

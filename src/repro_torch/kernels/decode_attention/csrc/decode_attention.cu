@@ -19,10 +19,10 @@
 // (batch, kv head) only B * KV SMs work, so at small batch launch latency and
 // per-SM bandwidth dominate; splitting the cache across SMs with a combine
 // pass is a later change.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "../../common.cuh"
 
 namespace {
 
@@ -33,30 +33,6 @@ constexpr int MAX_SMEM = 232448;
 struct Strides {                // in elements; the head dim is contiguous
   long long q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_h;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -235,8 +211,4 @@ extern "C" int decode_attention_fwd(
     return (int)launch<__nv_bfloat16>(q, k, v, o, vl, B, S, KV, G, hd, st,
                                       scale, s);
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

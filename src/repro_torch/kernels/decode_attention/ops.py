@@ -62,9 +62,12 @@ def _check(q, k, v, valid_len):
 def decode_attention(q, k_cache, v_cache, valid_len, *, scale: float):
     """q (B, 1, H, hd), caches (B, S, KV, hd) -> (B, 1, H, hd).
 
-    ``valid_len``: number of valid cache rows, the same for the whole batch;
-    an int, or an int32 tensor of one element on q's device."""
+    ``valid_len``: number of valid cache rows, the same for the whole batch,
+    as an int32 tensor of one element on q's device (the kernel reads it
+    there, so the host never waits on the device)."""
     global launches
+    if not isinstance(valid_len, torch.Tensor):
+        raise TypeError("valid_len must be an int32 tensor on q's device")
     if q.device.type == "cpu":
         ot = ref.decode_attention_ref(q.transpose(1, 2), k_cache.transpose(1, 2),
                                       v_cache.transpose(1, 2), valid_len,
@@ -72,9 +75,6 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, scale: float):
         return ot.transpose(1, 2)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
-    if not isinstance(valid_len, torch.Tensor):
-        valid_len = torch.full((1,), valid_len, dtype=torch.int32,
-                               device=q.device)
     _check(q, k_cache, v_cache, valid_len)
     B, _, H, hd = q.shape
     _, S, KV, _ = k_cache.shape

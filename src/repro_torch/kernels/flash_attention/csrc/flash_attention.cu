@@ -20,10 +20,10 @@
 // operations (~4 FLOP per q.k pair per head dim, causal half), not bytes.
 // This first version does them as scalar f32 FMAs from shared memory, far
 // below the tensor cores' bf16 rate; wgmma/TMA tiles are a later change.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "../../common.cuh"
 
 namespace {
 
@@ -36,38 +36,13 @@ struct Strides {                // in elements; the head dim is contiguous
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// One 16-byte load, widened to f32: 4 floats or 8 bf16 values.
-__device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
 // NC = head_dim / 16: each of a row's 4 threads holds NC float4 chunks of it,
 // chunk c = i * TPR + t covering dims [4c, 4c + 4).
 template <typename T, int NC>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o,
-          int S, int G, Strides st, float scale, int causal) {
+          int S, int G, Strides st, float scale) {
   constexpr int HD = 16 * NC;
   constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
   constexpr int CPR = HD / VEC;         // 16-byte chunks per kv row
@@ -101,7 +76,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_end = min(S, q0 + BQ);  // tiles above the diagonal: none
   const T* kbase = k + b * st.k_b + kvh * st.k_h;
   const T* vbase = v + b * st.v_b + kvh * st.v_h;
   float m = -1e30f;
@@ -145,7 +120,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       const int kpos = kb + j;
-      const bool ok = kpos < S && (!causal || kpos <= qpos);
+      const bool ok = kpos < S && kpos <= qpos;
       s[j] = ok ? part * scale : -INFINITY;
       mt = fmaxf(mt, s[j]);
     }
@@ -192,7 +167,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int NC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int G, const Strides& st, float scale,
-                   int causal, cudaStream_t stream) {
+                   cudaStream_t stream) {
   const int smem = 2 * BK * 16 * NC * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -200,16 +175,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd<T, NC><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, G, st, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), S, G, st, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
                      void* o, int B, int S, int H, int G, const Strides& st,
-                     float scale, int causal, cudaStream_t stream) {
+                     float scale, cudaStream_t stream) {
 #define REPRO_FLASH_CASE(NC) \
-  case NC: return launch<T, NC>(q, k, v, o, B, S, H, G, st, scale, causal, stream);
+  case NC: return launch<T, NC>(q, k, v, o, B, S, H, G, st, scale, stream);
   switch (hd / 16) {
     REPRO_FLASH_CASE(1) REPRO_FLASH_CASE(2) REPRO_FLASH_CASE(3) REPRO_FLASH_CASE(4)
     REPRO_FLASH_CASE(5) REPRO_FLASH_CASE(6) REPRO_FLASH_CASE(7) REPRO_FLASH_CASE(8)
@@ -232,7 +207,7 @@ extern "C" int flash_attention_fwd(
     long long k_b, long long k_s, long long k_h,
     long long v_b, long long v_s, long long v_h,
     long long o_b, long long o_s, long long o_h,
-    float scale, int causal, void* stream) {
+    float scale, void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || hd % 16 != 0 ||
       hd < 16 || hd > 256)
     return (int)cudaErrorInvalidValue;
@@ -240,13 +215,9 @@ extern "C" int flash_attention_fwd(
   const int G = H / KV;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch<float>(hd, q, k, v, o, B, S, H, G, st, scale, causal, s);
+    return (int)dispatch<float>(hd, q, k, v, o, B, S, H, G, st, scale, s);
   if (dtype == 1)
     return (int)dispatch<__nv_bfloat16>(hd, q, k, v, o, B, S, H, G, st, scale,
-                                        causal, s);
+                                        s);
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

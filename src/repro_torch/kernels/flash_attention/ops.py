@@ -26,7 +26,7 @@ launches = 0
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"flash_attention_fwd":
                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12
-               + [ctypes.c_float, _I, _P]}
+               + [ctypes.c_float, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -61,12 +61,12 @@ def _check(q, k, v):
             raise ValueError(f"{name} rows must be 16-byte aligned")
 
 
-def flash_attention(q, k, v, *, scale: float, causal: bool = True):
-    """q (B, S, H, hd), k/v (B, S, KV, hd) -> (B, S, H, hd)."""
+def flash_attention(q, k, v, *, scale: float):
+    """Causal attention: q (B, S, H, hd), k/v (B, S, KV, hd) -> (B, S, H, hd)."""
     global launches
     if q.device.type == "cpu":
         ot = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), scale=scale, causal=causal)
+                               v.transpose(1, 2), scale=scale)
         return ot.transpose(1, 2)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
@@ -78,7 +78,7 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         _DTYPES[q.dtype], B, S, H, k.shape[2], hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        float(scale), int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_attention", err)
     launches += 1
     return o

@@ -5,16 +5,15 @@ from __future__ import annotations
 import torch
 
 
-def attention_ref(q, k, v, *, scale: float, causal: bool = True):
+def attention_ref(q, k, v, *, scale: float):
     """q (B, H, S, hd), k/v (B, KV, S, hd) -> (B, H, S, hd)."""
     B, H, S, hd = q.shape
     KV = k.shape[1]
     G = H // KV
     qg = q.reshape(B, KV, G, S, hd).float()
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale
-    if causal:
-        mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
-        s = torch.where(mask[None, None, None], s, -1e30)
+    mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
+    s = torch.where(mask[None, None, None], s, -1e30)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
     return o.reshape(B, H, S, v.shape[-1]).to(q.dtype)

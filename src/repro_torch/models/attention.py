@@ -46,7 +46,7 @@ def attn_core(q, k, v, *, scale: float, q_offset=0, kv_valid_len=None,
     G = H // KV
     if use_pallas and Sq > 1 and kv_valid_len is None:
         from repro_torch.kernels.flash_attention import ops as fa_ops
-        return fa_ops.flash_attention(q, k, v, scale=scale, causal=True)
+        return fa_ops.flash_attention(q, k, v, scale=scale)
     if use_pallas and Sq == 1 and kv_valid_len is not None:
         from repro_torch.kernels.decode_attention import ops as da_ops
         return da_ops.decode_attention(q, k, v, kv_valid_len, scale=scale)
