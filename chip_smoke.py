@@ -9,17 +9,22 @@ Phases, each printing its lines; any failed check exits non-zero:
   2. build: every CUDA kernel from the checkout's sources (one nvcc per
      source, in parallel), with ptxas' registers and spills;
   3. kernel vs plain: each kernel's wrapper on CUDA tensors at the main
-     path's shapes against its plain PyTorch version, tolerance stated;
+     paths' shapes against its plain PyTorch version, tolerance stated;
   4. kernel times (CUDA events, L2 flushed before each launch) beside the
      least time the card could take, the plain version and a library call;
-  5. main path: ``serve_batch`` on full-width chatglm3-6b (28 layers,
-     d_model 4096, random bf16 weights from a seed): 8 requests of 1,024
-     prompt tokens, 32 greedy new tokens, with the kernels' launch counts
-     read around it; then the kernel and plain paths teacher-forced on the
-     kernel path's tokens, the logits of every step compared in f32 and in
-     bf16; prefill and decode times;
+     the 8-row RMSNorm's from the profiler's device time;
+  5. main paths, each served with ``serve_batch`` at full width with random
+     bf16 weights from a seed: 8 requests of 1,024 prompt tokens, 32 greedy
+     new tokens, with the kernels' launch counts set to 0 just before and
+     read just after. chatglm3-6b (28 layers, d_model 4,096), zamba2-7b (81
+     Mamba2 layers and one shared attention block every 6, d_model 3,584)
+     and mamba2-130m (24 Mamba2 layers, d_model 768). Each is then held by
+     the kernel and plain paths teacher-forced on the kernel path's tokens,
+     the logits of every step compared in f32 and in bf16, and its prefill
+     and decode times;
   6. where the time of one prefill and one decode step goes
-     (torch.profiler), and the per-launch device time of the kernels there.
+     (torch.profiler), for chatglm3-6b and zamba2-7b, and the per-launch
+     device time of the kernels there.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -40,18 +45,27 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SPIN_CYCLES = 400_000       # ~0.2 ms at 1.98 GHz: above any wrapper's host time
 
-ARCH = "chatglm3-6b"
+PATHS = ("chatglm3-6b", "zamba2-7b", "mamba2-130m")
+PROFILED = ("chatglm3-6b", "zamba2-7b")
+FULL_WIDTH = {"chatglm3-6b": (28, 4096), "zamba2-7b": (81, 3584),
+              "mamba2-130m": (24, 768)}
 N_REQUESTS, PROMPT_LEN, NEW_TOKENS, SEED = 8, 1024, 32, 0
 # bf16 kernel-vs-plain tolerances as in the JAX package's kernel tests;
-# f32 differs only by the order of sums
+# f32 differs only by the order of sums. SSD: relative to max|want|, as the
+# JAX package's test_ssd_pallas_vs_naive; in f32 against the recurrence
+# ssd_naive, since at chunk 256 under fast decay the plain ssd_chunked is
+# itself ~1e-5 from it (exponents taken as differences of large f32 prefix
+# sums; the kernel keeps them in f64).
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 NORM_TOL = {"float32": 2e-5, "bfloat16": 0.05}
+SSD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # Kernel path vs plain path at full width, teacher-forced, per step:
-# max|diff|/max|logit|. In f32 the paths differ by the order of sums only:
-# the card read at most 1.3e-5 over the 32 steps, and the bf16 control (the
-# bf16 kernel path against the same f32 plain path) at least 3.2e-2, which
+# max|diff|/max|logit|. In f32 the paths differ by the order of sums only.
+# The card read at most 1.3e-5 (chatglm3-6b), 2.1e-5 (zamba2-7b) and 8.1e-6
+# (mamba2-130m) over the 32 steps, and the bf16 control (the bf16 kernel path
+# against the same f32 plain path) at least 3.2e-2, 6.0e-2 and 3.0e-2, which
 # the script requires to fail this limit. In bf16 the kernel path's distance
-# to the f32 plain path, over the bf16 plain path's, read 1.03.
+# to the f32 plain path, over the bf16 plain path's, read 1.03, 1.10 and 0.99.
 F32_LOGIT_TOL = 1e-4
 BF16_ERR_RATIO = 1.5
 
@@ -102,6 +116,67 @@ def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+def rel_err(a, b):
+    return max_err(a, b) / (b.float().abs().max().item() + 1e-9)
+
+
+def device_rows(prof):
+    """(name, device ms, count) of the device-side events (kernels, copies)
+    of a profile: CPU ops would count twice."""
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and e.self_device_time_total > 0]
+
+
+def device_ms_per_call(torch, fn, n=50):
+    """Device time of one call of fn, from the profiler: for calls shorter
+    than their host launch, which CUDA events would time instead."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for _, ms, _ in device_rows(prof)) / n
+
+
+def ssd_work(B, S, H, G, P, N, chunk, itemsize):
+    """Operations and bytes one SSD scan needs: the causal (C B^T) and
+    (att x) products over the rows each chunk holds, the carried state's
+    product and update; x read and y written once, dt, A, B/C and the final
+    f32 state."""
+    L = min(chunk, S)
+    flops = 0
+    for t0 in range(0, S, L):
+        n = min(L, S - t0)
+        flops += n * (n + 1) * (N + P) + 4 * n * P * N
+    flops *= B * H
+    nbytes = (2 * B * S * H * P * itemsize + 4 * B * S * H + 4 * H
+              + 2 * B * S * G * N * itemsize + 4 * B * H * P * N)
+    return flops, nbytes
+
+
+def want_launches(cfg):
+    """Kernel launches of one serve_batch: prefill + NEW_TOKENS - 1 decode
+    steps, RMSNorm in every step (2 per block, 1 final), flash attention in
+    prefill and decode attention in every decode step per attention block,
+    the SSD scan once per Mamba2 layer in prefill."""
+    L, T = cfg.num_layers, NEW_TOKENS
+    if cfg.family == "ssm":
+        attn, norms_per_step = 0, 2 * L + 1
+    elif cfg.family == "hybrid":
+        attn = cfg.num_layers // cfg.attn_every          # shared-block calls
+        norms_per_step = 2 * L + 2 * attn + 1
+    else:
+        attn, norms_per_step = L, 2 * L + 1
+    return {"flash_attention": attn, "decode_attention": attn * (T - 1),
+            "fused_rmsnorm": norms_per_step * T,
+            "ssd": L if cfg.family in ("ssm", "hybrid") else 0}
+
+
 def main():
     import torch
     import torch.nn.functional as F
@@ -118,9 +193,6 @@ def main():
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from repro_torch.configs import get_config
-    from repro_torch.distributed.serve_step import (make_decode_step,
-                                                    make_prefill_step,
-                                                    pad_cache, sample)
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
@@ -128,12 +200,15 @@ def main():
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
     from repro_torch.kernels.fused_rmsnorm import ref as rn_ref
-    from repro_torch.launch.serve import _positions, serve_batch
-    from repro_torch.models import model as M
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    ops_of = {"flash_attention": fa_ops, "decode_attention": da_ops,
+              "fused_rmsnorm": rn_ops, "ssd": ssd_ops}
 
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
     logs = _build.build_all()
+    check(sorted(logs) == sorted(_build.CUDA_KERNELS), f"built {sorted(logs)}")
     for name, log in logs.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
@@ -152,11 +227,11 @@ def main():
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).to(dtype)
 
-    cfg = get_config(ARCH)
-    B, S, H, KV, hd = (N_REQUESTS, PROMPT_LEN, cfg.num_heads,
-                       cfg.num_kv_heads, cfg.head_dim)
+    cfgs = {arch: get_config(arch) for arch in PATHS}
+    glm = cfgs["chatglm3-6b"]
+    zam = cfgs["zamba2-7b"]
+    B, S = N_REQUESTS, PROMPT_LEN
     S_cache = PROMPT_LEN + NEW_TOKENS
-    d = cfg.d_model
     results = {}
 
     # --------------------------------------------------- 3. kernel vs plain
@@ -183,15 +258,56 @@ def main():
 
     def norm_case(rows, dim, dtype):
         x, w = randn(rows, dim, dtype=dtype), randn(dim, dtype=dtype) * 0.1
-        got = rn_ops.rmsnorm(x, w, eps=cfg.norm_eps)
+        got = rn_ops.rmsnorm(x, w, eps=glm.norm_eps)
         torch.cuda.synchronize()
-        return max_err(got, rn_ref.rmsnorm_ref(x, w, eps=cfg.norm_eps)), (x, w)
+        return max_err(got, rn_ref.rmsnorm_ref(x, w, eps=glm.norm_eps)), (x, w)
 
+    def ssd_case(shape, chunk, dtype, slow_decay, naive=False):
+        """dt = softplus(z - 4) (slow decay) carries the state across
+        chunks as the model's small dt does; softplus(z) as the JAX tests.
+        The oracle is ssd_naive in f32 (or when asked), else ssd_chunked;
+        also returns the kernel's and ssd_chunked's distances to each other
+        and to ssd_naive, where it ran."""
+        b, s, h, g, p, n = shape
+        x = randn(b, s, h, p, dtype=dtype)
+        dt = F.softplus(randn(b, s, h, dtype=torch.float32)
+                        - (4.0 if slow_decay else 0.0))
+        A = -torch.exp(torch.rand(h, generator=gen, device=dev) * 2.0)
+        Bm, Cm = randn(b, s, g, n, dtype=dtype), randn(b, s, g, n, dtype=dtype)
+        y, hf = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk, use_pallas=True)
+        torch.cuda.synchronize()
+        check(y.dtype == x.dtype and hf.dtype == torch.float32
+              and tuple(hf.shape) == (b, h, p, n), f"ssd {shape} outputs")
+
+        def rel2(a, b):
+            return max(rel_err(a[0], b[0]), rel_err(a[1], b[1]))
+
+        chunked = ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+        if naive or dtype == torch.float32:
+            oracle = ssd_ref.ssd_naive(x, dt, A, Bm, Cm)
+            note = (f"; vs ssd_chunked {rel2((y, hf), chunked):.3e}, "
+                    f"ssd_chunked vs ssd_naive {rel2(chunked, oracle):.3e}")
+        else:
+            oracle, note = chunked, ""
+        return (rel2((y, hf), oracle), max_err(y, oracle[0]),
+                (x, dt, A, Bm, Cm, chunk), note)
+
+    zH, zP, zN = zam.ssm_heads, zam.ssm_head_dim, zam.ssm_state
+    mam = cfgs["mamba2-130m"]
+    ssd_shapes = (
+        ("zamba2-7b prefill", (B, S, zH, zam.ssm_groups, zP, zN), zam.ssm_chunk),
+        ("mamba2-130m prefill", (B, S, mam.ssm_heads, mam.ssm_groups,
+                                 mam.ssm_head_dim, mam.ssm_state), mam.ssm_chunk),
+        ("ragged, grouped", (1, 1000, 8, 2, 64, 64), 256))
     inputs = {}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32)):
-        for label, shape in (("chatglm3-6b prefill", (B, S, H, KV, hd)),
-                             ("stablelm-3b hd80 ragged", (2, 200, 32, 32, 80))):
+        for label, shape in (
+                ("chatglm3-6b prefill", (B, S, glm.num_heads, glm.num_kv_heads,
+                                         glm.head_dim)),
+                ("zamba2-7b prefill", (B, S, zam.num_heads, zam.num_kv_heads,
+                                       zam.head_dim)),
+                ("stablelm-3b hd80 ragged", (2, 200, 32, 32, 80))):
             err, args = flash_case(*shape, dtype)
             tol = ATTN_TOL[dtype_name]
             print(f"[check] flash_attention {label} {shape} {dtype_name}: "
@@ -200,32 +316,63 @@ def main():
             if dtype_name == "bfloat16" and label.startswith("chatglm"):
                 results["flash_attention"] = {"max_abs_err": err}
                 inputs["flash_attention"] = args
-        for valid in (PROMPT_LEN + 1, 17):
-            shape = (B, S_cache, H, KV, hd)
+        for label, (h, kv, dh), valid in (
+                ("chatglm3-6b", (glm.num_heads, glm.num_kv_heads, glm.head_dim),
+                 PROMPT_LEN + 1),
+                ("chatglm3-6b", (glm.num_heads, glm.num_kv_heads, glm.head_dim),
+                 17),
+                ("zamba2-7b", (zam.num_heads, zam.num_kv_heads, zam.head_dim),
+                 PROMPT_LEN + 1)):
+            shape = (B, S_cache, h, kv, dh)
             err, args = decode_case(*shape, valid, dtype)
             tol = ATTN_TOL[dtype_name]
-            print(f"[check] decode_attention {shape} valid_len {valid} "
+            print(f"[check] decode_attention {label} {shape} valid_len {valid} "
                   f"{dtype_name}: max|err| {err:.3e} (tol {tol})", flush=True)
             check(err < tol, f"decode_attention {shape}@{valid}: {err}")
-            if dtype_name == "bfloat16" and valid == PROMPT_LEN + 1:
+            if (dtype_name == "bfloat16" and label == "chatglm3-6b"
+                    and valid == PROMPT_LEN + 1):
                 results["decode_attention"] = {"max_abs_err": err}
                 inputs["decode_attention"] = args
         for rows in (B * S, B):
-            err, args = norm_case(rows, d, dtype)
-            tol = NORM_TOL[dtype_name]
-            print(f"[check] fused_rmsnorm ({rows}, {d}) {dtype_name}: max|err| "
-                  f"{err:.3e} (tol {tol})", flush=True)
-            check(err < tol, f"fused_rmsnorm ({rows},{d}) {dtype_name}: {err}")
-            if dtype_name == "bfloat16":
-                inputs[f"fused_rmsnorm/{rows}"] = args
-                if rows == B * S:
-                    results["fused_rmsnorm"] = {"max_abs_err": err}
+            for dim in (glm.d_model, zam.d_model, zam.ssm_d_inner, mam.d_model,
+                        mam.ssm_d_inner):
+                err, args = norm_case(rows, dim, dtype)
+                tol = NORM_TOL[dtype_name]
+                print(f"[check] fused_rmsnorm ({rows}, {dim}) {dtype_name}: "
+                      f"max|err| {err:.3e} (tol {tol})", flush=True)
+                check(err < tol, f"fused_rmsnorm ({rows},{dim}) {dtype_name}: "
+                      f"{err}")
+                if dtype_name == "bfloat16" and dim == glm.d_model:
+                    inputs[f"fused_rmsnorm/{rows}"] = args
+                    if rows == B * S:
+                        results["fused_rmsnorm"] = {"max_abs_err": err}
+        for label, shape, chunk in ssd_shapes:
+            for slow in (False, True):
+                err, abs_err, args, note = ssd_case(shape, chunk, dtype, slow)
+                tol = SSD_TOL[dtype_name]
+                oracle = "ssd_naive" if note else "ssd_chunked"
+                print(f"[check] ssd {label} {shape} chunk {chunk} "
+                      f"{'slow' if slow else 'fast'} decay {dtype_name}: "
+                      f"max|err|/max|want| {err:.3e} of y and the final state "
+                      f"vs {oracle} (tol {tol}), max|err| of y {abs_err:.3e}"
+                      f"{note}", flush=True)
+                check(err < tol, f"ssd {shape} {dtype_name}: {err}")
+                if dtype_name == "bfloat16" and slow:
+                    inputs[f"ssd/{label}"] = args
+                    if label.startswith("zamba2"):
+                        results["ssd"] = {"max_abs_err": abs_err}
+        err, _, _, note = ssd_case((2, 100, 4, 2, 16, 32), 32, dtype, True,
+                                   naive=True)
+        print(f"[check] ssd (2, 100, 4, 2, 16, 32) chunk 32 vs ssd_naive "
+              f"{dtype_name}: {err:.3e} (tol {SSD_TOL[dtype_name]}){note}",
+              flush=True)
+        check(err < SSD_TOL[dtype_name], f"ssd vs naive {dtype_name}: {err}")
 
     # ------------------------------------------------------- 4. kernel times
     timer = Timer(torch)
+    hd = glm.head_dim
     q, k, v, scale = inputs["flash_attention"]
-    pairs = B * H * S * (S + 1) // 2                     # causal (q, k) pairs
-    flops = 4 * hd * pairs
+    pairs = B * glm.num_heads * S * (S + 1) // 2          # causal (q, k) pairs
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())  # q, o, k, v in bf16
     results["flash_attention"].update(
         ms=timer(lambda: fa_ops.flash_attention(q, k, v, scale=scale)),
@@ -235,10 +382,11 @@ def main():
         library_ms=timer(lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, scale=scale, enable_gqa=True)),
-        flops=flops, bytes=nbytes, dtype="bfloat16")
+        flops=4 * hd * pairs, bytes=nbytes, dtype="bfloat16")
 
     q, k, v, vl, scale = inputs["decode_attention"]
     valid = PROMPT_LEN + 1
+    KV = glm.num_kv_heads
     mask = (torch.arange(S_cache, device=dev) < vl)[None, None, None, :]
     results["decode_attention"].update(
         ms=timer(lambda: da_ops.decode_attention(q, k, v, vl, scale=scale), 50),
@@ -248,34 +396,68 @@ def main():
         library_ms=timer(lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask, scale=scale, enable_gqa=True), 50),
-        flops=4 * B * H * hd * valid,
-        bytes=2 * (2 * B * valid * KV * hd + 2 * B * H * hd) + 4,
+        flops=4 * B * glm.num_heads * hd * valid,
+        bytes=2 * (2 * B * valid * KV * hd + 2 * B * glm.num_heads * hd) + 4,
         dtype="bfloat16")
 
     # the prefill rows here; the decode rows' (8 x 4,096) kernel time is
     # shorter than the host's launch of it, so events would time the host:
-    # phase 6 reads it from the decode step's profile instead
+    # the profiler's device time reads it below and in phase 6
+    d = glm.d_model
     x, w = inputs[f"fused_rmsnorm/{B * S}"]
     w1 = (1.0 + w.float()).to(x.dtype)
     results["fused_rmsnorm"].update(
-        ms=timer(lambda: rn_ops.rmsnorm(x, w, eps=cfg.norm_eps), 50),
-        plain_ms=timer(lambda: rn_ref.rmsnorm_ref(x, w, eps=cfg.norm_eps), 50),
+        ms=timer(lambda: rn_ops.rmsnorm(x, w, eps=glm.norm_eps), 50),
+        plain_ms=timer(lambda: rn_ref.rmsnorm_ref(x, w, eps=glm.norm_eps), 50),
         library_ms=timer(lambda: F.rms_norm(x, (d,), weight=w1,
-                                            eps=cfg.norm_eps), 50),
+                                            eps=glm.norm_eps), 50),
         flops=4 * B * S * d, bytes=2 * (2 * B * S * d + d), dtype="float32")
+
+    x8, w8 = inputs[f"fused_rmsnorm/{B}"]
+    w8_1 = (1.0 + w8.float()).to(x8.dtype)
+    for label, fn in (
+            ("kernel", lambda: rn_ops.rmsnorm(x8, w8, eps=glm.norm_eps)),
+            ("plain version", lambda: rn_ref.rmsnorm_ref(x8, w8,
+                                                         eps=glm.norm_eps)),
+            ("F.rms_norm", lambda: F.rms_norm(x8, (d,), weight=w8_1,
+                                              eps=glm.norm_eps))):
+        print(f"[time] fused_rmsnorm ({B}, {d}) bf16, {label}: "
+              f"{device_ms_per_call(torch, fn):.5f} ms of device time per call "
+              f"(profiler, 50 calls)  [{card}]", flush=True)
+
+    # the zamba2-7b shape goes into the summary; mamba2-130m's (N 128) is
+    # printed with its own bound
+    for label, _, _ in ssd_shapes[:2]:
+        x, dt, A, Bm, Cm, chunk = inputs[f"ssd/{label}"]
+        flops, nbytes = ssd_work(*x.shape[:3], Bm.shape[2], x.shape[3],
+                                 Bm.shape[3], chunk, x.element_size())
+        r = dict(
+            ms=timer(lambda: ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk,
+                                         use_pallas=True)),
+            plain_ms=timer(lambda: ssd_ref.ssd_chunked(x, dt, A, Bm, Cm,
+                                                       chunk=chunk), iters=5),
+            library_ms=None,            # no PyTorch call computes the scan
+            flops=flops, bytes=nbytes, dtype="bfloat16")
+        if label.startswith("zamba2"):
+            results["ssd"].update(r)
+        else:
+            bound = max(nbytes / PEAK_BYTES_PER_S,
+                        flops / PEAK_FLOPS["bfloat16"]) * 1e3
+            print(f"[time] ssd {label} {tuple(x.shape)} N {Bm.shape[3]}: "
+                  f"kernel {r['ms']:.4f} ms, bound {bound:.4f} ms "
+                  f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), plain "
+                  f"{r['plain_ms']:.4f} ms  [{card}]", flush=True)
 
     # host time to issue one call at the decode step's shapes: at batch 8 a
     # decode step is a chain of small launches, so this bounds its speed
-    x8, w8 = inputs[f"fused_rmsnorm/{B}"]
-    w8_1 = (1.0 + w8.float()).to(x8.dtype)
     qd, kd, vd, vld, sd = inputs["decode_attention"]
     for label, fn in (
             ("fused_rmsnorm wrapper (8 rows)",
-             lambda: rn_ops.rmsnorm(x8, w8, eps=cfg.norm_eps)),
+             lambda: rn_ops.rmsnorm(x8, w8, eps=glm.norm_eps)),
             ("decode_attention wrapper",
              lambda: da_ops.decode_attention(qd, kd, vd, vld, scale=sd)),
             ("F.rms_norm (8 rows)",
-             lambda: F.rms_norm(x8, (d,), weight=w8_1, eps=cfg.norm_eps)),
+             lambda: F.rms_norm(x8, (d,), weight=w8_1, eps=glm.norm_eps)),
             ("torch add (8 rows)", lambda: x8 + x8)):
         fn()
         torch.cuda.synchronize()
@@ -292,175 +474,20 @@ def main():
         t_ops = r["flops"] / PEAK_FLOPS[r["dtype"]] * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         print(f"[time] {name}: kernel {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%}"
-              f" of it), plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms  [{card}]", flush=True)
-    del inputs, q, k, v, x, w, w1
-
-    # ------------------------------------------------------------ 5. main path
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, seed=SEED, device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[main] {ARCH}: {cfg.num_layers} layers, d_model {d}, "
-          f"{n_params / 1e9:.3f} B params in bf16, random init in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    check(cfg.num_layers == 28 and d == 4096, "chatglm3-6b is not at full width")
-
-    torch.cuda.reset_peak_memory_stats()
-    for ops in (fa_ops, da_ops, rn_ops):
-        ops.launches = 0
-    res = serve_batch(cfg, n_requests=N_REQUESTS, prompt_len=PROMPT_LEN,
-                      max_new_tokens=NEW_TOKENS, seed=SEED, params=params,
-                      quiet=True, device=dev)
-    launches = {"flash_attention": fa_ops.launches,
-                "decode_attention": da_ops.launches,
-                "fused_rmsnorm": rn_ops.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    L = cfg.num_layers
-    want = {"flash_attention": L, "decode_attention": L * (NEW_TOKENS - 1),
-            "fused_rmsnorm": (2 * L + 1) * NEW_TOKENS}
-    print(f"[main] serve_batch: {N_REQUESTS} x {PROMPT_LEN} prompt tokens, "
-          f"{NEW_TOKENS} new tokens each, {res['wall_s']:.3f} s, "
-          f"{res['tokens_per_s']:.1f} new tokens/s, peak memory "
-          f"{peak_gb:.2f} GB; launches {launches}  [{card}]", flush=True)
-    check(launches == want, f"launch counts {launches} != {want}")
-    for name in results:
-        results[name]["launches"] = launches[name]
-    tokens = res["tokens"]
-    check(tuple(tokens.shape) == (N_REQUESTS, PROMPT_LEN + NEW_TOKENS),
-          f"output shape {tuple(tokens.shape)}")
-
-    # The kernel path against the plain path, both teacher-forced on the
-    # kernel path's own tokens, so every one of the 32 steps (prefill and 31
-    # decode steps) is compared on the same inputs. f32 is the decisive
-    # check: the kernels take f32, so the two paths differ only by the order
-    # of sums. In bf16 both paths round at other places; there the kernel
-    # path must stay as close to the f32 plain path as the bf16 plain path is.
-    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
-    prefill_s, decode_ms, logits = {}, {}, {}
-    runs = (("kernels", cfg, params), ("plain", plain_cfg, params))
-    for label, c, p in runs:
-        prefill_s[label], decode_ms[label], logits[label] = teacher_forced(
-            torch, c, p, tokens, S, S_cache, dev)
-    params32 = _tree_map(lambda t: t.float(), params)
-    for label, c in (("kernels", cfg), ("plain", plain_cfg)):
-        c32 = dataclasses.replace(c, dtype="float32")
-        _, _, logits[label + " f32"] = teacher_forced(
-            torch, c32, params32, tokens, S, S_cache, dev)
-    del params32
+              f" of it), plain {r['plain_ms']:.4f} ms, library {lib}  "
+              f"[{card}]", flush=True)
+    del inputs, q, k, v, x, w, w1, x8, w8, qd, kd, vd, dt, A, Bm, Cm
     torch.cuda.empty_cache()
-    V = cfg.vocab_size
-    for label, lg in logits.items():
-        check(bool(torch.isfinite(lg).all()), f"{label} logits not finite")
 
-    def rel(a, b):                    # per step: max|a - b| / max|b|
-        a, b = a[..., :V], b[..., :V]
-        return ((a - b).abs().amax(dim=(1, 2)) / b.abs().amax(dim=(1, 2)))
-
-    def agree(a, b):
-        return (a[..., :V].argmax(-1) == b[..., :V].argmax(-1)).float().mean()
-
-    truth = logits["plain f32"]
-    err32 = rel(logits["kernels f32"], truth)
-    control = rel(logits["kernels"], truth)
-    err16_k, err16_p = control, rel(logits["plain"], truth)
-    err16 = rel(logits["kernels"], logits["plain"])
-    replay = (logits["kernels"][..., :V].argmax(-1).t()
-              == tokens[:, S:].to(torch.int64)).float().mean().item()
-    print(f"[main] teacher-forced logits over {NEW_TOKENS} steps (prefill + "
-          f"{NEW_TOKENS - 1} decode steps), max|diff|/max|logit| per step, "
-          f"max over steps:", flush=True)
-    print(f"[main]   f32 kernels vs f32 plain: {err32.max().item():.3e} "
-          f"(prefill {err32[0].item():.3e}, decode steps "
-          f"{err32[1:].min().item():.3e}-{err32[1:].max().item():.3e}; "
-          f"tol {F32_LOGIT_TOL}); argmax agrees in "
-          f"{agree(logits['kernels f32'], truth).item():.1%}", flush=True)
-    print(f"[main]   bf16 control, bf16 kernels vs f32 plain: "
-          f"{control.max().item():.3e} (min over steps "
-          f"{control.min().item():.3e}; must exceed {F32_LOGIT_TOL})",
-          flush=True)
-    print(f"[main]   bf16 vs f32 plain: kernel path {err16_k.max().item():.3e},"
-          f" plain path {err16_p.max().item():.3e} (ratio "
-          f"{(err16_k.max() / err16_p.max()).item():.3f}, tol "
-          f"{BF16_ERR_RATIO}); bf16 kernels vs bf16 plain "
-          f"{err16.max().item():.3e} (prefill {err16[0].item():.3e}), argmax "
-          f"agrees in {agree(logits['kernels'], logits['plain']).item():.1%}",
-          flush=True)
-    print(f"[main]   the kernel path's replay reproduces serve_batch's greedy "
-          f"tokens in {replay:.1%} of {N_REQUESTS * NEW_TOKENS}", flush=True)
-    for label in ("kernels", "plain"):
-        print(f"[main] {label} path: prefill {prefill_s[label]:.4f} s "
-              f"({B * S / prefill_s[label]:.0f} prompt tokens/s), decode "
-              f"{decode_ms[label]:.3f} ms/step ({B * 1e3 / decode_ms[label]:.1f} "
-              f"tokens/s at batch {B})  [{card}]", flush=True)
-    check(err32.max().item() < F32_LOGIT_TOL,
-          f"f32 kernel path logits differ: {err32.tolist()}")
-    check(control.min().item() > F32_LOGIT_TOL,
-          f"the f32 tolerance does not tell bf16 apart: {control.tolist()}")
-    check((err16_k.max() / err16_p.max()).item() < BF16_ERR_RATIO,
-          f"bf16 kernel path further from f32 than the plain path: "
-          f"{err16_k.tolist()} vs {err16_p.tolist()}")
-    check(replay == 1.0, f"replay of the kernel path gives other tokens "
-          f"({replay:.1%})")
-    del logits, truth
-
-    # ------------------------------------ 6. where a step's device time goes
-    from torch.profiler import ProfilerActivity, profile
-
-    def breakdown(label, fn, step_ms):
-        """Device time by kernel over one call of fn, and the device's idle
-        share of the same call timed without the profiler (step_ms)."""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        # device-side events only (kernels, copies): CPU ops would count twice
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if str(getattr(e, "device_type", "")).endswith("CUDA")
-                and e.self_device_time_total > 0]
-        rows.sort(key=lambda r: -r[1])
-        busy_ms = sum(r[1] for r in rows)
-        print(f"[profile] {label}: device busy {busy_ms:.3f} ms of "
-              f"{step_ms:.3f} ms timed without the profiler "
-              f"({1 - busy_ms / step_ms:.1%} idle)  [{card}]", flush=True)
-        for key, ms, n in rows[:8]:
-            print(f"[profile]   {ms:9.3f} ms {n:5d}x  {key[:80]}")
-        return rows
-
-    batch = {"tokens": tokens[:, :S].contiguous(),
-             "positions": _positions(cfg, B, S, device=dev)}
-    prefill = make_prefill_step(cfg)
-    rows = {"prefill": breakdown("one prefill (kernel path)",
-                                 lambda: prefill(params, batch),
-                                 prefill_s["kernels"] * 1e3)}
-    lg, cache = prefill(params, batch)
-    cache = pad_cache(cache, cfg, S_cache)
-    step = make_decode_step(cfg)
-    db = {"tokens": sample(lg, None, 0.0, cfg.vocab_size),
-          "positions": _positions(cfg, B, 1, start=S, device=dev)}
-    rows["decode step"] = breakdown("one decode step (kernel path)",
-                                    lambda: step(params, db, cache),
-                                    decode_ms["kernels"])
-    # kernel times on the main path, from the device's own clock: the decode
-    # rows' RMSNorm has no other true time (see phase 4)
-    for where, key, what, nbytes in (
-            ("prefill", "rmsnorm_kernel", f"fused_rmsnorm ({B * S}, {d})",
-             results["fused_rmsnorm"]["bytes"]),
-            ("decode step", "rmsnorm_kernel", f"fused_rmsnorm ({B}, {d})",
-             2 * (2 * B * d + d)),
-            ("decode step", "decode_fwd",
-             f"decode_attention (B {B}, valid {S + 1})",
-             results["decode_attention"]["bytes"])):
-        hits = [(ms, n) for k, ms, n in rows[where] if key in k]
-        check(len(hits) == 1, f"no single {key} row in the {where} profile")
-        ms, n = hits[0]
-        print(f"[time] {what} bf16 in the {where}: {ms / n:.5f} ms per "
-              f"launch (profiler device time, {n} launches), bound "
-              f"{nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms (bytes)  [{card}]",
-              flush=True)
+    # ------------------------------------------------ 5. and 6. main paths
+    launches = {}
+    for arch in PATHS:
+        launches[arch] = serve_and_hold(torch, cfgs[arch], ops_of, card, dev)
+        torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- result
     print(f"[device] {card}")
@@ -474,10 +501,15 @@ def main():
              "src/repro/kernels/decode_attention/decode_attention.py:23"),
             ("fused_rmsnorm", "triton",
              "src/repro_torch/kernels/fused_rmsnorm/fused_rmsnorm.py",
-             "src/repro/kernels/fused_rmsnorm/fused_rmsnorm.py:13")):
+             "src/repro/kernels/fused_rmsnorm/fused_rmsnorm.py:13"),
+            ("ssd", "cuda", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+             "src/repro/kernels/ssd/ssd.py:29")):
         r = results[name]
+        by_path = {arch: launches[arch][name] for arch in PATHS}
         summary.append({"name": name, "route": route, "source": source,
-                        "replaces": replaces, "launches": r["launches"],
+                        "replaces": replaces,
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -485,6 +517,211 @@ def main():
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
+
+
+def serve_and_hold(torch, cfg, ops_of, card, dev):
+    """Phase 5 for one configuration (and phase 6 where it is profiled):
+    serve it at full width with the launch counts read around the call, hold
+    it teacher-forced against the plain path, free its weights. Returns the
+    launch counts."""
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import model as M
+
+    arch = cfg.name
+    B, S = N_REQUESTS, PROMPT_LEN
+    S_cache = PROMPT_LEN + NEW_TOKENS
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[main] {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B params in bf16, random init in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check((cfg.num_layers, cfg.d_model) == FULL_WIDTH[arch],
+          f"{arch} is not at full width")
+
+    torch.cuda.reset_peak_memory_stats()
+    for ops in ops_of.values():
+        ops.launches = 0
+    res = serve_batch(cfg, n_requests=N_REQUESTS, prompt_len=PROMPT_LEN,
+                      max_new_tokens=NEW_TOKENS, seed=SEED, params=params,
+                      quiet=True, device=dev)
+    launches = {name: ops.launches for name, ops in ops_of.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = want_launches(cfg)
+    print(f"[main] {arch} serve_batch: {N_REQUESTS} x {PROMPT_LEN} prompt "
+          f"tokens, {NEW_TOKENS} new tokens each, {res['wall_s']:.3f} s, "
+          f"{res['tokens_per_s']:.1f} new tokens/s, peak memory "
+          f"{peak_gb:.2f} GB; launches {launches}  [{card}]", flush=True)
+    check(launches == want, f"{arch} launch counts {launches} != {want}")
+    tokens = res["tokens"]
+    check(tuple(tokens.shape) == (N_REQUESTS, PROMPT_LEN + NEW_TOKENS),
+          f"{arch} output shape {tuple(tokens.shape)}")
+
+    # The kernel path against the plain path, both teacher-forced on the
+    # kernel path's own tokens, so every one of the 32 steps (prefill and 31
+    # decode steps) is compared on the same inputs. f32 is the decisive
+    # check: the kernels take f32, so the two paths differ only by the order
+    # of sums. In bf16 both paths round at other places; there the kernel
+    # path must stay as close to the f32 plain path as the bf16 plain path is.
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    prefill_s, decode_ms, logits = {}, {}, {}
+    for label, c in (("kernels", cfg), ("plain", plain_cfg)):
+        prefill_s[label], decode_ms[label], logits[label] = teacher_forced(
+            torch, c, params, tokens, S, S_cache, dev)
+    params32 = _tree_map(lambda t: t.float(), params)
+    for label, c in (("kernels", cfg), ("plain", plain_cfg)):
+        c32 = dataclasses.replace(c, dtype="float32")
+        _, _, logits[label + " f32"] = teacher_forced(
+            torch, c32, params32, tokens, S, S_cache, dev)
+    del params32
+    torch.cuda.empty_cache()
+    V = cfg.vocab_size
+    for label, lg in logits.items():
+        check(bool(torch.isfinite(lg).all()), f"{arch} {label} logits not finite")
+
+    def rel(a, b):                    # per step: max|a - b| / max|b|
+        a, b = a[..., :V], b[..., :V]
+        return ((a - b).abs().amax(dim=(1, 2)) / b.abs().amax(dim=(1, 2)))
+
+    def agree(a, b):
+        return (a[..., :V].argmax(-1) == b[..., :V].argmax(-1)).float().mean()
+
+    tol = F32_LOGIT_TOL
+    truth = logits["plain f32"]
+    err32 = rel(logits["kernels f32"], truth)
+    control = rel(logits["kernels"], truth)
+    err16_k, err16_p = control, rel(logits["plain"], truth)
+    err16 = rel(logits["kernels"], logits["plain"])
+    replay = (logits["kernels"][..., :V].argmax(-1).t()
+              == tokens[:, S:].to(torch.int64)).float().mean().item()
+    print(f"[main] {arch} teacher-forced logits over {NEW_TOKENS} steps "
+          f"(prefill + {NEW_TOKENS - 1} decode steps), max|diff|/max|logit| "
+          f"per step, max over steps:", flush=True)
+    print(f"[main]   f32 kernels vs f32 plain: {err32.max().item():.3e} "
+          f"(prefill {err32[0].item():.3e}, decode steps "
+          f"{err32[1:].min().item():.3e}-{err32[1:].max().item():.3e}; "
+          f"tol {tol}); argmax agrees in "
+          f"{agree(logits['kernels f32'], truth).item():.1%}", flush=True)
+    print(f"[main]   bf16 control, bf16 kernels vs f32 plain: "
+          f"{control.max().item():.3e} (min over steps "
+          f"{control.min().item():.3e}; must exceed {tol})", flush=True)
+    print(f"[main]   bf16 vs f32 plain: kernel path {err16_k.max().item():.3e},"
+          f" plain path {err16_p.max().item():.3e} (ratio "
+          f"{(err16_k.max() / err16_p.max()).item():.3f}, tol "
+          f"{BF16_ERR_RATIO}); bf16 kernels vs bf16 plain "
+          f"{err16.max().item():.3e} (prefill {err16[0].item():.3e}), argmax "
+          f"agrees in {agree(logits['kernels'], logits['plain']).item():.1%}",
+          flush=True)
+    print(f"[main]   the kernel path's replay reproduces serve_batch's greedy "
+          f"tokens in {replay:.1%} of {N_REQUESTS * NEW_TOKENS}", flush=True)
+    for label in ("kernels", "plain"):
+        print(f"[main] {arch} {label} path: prefill {prefill_s[label]:.4f} s "
+              f"({B * S / prefill_s[label]:.0f} prompt tokens/s), decode "
+              f"{decode_ms[label]:.3f} ms/step ({B * 1e3 / decode_ms[label]:.1f} "
+              f"tokens/s at batch {B})  [{card}]", flush=True)
+    check(err32.max().item() < tol,
+          f"{arch} f32 kernel path logits differ: {err32.tolist()}")
+    check(control.min().item() > tol,
+          f"{arch} the f32 tolerance does not tell bf16 apart: "
+          f"{control.tolist()}")
+    check((err16_k.max() / err16_p.max()).item() < BF16_ERR_RATIO,
+          f"{arch} bf16 kernel path further from f32 than the plain path: "
+          f"{err16_k.tolist()} vs {err16_p.tolist()}")
+    check(replay == 1.0, f"{arch} replay of the kernel path gives other "
+          f"tokens ({replay:.1%})")
+    del logits, truth
+    if arch in PROFILED:
+        profile_steps(torch, cfg, params, tokens, prefill_s["kernels"],
+                      decode_ms["kernels"], card, dev)
+    del params
+    return launches
+
+
+def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
+    """Phase 6: device time by kernel over one prefill and one decode step
+    of the kernel path, the device's idle share of each (against the same
+    call timed without the profiler), the decode step's host side (the ops
+    that take its host time, and the time to issue it with every wait on the
+    device forbidden), and the main path's kernels' device time per
+    launch."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed.serve_step import (make_decode_step,
+                                                    make_prefill_step,
+                                                    pad_cache, sample)
+    from repro_torch.launch.serve import _positions
+
+    arch = cfg.name
+    B, S = N_REQUESTS, PROMPT_LEN
+
+    def breakdown(label, fn, step_ms, host=False):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted(device_rows(prof), key=lambda r: -r[1])
+        busy_ms = sum(r[1] for r in rows)
+        print(f"[profile] {arch} {label}: device busy {busy_ms:.3f} ms of "
+              f"{step_ms:.3f} ms timed without the profiler "
+              f"({1 - busy_ms / step_ms:.1%} idle)  [{card}]", flush=True)
+        for key, ms, n in rows[:8]:
+            print(f"[profile]   {ms:9.3f} ms {n:5d}x  {key[:80]}")
+        if host:
+            ops = [e for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0 and e.key.startswith("aten::")]
+            ops.sort(key=lambda e: -e.self_cpu_time_total)
+            print(f"[profile] {arch} {label}, host: {sum(e.count for e in ops)} "
+                  f"aten op calls, {sum(e.self_cpu_time_total for e in ops) / 1e3:.3f}"
+                  f" ms of self host time under the profiler; the most:")
+            for e in ops[:8]:
+                print(f"[profile]   {e.self_cpu_time_total / 1e3:9.3f} ms "
+                      f"{e.count:5d}x  {e.key}")
+        return rows
+
+    batch = {"tokens": tokens[:, :S].contiguous(),
+             "positions": _positions(cfg, B, S, device=dev)}
+    prefill = make_prefill_step(cfg)
+    rows = {"prefill": breakdown("one prefill (kernel path)",
+                                 lambda: prefill(params, batch),
+                                 prefill_s * 1e3)}
+    lg, cache = prefill(params, batch)
+    cache = pad_cache(cache, cfg, S + NEW_TOKENS)
+    step = make_decode_step(cfg)
+    db = {"tokens": sample(lg, None, 0.0, cfg.vocab_size),
+          "positions": _positions(cfg, B, 1, start=S, device=dev)}
+    rows["decode step"] = breakdown("one decode step (kernel path)",
+                                    lambda: step(params, db, cache), decode_ms,
+                                    host=True)
+    # any call that waits on the device raises in this debug mode
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    step(params, db, cache)
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[profile] {arch} one decode step issued in {issue_ms:.3f} ms of "
+          f"host time without waiting on the device (of {decode_ms:.3f} ms "
+          f"per step)  [{card}]", flush=True)
+    # kernel times on the main path, from the device's own clock: the decode
+    # rows' RMSNorm has no other true time (see phase 4)
+    for where, key, what in (
+            ("prefill", "rmsnorm_kernel", f"fused_rmsnorm ({B * S} rows)"),
+            ("prefill", "flash_fwd", "flash_attention"),
+            ("prefill", "ssd_fwd", "ssd"),
+            ("decode step", "rmsnorm_kernel", f"fused_rmsnorm ({B} rows)"),
+            ("decode step", "decode_fwd",
+             f"decode_attention (B {B}, valid {S + 1})")):
+        hits = [(ms, n) for k, ms, n in rows[where] if key in k]
+        if not hits and key in ("flash_fwd", "ssd_fwd", "decode_fwd"):
+            continue                   # a path without this kernel
+        check(len(hits) == 1, f"no single {key} row in the {arch} {where} "
+              f"profile")
+        ms, n = hits[0]
+        print(f"[time] {arch} {what} bf16 in the {where}: {ms / n:.5f} ms per "
+              f"launch (profiler device time, {n} launches)  [{card}]",
+              flush=True)
+    del cache
 
 
 def teacher_forced(torch, c, params, tokens, S, S_cache, dev):

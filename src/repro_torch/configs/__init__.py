@@ -1,9 +1,9 @@
 """Architecture config registry of the PyTorch port.
 
 Only the architectures whose layer stack the port runs are registered: the
-dense code path (dense, audio and vlm families). The MoE, SSM and hybrid
-configs join with the slices that port their layers; until then
-``get_config`` raises ``KeyError`` for them.
+dense code path (dense, audio and vlm families), the SSM family (mamba2) and
+the hybrid family (zamba2). The MoE configs join with the slice that ports
+their layers; until then ``get_config`` raises ``KeyError`` for them.
 """
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ _ARCH_MODULES = {
     "gemma-7b": "gemma_7b",
     "stablelm-12b": "stablelm_12b",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "mamba2-130m": "mamba2_130m",
+    "zamba2-7b": "zamba2_7b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -4,11 +4,12 @@ The port keeps its own copy of the JAX package's ``ModelConfig`` so that it
 imports nothing of ``repro``. Every field, property and ``reduced()`` is the
 same, with one deliberate difference: ``use_pallas`` defaults to ``True`` and
 means "route the hot ops through the hand-written Hopper kernels"
-(flash attention in prefill, decode attention in every decode step, RMSNorm
-everywhere). The kernels' wrappers run their plain PyTorch version for CPU
-tensors, so the flag only changes what runs on a CUDA device.
-``use_pallas=False`` selects the plain attention path (``attn_weights_core``)
-and the plain norm, exactly as it selects XLA in the JAX package.
+(flash attention in prefill, decode attention in every decode step, the
+SSD scan in every Mamba2 prefill, RMSNorm everywhere). The kernels' wrappers
+run their plain PyTorch version for CPU tensors, so the flag only changes
+what runs on a CUDA device. ``use_pallas=False`` selects the plain attention
+path (``attn_weights_core``), the plain ``ssd_chunked`` and the plain norm,
+exactly as it selects XLA in the JAX package.
 """
 from __future__ import annotations
 

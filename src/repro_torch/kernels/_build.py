@@ -22,7 +22,7 @@ KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-CUDA_KERNELS = ("flash_attention", "decode_attention")
+CUDA_KERNELS = ("flash_attention", "decode_attention", "ssd")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,16 +1,21 @@
-"""The decoder-LM trunk of the port: the dense code path.
+"""The decoder-LM trunk of the port: three families of layer stack.
 
   * dense / audio / vlm : [norm -> attn, norm -> mlp] x L over stacked params
+  * ssm (mamba2)        : [norm -> mamba2] x L
+  * hybrid (zamba2)     : groups of ``attn_every`` mamba2 layers, each group
+                          followed by ONE weight-shared attention+MLP block,
+                          then the tail of leftover mamba2 layers
 
-The MoE, SSM and hybrid families join with their slices; until then
-``init_params``, ``init_cache``, ``forward`` and ``decode`` raise
-``NotImplementedError`` for them.
+The MoE family and MLA join with their slice; until then ``init_params``,
+``init_cache``, ``forward`` and ``decode`` raise ``NotImplementedError`` for
+them.
 
-Layers are stacked (leading L dim) as in the JAX package, so weights cross
-the bridge unchanged. JAX's ``lax.scan`` becomes a Python loop over
-leading-dim slices (views, no copies). ``cfg.remat`` and ``cfg.scan_layers``
-are read and ignored: this serving slice keeps no activations for a backward
-pass, and training will bring ``torch.utils.checkpoint`` for ``remat``.
+Layers are stacked (leading L dim; the hybrid's groups carry two leading
+dims, (n_groups, attn_every)) as in the JAX package, so weights cross the
+bridge unchanged. JAX's ``lax.scan`` becomes a Python loop over leading-dim
+slices (views, no copies). ``cfg.remat`` and ``cfg.scan_layers`` are read and
+ignored: this serving slice keeps no activations for a backward pass, and
+training will bring ``torch.utils.checkpoint`` for ``remat``.
 
 Modes: ``forward(..., mode='train')`` full logits; ``mode='prefill'`` last-token
 logits + filled caches; ``decode(...)`` single-token step against caches,
@@ -26,29 +31,46 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 
 Params = Dict[str, Any]
 
-_DENSE_FAMILIES = ("dense", "audio", "vlm")
+_PORTED_FAMILIES = ("dense", "audio", "vlm", "ssm", "hybrid")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family not in _DENSE_FAMILIES or cfg.use_mla:
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in _PORTED_FAMILIES or cfg.use_mla:
+        what = "MLA attention" if cfg.use_mla else f"family {cfg.family!r}"
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            f"runs the dense/audio/vlm path)")
+            f"{cfg.name}: {what} is not ported yet (the port runs the "
+            f"dense/audio/vlm, ssm and hybrid paths)")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _layer(tree, i: int):
-    """Slice i of every stacked leaf (views)."""
+def _layer(tree, i):
+    """Slice i of every stacked leaf (views); i is an int, or a tuple
+    (group, layer) for the hybrid's two leading dims."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _stack(trees):
+    """Per-layer dicts of tensors -> one dict of tensors stacked on a new
+    leading dim."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _hybrid_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(#full groups of ``attn_every`` ssm layers, #tail ssm layers)."""
+    g = cfg.num_layers // cfg.attn_every
+    return g, cfg.num_layers - g * cfg.attn_every
 
 
 # ================================================================ block: dense
@@ -76,12 +98,40 @@ def dense_block_decode(p, x, cfg: ModelConfig, positions, cache, index):
     return x + L.mlp(p["mlp"], h, cfg), {"k": ck, "v": cv}
 
 
+# ================================================================== block: ssm
+def init_ssm_block(gen, cfg: ModelConfig, dtype, device, lead=()):
+    return {"norm1": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
+            "ssm": ssm.init_mamba2(gen, cfg, dtype, device, lead)}
+
+
+def ssm_block_full(p, x, cfg: ModelConfig, *, return_cache: bool):
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, cfg.use_pallas)
+    h, cache = ssm.mamba2_full(p["ssm"], h, cfg, return_cache=return_cache)
+    return x + h, cache
+
+
+def ssm_block_decode(p, x, cfg: ModelConfig, cache):
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, cfg.use_pallas)
+    h, cache = ssm.mamba2_decode(p["ssm"], h, cfg, cache)
+    return x + h, cache
+
+
+def _ssm_stack_full(stacked, n: int, x, cfg: ModelConfig, prefill: bool):
+    """The n mamba2 blocks of a stack in order; their prefill caches stacked
+    (or None)."""
+    caches = []
+    for i in range(n):
+        x, c = ssm_block_full(_layer(stacked, i), x, cfg, return_cache=prefill)
+        caches.append(c)
+    return x, (_stack(caches) if prefill else None)
+
+
 # ====================================================================== params
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random weights with the JAX package's distributions, drawn from one
     ``torch.Generator`` seeded with ``seed`` and created on ``device``.
     (The bits differ from JAX's: tests carry JAX's weights over the bridge.)"""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = torch_dtype(cfg)
@@ -93,8 +143,20 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     if not cfg.tie_embeddings:
         params["unembed"] = L.init_linear(gen, cfg.d_model, cfg.padded_vocab,
                                           dtype, dev)
-    params["layers"] = init_dense_block(gen, cfg, dtype, dev,
-                                        lead=(cfg.num_layers,))
+    if cfg.family == "ssm":
+        params["layers"] = init_ssm_block(gen, cfg, dtype, dev,
+                                          lead=(cfg.num_layers,))
+    elif cfg.family == "hybrid":
+        n_groups, tail = _hybrid_layout(cfg)
+        params["ssm_groups"] = init_ssm_block(
+            gen, cfg, dtype, dev, lead=(n_groups, cfg.attn_every))
+        if tail:
+            params["ssm_tail"] = init_ssm_block(gen, cfg, dtype, dev,
+                                                lead=(tail,))
+        params["shared_attn"] = init_dense_block(gen, cfg, dtype, dev)
+    else:
+        params["layers"] = init_dense_block(gen, cfg, dtype, dev,
+                                            lead=(cfg.num_layers,))
     return params
 
 
@@ -102,14 +164,40 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> Dict[str, Any]:
     """Preallocated decoding caches (stacked over layers), plus ``index``
-    (a 0-dim int32 tensor on the device, as in JAX)."""
-    _require_dense(cfg)
+    (a 0-dim int32 tensor on the device, as in JAX). Mamba2 layers keep
+    their last K-1 conv inputs and an f32 state; attention keeps K/V."""
+    _require_ported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     dtype = torch_dtype(cfg)
-    return {"index": torch.zeros((), dtype=torch.int32, device=dev),
-            "layers": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                       "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def gqa_cache(n_layers):
+        shape = (n_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": zeros(shape), "v": zeros(shape)}
+
+    def ssm_cache(lead):
+        K, di, GN = cfg.ssm_conv, cfg.ssm_d_inner, cfg.ssm_groups * cfg.ssm_state
+        return {"conv_x": zeros((*lead, batch, K - 1, di)),
+                "conv_B": zeros((*lead, batch, K - 1, GN)),
+                "conv_C": zeros((*lead, batch, K - 1, GN)),
+                "state": zeros((*lead, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                cfg.ssm_state), torch.float32)}
+
+    cache: Dict[str, Any] = {"index": torch.zeros((), dtype=torch.int32,
+                                                  device=dev)}
+    if cfg.family == "ssm":
+        cache["layers"] = ssm_cache((cfg.num_layers,))
+    elif cfg.family == "hybrid":
+        n_groups, tail = _hybrid_layout(cfg)
+        cache["ssm_groups"] = ssm_cache((n_groups, cfg.attn_every))
+        if tail:
+            cache["ssm_tail"] = ssm_cache((tail,))
+        cache["attn"] = gqa_cache(n_groups)
+    else:
+        cache["layers"] = gqa_cache(cfg.num_layers)
+    return cache
 
 
 # ===================================================================== forward
@@ -139,22 +227,47 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill', got {mode!r}")
-    _require_dense(cfg)
+    _require_ported(cfg)
     prefill = mode == "prefill"
     positions = batch["positions"]
     x = _inputs_to_h(params, cfg, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: Dict[str, Any] = {}
 
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, kv = dense_block_full(_layer(params["layers"], i), x, cfg, positions,
-                                 return_kv=prefill)
+    if cfg.family == "ssm":
+        x, caches["layers"] = _ssm_stack_full(params["layers"], cfg.num_layers,
+                                              x, cfg, prefill)
+    elif cfg.family == "hybrid":
+        n_groups, tail = _hybrid_layout(cfg)
+        shared = params["shared_attn"]
+        ssm_caches, ks, vs = [], [], []
+        for g in range(n_groups):
+            x, c = _ssm_stack_full(_layer(params["ssm_groups"], g),
+                                   cfg.attn_every, x, cfg, prefill)
+            x, kv = dense_block_full(shared, x, cfg, positions,
+                                     return_kv=prefill)
+            if prefill:
+                ssm_caches.append(c)
+                ks.append(kv[0])
+                vs.append(kv[1])
+        if tail:
+            x, tail_c = _ssm_stack_full(params["ssm_tail"], tail, x, cfg,
+                                        prefill)
         if prefill:
-            ks.append(kv[0])
-            vs.append(kv[1])
-    if prefill:
-        caches["layers"] = _kv_dict(cfg, (torch.stack(ks), torch.stack(vs)))
+            caches["ssm_groups"] = _stack(ssm_caches)
+            if tail:
+                caches["ssm_tail"] = tail_c
+            caches["attn"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    else:
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            x, kv = dense_block_full(_layer(params["layers"], i), x, cfg,
+                                     positions, return_kv=prefill)
+            if prefill:
+                ks.append(kv[0])
+                vs.append(kv[1])
+        if prefill:
+            caches["layers"] = _kv_dict(cfg, (torch.stack(ks), torch.stack(vs)))
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, cfg.use_pallas)
     if prefill:
@@ -174,18 +287,36 @@ def decode(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
            cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step. batch: tokens (B,1) or embeds (B,1,d) + positions.
 
-    Writes the new K/V rows into ``cache``'s tensors in place and returns
-    (logits (B,1,V), new_cache), where new_cache shares those tensors and
-    carries ``index + 1``. Nothing here waits on the device."""
-    _require_dense(cfg)
+    Writes the new K/V rows, conv windows and SSM states into ``cache``'s
+    tensors in place and returns (logits (B,1,V), new_cache), where new_cache
+    shares those tensors and carries ``index + 1``. Nothing here waits on the
+    device."""
+    _require_ported(cfg)
     index = cache["index"]
     positions = batch["positions"]
     x = _inputs_to_h(params, cfg, batch)
-    new_cache: Dict[str, Any] = {"index": index + 1}
-    layer_caches = cache["layers"]
-    for i in range(cfg.num_layers):
-        x, _ = dense_block_decode(_layer(params["layers"], i), x, cfg,
-                                  positions, _layer(layer_caches, i), index)
-    new_cache["layers"] = layer_caches
+    new_cache: Dict[str, Any] = {**cache, "index": index + 1}
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            x, _ = ssm_block_decode(_layer(params["layers"], i), x, cfg,
+                                    _layer(cache["layers"], i))
+    elif cfg.family == "hybrid":
+        n_groups, tail = _hybrid_layout(cfg)
+        shared = params["shared_attn"]
+        for g in range(n_groups):
+            for i in range(cfg.attn_every):
+                x, _ = ssm_block_decode(_layer(params["ssm_groups"], (g, i)),
+                                        x, cfg,
+                                        _layer(cache["ssm_groups"], (g, i)))
+            x, _ = dense_block_decode(shared, x, cfg, positions,
+                                      _layer(cache["attn"], g), index)
+        for i in range(tail):
+            x, _ = ssm_block_decode(_layer(params["ssm_tail"], i), x, cfg,
+                                    _layer(cache["ssm_tail"], i))
+    else:
+        for i in range(cfg.num_layers):
+            x, _ = dense_block_decode(_layer(params["layers"], i), x, cfg,
+                                      positions, _layer(cache["layers"], i),
+                                      index)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, cfg.use_pallas)
     return _logits(params, cfg, x), new_cache

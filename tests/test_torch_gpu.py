@@ -21,6 +21,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
 from repro_torch.kernels.fused_rmsnorm import ref as rn_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.launch.serve import _positions, serve_batch
 from repro_torch.models import model as M
 
@@ -99,9 +101,11 @@ def test_decode_kernel_vs_plain(cuda, shape, valid, dtype):
 
 
 def test_decode_kernel_valid_len_zero_returns_zeros(cuda):
-    """With no valid cache row the kernel reads nothing and returns zeros;
-    the plain versions (and the JAX package) softmax over an all-masked row
-    and return the mean of V instead. The model never asks for this
+    """With no valid cache row the kernel reads nothing and returns zeros,
+    as the JAX package's Pallas kernel does (no kv block runs, and its
+    finaliser divides a zero accumulator by max(l, 1e-30)); only the plain
+    versions (``ref.py``, here and in the JAX package) softmax over an
+    all-masked row and return the mean of V. The model never asks for this
     (valid_len = index + 1 >= 1)."""
     rng = np.random.default_rng(3)
     q = _randn(rng, (2, 1, 4, 32), torch.float32, cuda)
@@ -129,6 +133,82 @@ def test_rmsnorm_kernel_vs_plain(triton_cuda, rows, d, dtype):
     assert err < (2e-5 if dtype == "float32" else 0.05), f"{rows}x{d}: {err}"
 
 
+def _ssd_inputs(rng, shape, dtype, device):
+    B, S, H, G, P, N = shape
+    x = _randn(rng, (B, S, H, P), dtype, device)
+    dt = torch.nn.functional.softplus(_randn(rng, (B, S, H), torch.float32,
+                                             device))
+    A = -torch.exp(torch.from_numpy(rng.uniform(0.0, 2.0, H).astype(
+        np.float32)).to(device))
+    Bm = _randn(rng, (B, S, G, N), dtype, device)
+    Cm = _randn(rng, (B, S, G, N), dtype, device)
+    return x, dt, A, Bm, Cm
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / (b.float().abs().max() + 1e-9)).item()
+
+
+# relative, as the JAX package's test_ssd_pallas_vs_naive: f32 differs by the
+# order of sums; bf16 adds one rounding of y
+SSD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,chunk", [
+    ((2, 128, 4, 1, 32, 64), 32), ((1, 96, 4, 2, 16, 32), 32),
+    ((1, 256, 2, 1, 64, 128), 128), ((1, 1000, 8, 2, 64, 64), 256),
+    ((2, 1024, 16, 1, 64, 64), 256), ((2, 300, 4, 1, 64, 128), 256),
+    ((1, 12, 2, 1, 16, 16), 32)])
+def test_ssd_kernel_vs_plain(cuda, shape, chunk, dtype):
+    """Ragged tails (1,000 and 300 rows at chunk 256, 96 at 32), grouped
+    B/C, N 16-128, chunk longer than the sequence; in f32 against the
+    recurrence, in bf16 against the chunked plain version."""
+    rng = np.random.default_rng(4)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, shape, DTYPES[dtype], cuda)
+    n0 = ssd_ops.launches
+    y, h = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk, use_pallas=True)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == n0 + 1
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert h.dtype == torch.float32 and h.shape == (
+        shape[0], shape[2], shape[4], shape[5])
+    # the f32 oracle is the recurrence: at chunk 256 the plain ssd_chunked is
+    # itself ~1e-5 from it (exponents from differences of large f32 prefix
+    # sums), which the kernel avoids by keeping its prefix sums in f64
+    if dtype == "float32":
+        y0, h0 = ssd_ref.ssd_naive(x, dt, A, Bm, Cm)
+    else:
+        y0, h0 = ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+    err = max(_rel(y, y0), _rel(h, h0))
+    assert err < SSD_TOL[dtype], f"{shape} {dtype}: {err}"
+
+
+def test_ssd_kernel_vs_naive(cuda):
+    rng = np.random.default_rng(5)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, (2, 70, 4, 2, 32, 32), torch.float32,
+                                   cuda)
+    y, h = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=32, use_pallas=True)
+    y0, h0 = ssd_ref.ssd_naive(x, dt, A, Bm, Cm)
+    assert max(_rel(y, y0), _rel(h, h0)) < 1e-5
+
+
+def test_ssd_kernel_refuses_h0_and_odd_shapes(cuda):
+    rng = np.random.default_rng(6)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, (1, 64, 2, 1, 16, 16), torch.float32,
+                                   cuda)
+    with pytest.raises(ValueError, match="h0"):
+        ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=32, use_pallas=True,
+                    h0=torch.zeros(1, 2, 16, 16, device=cuda))
+    with pytest.raises(ValueError):                 # head dim 128 > 64
+        ssd_ops.ssd(*_ssd_inputs(rng, (1, 64, 2, 1, 128, 16), torch.float32,
+                                 cuda), chunk=32, use_pallas=True)
+    with pytest.raises(ValueError):                 # chunk 512 > 256
+        ssd_ops.ssd(*_ssd_inputs(rng, (1, 600, 2, 1, 16, 16), torch.float32,
+                                 cuda), chunk=512, use_pallas=True)
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(1, 8, 2, 24, device=cuda)          # head_dim 24
     with pytest.raises(ValueError):
@@ -138,9 +218,12 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fa_ops.flash_attention(q, q, q, scale=1.0)
 
 
-@pytest.mark.parametrize("arch", ["chatglm3-6b", "stablelm-3b", "qwen2-vl-7b"])
-def test_model_kernel_path_matches_plain_path(triton_cuda, arch):
-    cfg = get_smoke_config(arch, dtype="float32")
+@pytest.mark.parametrize("arch,over", [
+    ("chatglm3-6b", {}), ("stablelm-3b", {}), ("qwen2-vl-7b", {}),
+    ("mamba2-130m", {}), ("zamba2-7b", {}),
+    ("zamba2-7b", {"num_layers": 5, "attn_every": 2})])
+def test_model_kernel_path_matches_plain_path(triton_cuda, arch, over):
+    cfg = get_smoke_config(arch, dtype="float32", **over)
     params = M.init_params(cfg, seed=0, device=triton_cuda)
     B, S = 2, 40
     gen = torch.Generator(device=triton_cuda).manual_seed(0)
@@ -173,3 +256,20 @@ def test_serve_batch_runs_every_kernel(triton_cuda):
     assert da_ops.launches == L * (new - 1)
     assert rn_ops.launches == (2 * L + 1) * new
     assert res["tokens"].shape == (n, 24 + new)
+
+
+def test_serve_batch_runs_every_kernel_hybrid(triton_cuda):
+    """zamba2's smoke config with a tail: 2 groups of 2 SSM layers, each
+    followed by the shared attention block, then 1 tail layer."""
+    cfg = get_smoke_config("zamba2-7b", num_layers=5, attn_every=2)
+    for ops in (fa_ops, da_ops, rn_ops, ssd_ops):
+        ops.launches = 0
+    n, new = 3, 5
+    res = serve_batch(cfg, n_requests=n, prompt_len=40, max_new_tokens=new,
+                      quiet=True, device=triton_cuda)
+    groups = 2
+    assert ssd_ops.launches == cfg.num_layers
+    assert fa_ops.launches == groups
+    assert da_ops.launches == groups * (new - 1)
+    assert rn_ops.launches == (2 * cfg.num_layers + 2 * groups + 1) * new
+    assert res["tokens"].shape == (n, 40 + new)

@@ -20,6 +20,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
 from repro_torch.kernels.fused_rmsnorm import ref as rn_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -114,6 +115,24 @@ def test_rmsnorm_vs_jax_pallas(rows, d, dtype):
     assert _err(got, oracle) < tol
 
 
+def test_jax_decode_kernel_at_valid_len_zero_returns_zeros():
+    """The JAX package's Pallas decode kernel runs no kv block at
+    valid_len 0 and divides a zero accumulator by max(l, 1e-30): zeros, as
+    the port's CUDA kernel returns (tests/test_torch_gpu.py). Only the plain
+    versions, the JAX oracle and ``ref.decode_attention_ref``, return the
+    mean of V there."""
+    from repro.kernels.decode_attention.decode_attention import (
+        decode_attention_bhd)
+    (jq, q), (jk, k) = _inputs([(2, 4, 1, 32), (2, 2, 128, 32)], "float32")
+    got = decode_attention_bhd(jq, jk, jk, jnp.int32(0), scale=0.1,
+                               block_k=64, interpret=True)
+    assert got.shape == (2, 4, 1, 32)
+    assert float(jnp.max(jnp.abs(got))) == 0.0
+    plain = da_ref.decode_attention_ref(q, k, k, 0, scale=0.1)
+    mean_v = k.mean(dim=2, keepdim=True).repeat_interleave(2, dim=1)
+    torch.testing.assert_close(plain, mean_v, rtol=1e-5, atol=1e-6)
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.zeros(2, 4, 2, 16, device="meta")
     with pytest.raises(ValueError):
@@ -124,6 +143,10 @@ def test_wrappers_refuse_other_devices():
                                             device="meta"), scale=1.0)
     with pytest.raises(ValueError):
         rn_ops.rmsnorm(x, torch.zeros(16, device="meta"))
+    dt = torch.zeros(2, 4, 2, device="meta")
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(x, dt, torch.zeros(2, device="meta"), x, x, chunk=4,
+                    use_pallas=True)
 
 
 def test_decode_wrapper_takes_valid_len_only_as_a_tensor():
@@ -132,3 +155,14 @@ def test_decode_wrapper_takes_valid_len_only_as_a_tensor():
     q, k = torch.zeros(1, 1, 2, 16), torch.zeros(1, 8, 1, 16)
     with pytest.raises(TypeError):
         da_ops.decode_attention(q, k, k, 3, scale=1.0)
+
+
+def test_every_cuda_source_is_built():
+    """``build_all`` builds every ``csrc/<name>.cu`` of the kernels, the SSD
+    scan's included, and nothing else."""
+    from repro_torch.kernels import _build
+    sources = {p.stem for p in _build.KERNELS_DIR.glob("*/csrc/*.cu")}
+    assert sources == set(_build.CUDA_KERNELS) == {
+        "flash_attention", "decode_attention", "ssd"}
+    for name in _build.CUDA_KERNELS:
+        assert _build._source(name).is_file()

@@ -1,8 +1,9 @@
-"""The port's dense model path against the JAX package, at f32, with the JAX
+"""The port's model path against the JAX package, at f32, with the JAX
 weights carried over the bridge: train logits, prefill logits + caches, and
-one decode step, for the six dense-path smoke configs, with the port's
-kernel flag on (its wrappers take their plain versions on CPU tensors) and
-off. JAX runs ``use_pallas=False``, the path its own model tests hold.
+one decode step, for the six dense-path smoke configs and the ssm
+(mamba2-130m) and hybrid (zamba2-7b) ones, with the port's kernel flag on
+(its wrappers take their plain versions on CPU tensors) and off. JAX runs
+``use_pallas=False``, the path its own model tests hold.
 
 Tolerance: 1e-4 absolute and relative; the same f32 math through two layers,
 with sums in matmuls taken in another order.
@@ -24,6 +25,8 @@ from repro_torch.models import model as M
 
 DENSE_ARCHS = ["stablelm-3b", "stablelm-12b", "chatglm3-6b", "gemma-7b",
                "musicgen-medium", "qwen2-vl-7b"]
+SSM_ARCHS = ["mamba2-130m", "zamba2-7b"]
+ARCHS = DENSE_ARCHS + SSM_ARCHS
 TOL = 1e-4
 
 
@@ -52,8 +55,19 @@ def _close(port, ref):
     np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
 
 
+def _close_tree(port, ref):
+    """Every leaf of a cache, with the same keys on both sides."""
+    if isinstance(port, dict):
+        assert port.keys() == ref.keys()
+        for k in port:
+            _close_tree(port[k], ref[k])
+    else:
+        assert tuple(port.shape) == tuple(np.shape(ref))
+        _close(port, ref)
+
+
 @pytest.mark.parametrize("use_pallas", [True, False])
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_train_logits_match_jax(arch, use_pallas):
     jcfg, cfg, jparams, params = _setup(arch, use_pallas)
     nb, tb = _batch(cfg, 2, 16)
@@ -64,7 +78,7 @@ def test_train_logits_match_jax(arch, use_pallas):
 
 
 @pytest.mark.parametrize("use_pallas", [True, False])
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_step_match_jax(arch, use_pallas):
     jcfg, cfg, jparams, params = _setup(arch, use_pallas)
     B, S = 2, 12
@@ -74,8 +88,7 @@ def test_prefill_and_decode_step_match_jax(arch, use_pallas):
     _close(tl, jl)
     assert int(tc["index"]) == int(jc["index"]) == S
     assert tc["index"].dtype == torch.int32 and tc["index"].ndim == 0
-    for name in ("k", "v"):
-        _close(tc["layers"][name], jc["layers"][name])
+    _close_tree(tc, jc)
 
     from repro.distributed.serve_step import pad_cache as jpad_cache
     jc = jpad_cache(jc, jcfg, S + 3)
@@ -85,11 +98,10 @@ def test_prefill_and_decode_step_match_jax(arch, use_pallas):
     td_logits, tnc = M.decode(params, cfg, td, tc)
     _close(td_logits, jd)
     assert int(tnc["index"]) == S + 1
-    for name in ("k", "v"):
-        _close(tnc["layers"][name], jnc["layers"][name])
+    _close_tree(tnc, jnc)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_shapes(arch):
     cfg = get_smoke_config(arch)
     B, S = 2, 16
@@ -111,7 +123,7 @@ def test_prefill_and_decode_shapes(arch):
     assert int(nc["index"]) == S + 1
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_full_forward(arch):
     """Sequential decode from an empty cache == teacher-forced forward."""
     cfg = get_smoke_config(arch, dtype="float32")
@@ -133,8 +145,7 @@ def test_decode_matches_full_forward(arch):
     assert rel < 2e-3, f"{arch}: decode/forward mismatch rel={rel:.2e}"
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b",
-                                  "deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b"])
 def test_unported_families_are_refused(arch):
     with pytest.raises(KeyError):
         get_smoke_config(arch)
@@ -148,12 +159,13 @@ def test_unported_families_are_refused(arch):
 
 
 def test_config_copies_match_the_jax_configs():
-    """The port's own copies of the dense configs and ModelConfig agree with
-    the JAX package field by field, except the deliberate use_pallas default."""
+    """The port's own copies of the dense, ssm and hybrid configs and
+    ModelConfig agree with the JAX package field by field, except the
+    deliberate use_pallas default."""
     import dataclasses
     from repro.configs import get_config as jget
     from repro_torch.configs import get_config
-    for arch in DENSE_ARCHS:
+    for arch in ARCHS:
         a, b = dataclasses.asdict(get_config(arch)), dataclasses.asdict(jget(arch))
         assert a.pop("use_pallas") is True and b.pop("use_pallas") is False
         assert a == b, arch
