@@ -7,12 +7,17 @@ card, ``nvcc`` (``/usr/local/cuda``) and Triton, and fails without them.
 Phases, each printing its lines; any failed check exits non-zero:
   1. device: the card's name, count and power limit;
   2. build: every CUDA kernel from the checkout's sources (one nvcc per
-     source, in parallel), with ptxas' registers and spills;
+     source, in parallel), with ptxas' registers and spills, and the tensor
+     core instructions in the SASS (cuobjdump): HGMMA (wgmma) in every bf16
+     flash-attention instantiation, HMMA (mma.sync) in every bf16
+     decode-attention one;
   3. kernel vs plain: each kernel's wrapper on CUDA tensors at the main
      paths' shapes against its plain PyTorch version, tolerance stated;
   4. kernel times (CUDA events, L2 flushed before each launch) beside the
      least time the card could take, the plain version and a library call;
-     the 8-row RMSNorm's from the profiler's device time;
+     the 8-row RMSNorm's from the profiler's device time; flash and decode
+     attention also at zamba2-7b's shape, beside SDPA, and decode attention's
+     device time per call from the profiler (split and combine kernels);
   5. main paths, each served with ``serve_batch`` at full width with random
      bf16 weights from a seed: 8 requests of 1,024 prompt tokens, 32 greedy
      new tokens, with the kernels' launch counts set to 0 just before and
@@ -159,6 +164,34 @@ def ssd_work(B, S, H, G, P, N, chunk, itemsize):
     return flops, nbytes
 
 
+def add_bound(r):
+    """The least time the card could take for a kernel's work: its bytes
+    over the memory rate or its operations over the peak rate of their
+    type, whichever is larger."""
+    t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
+    t_ops = r["flops"] / PEAK_FLOPS[r["dtype"]] * 1e3
+    r["bound_ms"] = max(t_bytes, t_ops)
+    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sass_counts(lib_path, opcode):
+    """{kernel function: count of `opcode` instructions} in a built library's
+    SASS (cuobjdump from the toolkit that built it)."""
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(rf"\b{opcode}\b", line):
+            counts[fn] += 1
+    return counts
+
+
 def want_launches(cfg):
     """Kernel launches of one serve_batch: prefill + NEW_TOKENS - 1 decode
     steps, RMSNorm in every step (2 per block, 1 final), flash attention in
@@ -219,6 +252,19 @@ def main():
               f"bytes)")
     print(f"[build] CUDA kernels built in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # the bf16 kernels run on the tensor cores: flash attention through wgmma
+    # (HGMMA), decode attention through mma.sync (HMMA)
+    for name, kernel, opcode in (("flash_attention", "flash_fwd_wgmma", "HGMMA"),
+                                 ("decode_attention", "decode_fwd_split_mma",
+                                  "HMMA")):
+        counts = sass_counts(_build._target(name), opcode)
+        tc = {fn: n for fn, n in counts.items() if kernel in fn}
+        print(f"[build] {name} SASS: {sum(tc.values())} {opcode} in "
+              f"{len(tc)} bf16 {kernel} instantiations (min "
+              f"{min(tc.values(), default=0)} each), "
+              f"{sum(counts.values()) - sum(tc.values())} elsewhere", flush=True)
+        check(tc and min(tc.values()) > 0,
+              f"a bf16 {kernel} instantiation has no {opcode}: {tc}")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -313,9 +359,10 @@ def main():
             print(f"[check] flash_attention {label} {shape} {dtype_name}: "
                   f"max|err| {err:.3e} (tol {tol})", flush=True)
             check(err < tol, f"flash_attention {shape} {dtype_name}: {err}")
-            if dtype_name == "bfloat16" and label.startswith("chatglm"):
-                results["flash_attention"] = {"max_abs_err": err}
-                inputs["flash_attention"] = args
+            if dtype_name == "bfloat16" and "prefill" in label:
+                inputs[f"flash_attention/{label.split()[0]}"] = args
+                if label.startswith("chatglm"):
+                    results["flash_attention"] = {"max_abs_err": err}
         for label, (h, kv, dh), valid in (
                 ("chatglm3-6b", (glm.num_heads, glm.num_kv_heads, glm.head_dim),
                  PROMPT_LEN + 1),
@@ -329,10 +376,10 @@ def main():
             print(f"[check] decode_attention {label} {shape} valid_len {valid} "
                   f"{dtype_name}: max|err| {err:.3e} (tol {tol})", flush=True)
             check(err < tol, f"decode_attention {shape}@{valid}: {err}")
-            if (dtype_name == "bfloat16" and label == "chatglm3-6b"
-                    and valid == PROMPT_LEN + 1):
-                results["decode_attention"] = {"max_abs_err": err}
-                inputs["decode_attention"] = args
+            if dtype_name == "bfloat16" and valid == PROMPT_LEN + 1:
+                inputs[f"decode_attention/{label}"] = args
+                if label == "chatglm3-6b":
+                    results["decode_attention"] = {"max_abs_err": err}
         for rows in (B * S, B):
             for dim in (glm.d_model, zam.d_model, zam.ssm_d_inner, mam.d_model,
                         mam.ssm_d_inner):
@@ -370,35 +417,67 @@ def main():
 
     # ------------------------------------------------------- 4. kernel times
     timer = Timer(torch)
-    hd = glm.head_dim
-    q, k, v, scale = inputs["flash_attention"]
-    pairs = B * glm.num_heads * S * (S + 1) // 2          # causal (q, k) pairs
-    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())  # q, o, k, v in bf16
-    results["flash_attention"].update(
-        ms=timer(lambda: fa_ops.flash_attention(q, k, v, scale=scale)),
-        plain_ms=timer(lambda: fa_ref.attention_ref(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale),
-            iters=5),
-        library_ms=timer(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, scale=scale, enable_gqa=True)),
-        flops=4 * hd * pairs, bytes=nbytes, dtype="bfloat16")
-
-    q, k, v, vl, scale = inputs["decode_attention"]
     valid = PROMPT_LEN + 1
-    KV = glm.num_kv_heads
-    mask = (torch.arange(S_cache, device=dev) < vl)[None, None, None, :]
-    results["decode_attention"].update(
-        ms=timer(lambda: da_ops.decode_attention(q, k, v, vl, scale=scale), 50),
-        plain_ms=timer(lambda: da_ref.decode_attention_ref(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), vl,
-            scale=scale)),
-        library_ms=timer(lambda: F.scaled_dot_product_attention(
+    # flash and decode attention at both attention shapes of the main paths;
+    # chatglm3-6b's go into the summary line, zamba2-7b's beside them
+    for arch, c in (("chatglm3-6b", glm), ("zamba2-7b", zam)):
+        H, KV, hd = c.num_heads, c.num_kv_heads, c.head_dim
+        q, k, v, scale = inputs[f"flash_attention/{arch}"]
+        pairs = B * H * S * (S + 1) // 2                  # causal (q, k) pairs
+        nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())  # q, o, k, v
+        flash = dict(
+            ms=timer(lambda: fa_ops.flash_attention(q, k, v, scale=scale)),
+            plain_ms=timer(lambda: fa_ref.attention_ref(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                scale=scale), iters=5),
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, scale=scale, enable_gqa=True)),
+            flops=4 * hd * pairs, bytes=nbytes, dtype="bfloat16")
+
+        q, k, v, vl, scale = inputs[f"decode_attention/{arch}"]
+        mask = (torch.arange(S_cache, device=dev) < vl)[None, None, None, :]
+        kernel = lambda: da_ops.decode_attention(q, k, v, vl, scale=scale)
+        sdpa = lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, scale=scale, enable_gqa=True), 50),
-        flops=4 * B * glm.num_heads * hd * valid,
-        bytes=2 * (2 * B * valid * KV * hd + 2 * B * glm.num_heads * hd) + 4,
-        dtype="bfloat16")
+            attn_mask=mask, scale=scale, enable_gqa=True)
+        decode = dict(
+            ms=timer(kernel, 50),
+            plain_ms=timer(lambda: da_ref.decode_attention_ref(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), vl,
+                scale=scale)),
+            library_ms=timer(sdpa, 50),
+            # the split and combine kernels' device time, without the gap
+            # between their launches that the events include
+            device_ms=device_ms_per_call(torch, kernel),
+            library_device_ms=device_ms_per_call(torch, sdpa),
+            flops=4 * B * H * hd * valid,
+            bytes=2 * (2 * B * valid * KV * hd + 2 * B * H * hd) + 4,
+            dtype="bfloat16")
+        n_split, rows = da_ops.split_plan(
+            B, KV, S_cache, torch.cuda.get_device_properties(dev)
+            .multi_processor_count)
+        blocks = B * KV * n_split * -(-(H // KV) // 16)
+        print(f"[time] decode_attention {arch}: {n_split} splits of {rows} "
+              f"rows, {blocks} blocks; device time per call {decode['device_ms']:.5f}"
+              f" ms (profiler, split + combine), SDPA {decode['library_device_ms']:.5f}"
+              f" ms  [{card}]", flush=True)
+        if arch == "chatglm3-6b":
+            check(blocks >= torch.cuda.get_device_properties(dev)
+                  .multi_processor_count,
+                  f"the decode grid has {blocks} blocks at {arch}'s shape")
+            results["flash_attention"].update(flash)
+            results["decode_attention"].update(decode)
+        else:
+            for name, r in (("flash_attention", flash),
+                            ("decode_attention", decode)):
+                add_bound(r)
+                results[name]["zamba2_7b_shape"] = r
+                print(f"[time] {name} at {arch}'s shape: kernel {r['ms']:.4f} "
+                      f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+                      f"{r['bound_ms'] / r['ms']:.1%} of it), plain "
+                      f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms"
+                      f"  [{card}]", flush=True)
 
     # the prefill rows here; the decode rows' (8 x 4,096) kernel time is
     # shorter than the host's launch of it, so events would time the host:
@@ -450,7 +529,7 @@ def main():
 
     # host time to issue one call at the decode step's shapes: at batch 8 a
     # decode step is a chain of small launches, so this bounds its speed
-    qd, kd, vd, vld, sd = inputs["decode_attention"]
+    qd, kd, vd, vld, sd = inputs["decode_attention/chatglm3-6b"]
     for label, fn in (
             ("fused_rmsnorm wrapper (8 rows)",
              lambda: rn_ops.rmsnorm(x8, w8, eps=glm.norm_eps)),
@@ -470,10 +549,7 @@ def main():
               flush=True)
 
     for name, r in results.items():
-        t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = r["flops"] / PEAK_FLOPS[r["dtype"]] * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        add_bound(r)
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         print(f"[time] {name}: kernel {r['ms']:.4f} ms, bound "
@@ -513,7 +589,14 @@ def main():
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        **{key: r[key] for key in ("device_ms",
+                                                    "library_device_ms")
+                           if key in r},
+                        **({"zamba2_7b_shape": {
+                            key: val for key, val in r["zamba2_7b_shape"].items()
+                            if key not in ("flops", "bytes", "dtype")}}
+                           if "zamba2_7b_shape" in r else {})})
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
@@ -705,19 +788,21 @@ def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
           f"per step)  [{card}]", flush=True)
     # kernel times on the main path, from the device's own clock: the decode
     # rows' RMSNorm has no other true time (see phase 4)
-    for where, key, what in (
-            ("prefill", "rmsnorm_kernel", f"fused_rmsnorm ({B * S} rows)"),
-            ("prefill", "flash_fwd", "flash_attention"),
-            ("prefill", "ssd_fwd", "ssd"),
-            ("decode step", "rmsnorm_kernel", f"fused_rmsnorm ({B} rows)"),
+    # (decode attention is two kernels, split and combine, per launch)
+    for where, key, what, kernels in (
+            ("prefill", "rmsnorm_kernel", f"fused_rmsnorm ({B * S} rows)", 1),
+            ("prefill", "flash_fwd", "flash_attention", 1),
+            ("prefill", "ssd_fwd", "ssd", 1),
+            ("decode step", "rmsnorm_kernel", f"fused_rmsnorm ({B} rows)", 1),
             ("decode step", "decode_fwd",
-             f"decode_attention (B {B}, valid {S + 1})")):
+             f"decode_attention (B {B}, valid {S + 1})", 2)):
         hits = [(ms, n) for k, ms, n in rows[where] if key in k]
         if not hits and key in ("flash_fwd", "ssd_fwd", "decode_fwd"):
             continue                   # a path without this kernel
-        check(len(hits) == 1, f"no single {key} row in the {arch} {where} "
-              f"profile")
-        ms, n = hits[0]
+        check(len(hits) == kernels and len({n for _, n in hits}) == 1,
+              f"not {kernels} {key} row(s) of one count in the {arch} {where} "
+              f"profile: {hits}")
+        ms, n = sum(ms for ms, _ in hits), hits[0][1]
         print(f"[time] {arch} {what} bf16 in the {where}: {ms / n:.5f} ms per "
               f"launch (profiler device time, {n} launches)  [{card}]",
               flush=True)

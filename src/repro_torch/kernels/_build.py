@@ -1,11 +1,14 @@
 """Build the CUDA C++ kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each kernel folder holds ``csrc/<name>.cu`` with a plain C interface; the
-sources share the device helpers of ``common.cuh``. At first use a source is
-compiled for ``sm_90a`` into ``<checkout>/build/kernels/`` under a name keyed
-by a hash of it, ``common.cuh`` and the flags, so an edited source rebuilds
-and an unchanged one loads at once. ``build_all`` starts one ``nvcc`` per
-source, all together. A failed build raises; there is no fallback.
+sources share the headers of this folder (``common.cuh``, ``hopper.cuh``).
+At first use a source is compiled for ``sm_90a`` into
+``<checkout>/build/kernels/`` under a name keyed by a hash of it, every
+``*.cuh`` under this folder and the flags, so an edited source or header
+rebuilds and an unchanged one loads at once. ``build_all`` starts one
+``nvcc`` per source, all together. A failed build raises; there is no
+fallback. No library links against ``libcuda``: the flash kernel reaches its
+``cuTensorMapEncodeTiled`` through the CUDA runtime's entry-point query.
 """
 from __future__ import annotations
 
@@ -41,9 +44,15 @@ def _source(name: str) -> Path:
     return KERNELS_DIR / name / "csrc" / f"{name}.cu"
 
 
+def _headers() -> List[Path]:
+    return sorted(KERNELS_DIR.rglob("*.cuh"))
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256(_source(name).read_bytes())
-    h.update((KERNELS_DIR / "common.cuh").read_bytes())
+    for header in _headers():
+        h.update(str(header.relative_to(KERNELS_DIR)).encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

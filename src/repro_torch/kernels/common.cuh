@@ -1,8 +1,12 @@
 // Helpers shared by the port's CUDA kernels (each csrc/<name>.cu includes
-// this file; _build.py hashes it with every source).
+// this file; _build.py hashes every *.cuh here with every source).
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+// Returned by an entry point when cuTensorMapEncodeTiled refuses a TMA
+// tensor map or cannot be found (the CUDA error codes stay below it).
+#define REPRO_ERR_TENSOR_MAP 10000
 
 namespace {
 
@@ -35,5 +39,8 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
 
 // The message of a cudaError_t returned by an entry point of the library.
 extern "C" const char* repro_cuda_error_string(int err) {
+  if (err == REPRO_ERR_TENSOR_MAP)
+    return "cuTensorMapEncodeTiled refused the tensor map (or libcuda "
+           "lacks it)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

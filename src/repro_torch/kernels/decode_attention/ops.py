@@ -3,14 +3,19 @@
 Replaces the TPU kernel ``repro/kernels/decode_attention/decode_attention.py``
 (``_decode_kernel`` / ``decode_attention_bhd``) and its shim ``ops.py``, which
 copied the whole cache with ``swapaxes`` every step. On the H100 a decode step
-is bound by the bytes of K/V it must read. The CUDA kernel
-(``csrc/decode_attention.cu``) reads the cache (B, S, KV, hd) through strides
-with no copy, serves the G query heads of a kv head from one block so each
-cached row is read once, and stops at ``valid_len``, which it reads from a
-device pointer: the decode step never waits on the host.
+is bound by the bytes of K/V it must read. The CUDA kernels
+(``csrc/decode_attention.cu``) read the cache (B, S, KV, hd) through strides
+with no copy and split it across the SMs (split-KV): one block per (batch, kv
+head, split) serves the G query heads of its kv head, so each cached row is
+read once, and stops at ``valid_len``, which it reads from a device pointer:
+the decode step never waits on the host. A second kernel, launched by the same
+call, merges the splits' f32 partials (``ref.decode_attention_split_ref`` is
+the same arithmetic in plain PyTorch). bf16 products run on the tensor cores
+(``mma.sync``), f32 ones as scalar FMAs.
 
 A CPU tensor takes the plain version (``ref.decode_attention_ref``); a CUDA
-tensor launches the kernel or raises. ``launches`` counts kernel launches.
+tensor launches the kernels or raises. ``launches`` counts calls that launched
+them.
 """
 from __future__ import annotations
 
@@ -25,9 +30,22 @@ launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"decode_attention_fwd":
-               [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 10
-               + [ctypes.c_float, _P]}
+               [_P] * 6 + [_I] * 8 + [_L] * 10 + [ctypes.c_float, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the head widths the bf16 kernel is instantiated for (as flash attention's)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160, 256)
+SPLIT_ROWS = 64         # a split is a whole number of the kernel's 64-row steps
+
+
+def split_plan(B: int, KV: int, S: int, n_sm: int):
+    """(n_split, rows per split) for a cache of capacity S: enough splits for
+    two blocks per SM over the B * KV (batch, kv head) pairs, each split at
+    least one 64-row step. Depends on the capacity, never on valid_len,
+    which stays on the device."""
+    steps = -(-S // SPLIT_ROWS)
+    want = max(1, min(steps, -(-2 * n_sm // (B * KV))))
+    rows = -(-steps // want) * SPLIT_ROWS
+    return -(-S // rows), rows
 
 
 def _check(q, k, v, valid_len):
@@ -48,13 +66,14 @@ def _check(q, k, v, valid_len):
     if H % k.shape[2]:
         raise ValueError(f"num heads {H} is not a multiple of kv heads "
                          f"{k.shape[2]}")
-    if hd % 16:
-        raise ValueError(f"head_dim {hd} must be a multiple of 16")
+    if (q.dtype == torch.bfloat16 and hd not in HEAD_DIMS) or hd % 16 \
+            or hd > 1024:
+        raise ValueError(f"head_dim {hd} is not one of {HEAD_DIMS} (bf16) "
+                         f"or a multiple of 16 up to 1024 (f32)")
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have a contiguous head dim")
-    for name, t in (("k", k), ("v", v)):
         if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
             raise ValueError(f"{name} rows must be 16-byte aligned")
 
@@ -78,14 +97,19 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, scale: float):
     _check(q, k_cache, v_cache, valid_len)
     B, _, H, hd = q.shape
     _, S, KV, _ = k_cache.shape
+    n_split, rows = split_plan(
+        B, KV, S, torch.cuda.get_device_properties(q.device).multi_processor_count)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    # f32 partials of every (batch, head, split): acc[hd], then (m, l)
+    scratch = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
+                          device=q.device)
     lib = _build.load("decode_attention", _SIGNATURES)
     err = lib.decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
-        valid_len.data_ptr(), _DTYPES[q.dtype], B, S, H, KV, hd,
-        q.stride(0), q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3],
-        o.stride(0), o.stride(2), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        valid_len.data_ptr(), scratch.data_ptr(), _DTYPES[q.dtype], B, S, H,
+        KV, hd, n_split, rows, q.stride(0), q.stride(2),
+        *k_cache.stride()[:3], *v_cache.stride()[:3], o.stride(0), o.stride(2),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "decode_attention", err)
     launches += 1
     return o

@@ -3,11 +3,12 @@
 Replaces the TPU kernel ``repro/kernels/flash_attention/flash_attention.py``
 (``_flash_kernel`` / ``flash_attention_bhsd``) and its shim ``ops.py``. On the
 H100 the prefill call is bound by operations (the two products of attention,
-causal half), not bytes. The CUDA kernel (``csrc/flash_attention.cu``) walks
-the kv tiles inside one block per (batch, head, 64-row q tile), keeps the
-online-softmax state in f32 registers, reads K/V of head ``h // G`` through
-strides (no repeat-KV, no transposed or padded copies) and masks the ragged
-edge itself; its products are scalar f32 FMAs in this first version.
+causal half), not bytes. The CUDA kernels (``csrc/flash_attention.cu``) read
+q/k/v in place (kv head ``h // G``, no repeat-KV, no transposed or padded
+copies), keep the online-softmax state in f32 registers and mask the ragged
+edge themselves. bf16 runs on the tensor cores (``wgmma``, operands brought
+by TMA, P rounded to bf16 before P.V); f32 keeps scalar FMAs, so it holds
+the algorithm at 2e-5.
 
 A CPU tensor takes the plain version (``ref.attention_ref``); a CUDA tensor
 launches the kernel or raises. ``launches`` counts kernel launches.
@@ -28,6 +29,9 @@ _SIGNATURES = {"flash_attention_fwd":
                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12
                + [ctypes.c_float, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the head widths the kernels are instantiated for: the ported configs'
+# (64, 80, 112, 128, 160, 256) and the smoke configs' and tests' (16, 32)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160, 256)
 
 
 def _check(q, k, v):
@@ -50,14 +54,15 @@ def _check(q, k, v):
         raise ValueError(f"v shape {tuple(v.shape)} != k {tuple(k.shape)}")
     if H % KV:
         raise ValueError(f"num heads {H} is not a multiple of kv heads {KV}")
-    if hd % 16 or not 16 <= hd <= 256:
-        raise ValueError(f"head_dim {hd} must be a multiple of 16 up to 256")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one of {HEAD_DIMS}")
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have a contiguous head dim")
-    for name, t in (("k", k), ("v", v)):
-        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
+        # k/v rows are 16-byte loads; in bf16 all three are TMA tensor maps
+        if (name != "q" or q.dtype == torch.bfloat16) and (
+                t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3])):
             raise ValueError(f"{name} rows must be 16-byte aligned")
 
 

@@ -100,6 +100,94 @@ def test_decode_kernel_vs_plain(cuda, shape, valid, dtype):
     assert err < TOL[dtype], f"{shape}@{valid} {dtype}: {err}"
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("G", [1, 4, 16])
+@pytest.mark.parametrize("S", [200, 1000])
+@pytest.mark.parametrize("hd", [64, 80, 112, 128, 160, 256])
+def test_flash_kernel_head_widths(cuda, hd, S, G, dtype):
+    """Every head width of the ported configs (bf16: 64-column TMA slabs,
+    the last one partly past hd), ragged S, MHA to G = 16."""
+    B, KV = 1, 2
+    H = G * KV
+    rng = np.random.default_rng(hd + S + G)
+    dt = DTYPES[dtype]
+    q = _randn(rng, (B, S, H, hd), dt, cuda)
+    k = _randn(rng, (B, S, KV, hd), dt, cuda)
+    v = _randn(rng, (B, S, KV, hd), dt, cuda)
+    got = fa_ops.flash_attention(q, k, v, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    want = fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), scale=hd ** -0.5
+                                ).transpose(1, 2)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < TOL[dtype], f"hd {hd} S {S} G {G} {dtype}: {err}"
+
+
+def _split_edge(B, KV, S, device):
+    n_split, rows = da_ops.split_plan(
+        B, KV, S, torch.cuda.get_device_properties(device).multi_processor_count)
+    return n_split, rows
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hd", [112, 128])
+@pytest.mark.parametrize("G", [1, 2, 16])
+@pytest.mark.parametrize("where", ["1", "17", "edge-1", "edge", "edge+1", "S"])
+def test_decode_kernel_split_edges(cuda, where, G, hd, dtype):
+    """valid_len inside the first split, around the first split edge and at
+    the capacity, which is not a multiple of the split (S 1,000)."""
+    B, KV, S = 2, 2, 1000
+    n_split, rows = _split_edge(B, KV, S, cuda)
+    assert n_split > 1 and S % rows
+    valid = {"1": 1, "17": 17, "edge-1": rows - 1, "edge": rows,
+             "edge+1": rows + 1, "S": S}[where]
+    H = G * KV
+    rng = np.random.default_rng(G + hd)
+    dt = DTYPES[dtype]
+    q = _randn(rng, (B, 1, H, hd), dt, cuda)
+    k = _randn(rng, (B, S, KV, hd), dt, cuda)
+    v = _randn(rng, (B, S, KV, hd), dt, cuda)
+    vl = torch.full((), valid, dtype=torch.int32, device=cuda)
+    got = da_ops.decode_attention(q, k, v, vl, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    want = da_ref.decode_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), vl, scale=hd ** -0.5
+                                       ).transpose(1, 2)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < TOL[dtype], f"valid {valid} G {G} hd {hd} {dtype}: {err}"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+def test_decode_kernel_at_the_zamba2_split_edge(cuda, offset, dtype):
+    """zamba2-7b's decode shape: 256 (batch, kv head) pairs, two long splits;
+    valid_len just below, at and just past the edge between them."""
+    B, S, H, KV, hd = 8, 1056, 32, 32, 112
+    n_split, rows = _split_edge(B, KV, S, cuda)
+    valid = rows + offset
+    rng = np.random.default_rng(7)
+    dt = DTYPES[dtype]
+    q = _randn(rng, (B, 1, H, hd), dt, cuda)
+    k = _randn(rng, (B, S, KV, hd), dt, cuda)
+    v = _randn(rng, (B, S, KV, hd), dt, cuda)
+    vl = torch.full((), valid, dtype=torch.int32, device=cuda)
+    got = da_ops.decode_attention(q, k, v, vl, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    want = da_ref.decode_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), vl, scale=hd ** -0.5
+                                       ).transpose(1, 2)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < TOL[dtype], f"valid {valid} {dtype}: {err}"
+
+
+def test_decode_grid_fills_the_card_at_the_chatglm_shape(cuda):
+    """chatglm3-6b decodes 8 requests over 2 kv heads: the split-KV grid has
+    at least one block per SM (PR 12's kernel ran 16 blocks)."""
+    n_split, _ = _split_edge(8, 2, 1056, cuda)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 8 * 2 * n_split >= n_sm
+
+
 def test_decode_kernel_valid_len_zero_returns_zeros(cuda):
     """With no valid cache row the kernel reads nothing and returns zeros,
     as the JAX package's Pallas kernel does (no kv block runs, and its

@@ -166,3 +166,23 @@ def test_every_cuda_source_is_built():
         "flash_attention", "decode_attention", "ssd"}
     for name in _build.CUDA_KERNELS:
         assert _build._source(name).is_file()
+
+
+def test_an_edited_header_rebuilds(tmp_path, monkeypatch):
+    """The library name hashes every ``*.cuh`` under kernels/, not only
+    ``common.cuh``: editing or adding a header gives every kernel a new
+    name, so a stale build is never loaded."""
+    import shutil
+    from repro_torch.kernels import _build
+    root = tmp_path / "kernels"
+    shutil.copytree(_build.KERNELS_DIR, root,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    monkeypatch.setattr(_build, "KERNELS_DIR", root)
+    before = {n: _build._target(n) for n in _build.CUDA_KERNELS}
+    assert {p.name for p in _build._headers()} >= {"common.cuh", "hopper.cuh"}
+    (root / "hopper.cuh").write_text((root / "hopper.cuh").read_text() + "\n")
+    edited = {n: _build._target(n) for n in _build.CUDA_KERNELS}
+    (root / "ssd" / "csrc" / "extra.cuh").write_text("#pragma once\n")
+    added = {n: _build._target(n) for n in _build.CUDA_KERNELS}
+    for n in _build.CUDA_KERNELS:
+        assert len({before[n], edited[n], added[n]}) == 3
