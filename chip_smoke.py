@@ -10,14 +10,15 @@ Phases, each printing its lines; any failed check exits non-zero:
      source, in parallel), with ptxas' registers and spills, and the tensor
      core instructions in the SASS (cuobjdump): HGMMA (wgmma) in every bf16
      flash-attention instantiation, HMMA (mma.sync) in every bf16
-     decode-attention one;
+     decode-attention and SSD-scan one;
   3. kernel vs plain: each kernel's wrapper on CUDA tensors at the main
      paths' shapes against its plain PyTorch version, tolerance stated;
   4. kernel times (CUDA events, L2 flushed before each launch) beside the
      least time the card could take, the plain version and a library call;
      the 8-row RMSNorm's from the profiler's device time; flash and decode
      attention also at zamba2-7b's shape, beside SDPA, and decode attention's
-     device time per call from the profiler (split and combine kernels);
+     device time per call from the profiler (split and combine kernels); the
+     SSD scan at zamba2-7b's and mamba2-130m's shapes;
   5. main paths, each served with ``serve_batch`` at full width with random
      bf16 weights from a seed: 8 requests of 1,024 prompt tokens, 32 greedy
      new tokens, with the kernels' launch counts set to 0 just before and
@@ -28,8 +29,8 @@ Phases, each printing its lines; any failed check exits non-zero:
      the logits of every step compared in f32 and in bf16, and its prefill
      and decode times;
   6. where the time of one prefill and one decode step goes
-     (torch.profiler), for chatglm3-6b and zamba2-7b, and the per-launch
-     device time of the kernels there.
+     (torch.profiler), for each of the three, and the per-launch device
+     time of the kernels there.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -51,19 +52,23 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SPIN_CYCLES = 400_000       # ~0.2 ms at 1.98 GHz: above any wrapper's host time
 
 PATHS = ("chatglm3-6b", "zamba2-7b", "mamba2-130m")
-PROFILED = ("chatglm3-6b", "zamba2-7b")
+PROFILED = PATHS
 FULL_WIDTH = {"chatglm3-6b": (28, 4096), "zamba2-7b": (81, 3584),
               "mamba2-130m": (24, 768)}
 N_REQUESTS, PROMPT_LEN, NEW_TOKENS, SEED = 8, 1024, 32, 0
 # bf16 kernel-vs-plain tolerances as in the JAX package's kernel tests;
 # f32 differs only by the order of sums. SSD: relative to max|want|, as the
-# JAX package's test_ssd_pallas_vs_naive; in f32 against the recurrence
-# ssd_naive, since at chunk 256 under fast decay the plain ssd_chunked is
-# itself ~1e-5 from it (exponents taken as differences of large f32 prefix
-# sums; the kernel keeps them in f64).
+# JAX package's test_ssd_pallas_vs_naive, against the recurrence ssd_naive in
+# f32 (at chunk 256 under fast decay the plain ssd_chunked is itself ~1e-5
+# from it: exponents taken as differences of large f32 prefix sums; the
+# kernels keep them in f64). The bf16 kernel against its plain version
+# ssd_chunked_tc (the same roundings, sums in another order): 1e-2, since
+# the two round y to bf16 from f32 sums that differ in the last bits, so an
+# entry may land one bf16 step (2^-8 of it) away.
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 NORM_TOL = {"float32": 2e-5, "bfloat16": 0.05}
 SSD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+SSD_TC_TOL = 1e-2
 # Kernel path vs plain path at full width, teacher-forced, per step:
 # max|diff|/max|logit|. In f32 the paths differ by the order of sums only.
 # The card read at most 1.3e-5 (chatglm3-6b), 2.1e-5 (zamba2-7b) and 8.1e-6
@@ -253,10 +258,11 @@ def main():
     print(f"[build] CUDA kernels built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     # the bf16 kernels run on the tensor cores: flash attention through wgmma
-    # (HGMMA), decode attention through mma.sync (HMMA)
+    # (HGMMA), decode attention and the SSD scan through mma.sync (HMMA)
     for name, kernel, opcode in (("flash_attention", "flash_fwd_wgmma", "HGMMA"),
                                  ("decode_attention", "decode_fwd_split_mma",
-                                  "HMMA")):
+                                  "HMMA"),
+                                 ("ssd", "ssd_fwd_mma", "HMMA")):
         counts = sass_counts(_build._target(name), opcode)
         tc = {fn: n for fn, n in counts.items() if kernel in fn}
         print(f"[build] {name} SASS: {sum(tc.values())} {opcode} in "
@@ -308,12 +314,13 @@ def main():
         torch.cuda.synchronize()
         return max_err(got, rn_ref.rmsnorm_ref(x, w, eps=glm.norm_eps)), (x, w)
 
-    def ssd_case(shape, chunk, dtype, slow_decay, naive=False):
+    def ssd_case(shape, chunk, dtype, slow_decay):
         """dt = softplus(z - 4) (slow decay) carries the state across
         chunks as the model's small dt does; softplus(z) as the JAX tests.
-        The oracle is ssd_naive in f32 (or when asked), else ssd_chunked;
-        also returns the kernel's and ssd_chunked's distances to each other
-        and to ssd_naive, where it ran."""
+        The oracle is the recurrence ssd_naive in f32 (on the bf16 inputs in
+        bf16). Also the distance to the kernel's plain version in bf16
+        (ssd_chunked_tc, checked) or, in f32, to ssd_chunked and its own
+        distance to ssd_naive (printed)."""
         b, s, h, g, p, n = shape
         x = randn(b, s, h, p, dtype=dtype)
         dt = F.softplus(randn(b, s, h, dtype=torch.float32)
@@ -328,15 +335,20 @@ def main():
         def rel2(a, b):
             return max(rel_err(a[0], b[0]), rel_err(a[1], b[1]))
 
-        chunked = ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
-        if naive or dtype == torch.float32:
-            oracle = ssd_ref.ssd_naive(x, dt, A, Bm, Cm)
-            note = (f"; vs ssd_chunked {rel2((y, hf), chunked):.3e}, "
-                    f"ssd_chunked vs ssd_naive {rel2(chunked, oracle):.3e}")
+        oracle = ssd_ref.ssd_naive(x.float(), dt, A, Bm.float(), Cm.float())
+        if dtype == torch.float32:
+            plain = ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+            plain_err = None
+            note = (f"; vs ssd_chunked {rel2((y, hf), plain):.3e}, "
+                    f"ssd_chunked vs ssd_naive {rel2(plain, oracle):.3e}")
+            plain = oracle
         else:
-            oracle, note = chunked, ""
-        return (rel2((y, hf), oracle), max_err(y, oracle[0]),
-                (x, dt, A, Bm, Cm, chunk), note)
+            plain = ssd_ref.ssd_chunked_tc(x, dt, A, Bm, Cm, chunk=chunk)
+            plain_err = rel2((y, hf), plain)
+            note = (f"; vs its plain version ssd_chunked_tc {plain_err:.3e} "
+                    f"(tol {SSD_TC_TOL})")
+        return (rel2((y, hf), oracle), max_err(y, plain[0]),
+                (x, dt, A, Bm, Cm, chunk), note, plain_err)
 
     zH, zP, zN = zam.ssm_heads, zam.ssm_head_dim, zam.ssm_state
     mam = cfgs["mamba2-130m"]
@@ -395,25 +407,29 @@ def main():
                         results["fused_rmsnorm"] = {"max_abs_err": err}
         for label, shape, chunk in ssd_shapes:
             for slow in (False, True):
-                err, abs_err, args, note = ssd_case(shape, chunk, dtype, slow)
+                err, abs_err, args, note, plain_err = ssd_case(
+                    shape, chunk, dtype, slow)
                 tol = SSD_TOL[dtype_name]
-                oracle = "ssd_naive" if note else "ssd_chunked"
                 print(f"[check] ssd {label} {shape} chunk {chunk} "
                       f"{'slow' if slow else 'fast'} decay {dtype_name}: "
                       f"max|err|/max|want| {err:.3e} of y and the final state "
-                      f"vs {oracle} (tol {tol}), max|err| of y {abs_err:.3e}"
-                      f"{note}", flush=True)
+                      f"vs ssd_naive (tol {tol}), max|err| of y vs the plain "
+                      f"version {abs_err:.3e}{note}", flush=True)
                 check(err < tol, f"ssd {shape} {dtype_name}: {err}")
+                check(plain_err is None or plain_err < SSD_TC_TOL,
+                      f"ssd {shape} bf16 vs ssd_chunked_tc: {plain_err}")
                 if dtype_name == "bfloat16" and slow:
                     inputs[f"ssd/{label}"] = args
                     if label.startswith("zamba2"):
                         results["ssd"] = {"max_abs_err": abs_err}
-        err, _, _, note = ssd_case((2, 100, 4, 2, 16, 32), 32, dtype, True,
-                                   naive=True)
+        err, _, _, note, plain_err = ssd_case((2, 100, 4, 2, 16, 32), 32,
+                                              dtype, True)
         print(f"[check] ssd (2, 100, 4, 2, 16, 32) chunk 32 vs ssd_naive "
               f"{dtype_name}: {err:.3e} (tol {SSD_TOL[dtype_name]}){note}",
               flush=True)
         check(err < SSD_TOL[dtype_name], f"ssd vs naive {dtype_name}: {err}")
+        check(plain_err is None or plain_err < SSD_TC_TOL,
+              f"ssd (2, 100, 4, 2, 16, 32) bf16 vs ssd_chunked_tc: {plain_err}")
 
     # ------------------------------------------------------- 4. kernel times
     timer = Timer(torch)
@@ -494,18 +510,22 @@ def main():
 
     x8, w8 = inputs[f"fused_rmsnorm/{B}"]
     w8_1 = (1.0 + w8.float()).to(x8.dtype)
+    bound8 = 2 * (2 * B * d + d) / PEAK_BYTES_PER_S * 1e3     # bytes bound it
     for label, fn in (
             ("kernel", lambda: rn_ops.rmsnorm(x8, w8, eps=glm.norm_eps)),
             ("plain version", lambda: rn_ref.rmsnorm_ref(x8, w8,
                                                          eps=glm.norm_eps)),
             ("F.rms_norm", lambda: F.rms_norm(x8, (d,), weight=w8_1,
                                               eps=glm.norm_eps))):
-        print(f"[time] fused_rmsnorm ({B}, {d}) bf16, {label}: "
-              f"{device_ms_per_call(torch, fn):.5f} ms of device time per call "
-              f"(profiler, 50 calls)  [{card}]", flush=True)
+        ms = device_ms_per_call(torch, fn)
+        print(f"[time] fused_rmsnorm ({B}, {d}) bf16, {label}: {ms:.5f} ms of "
+              f"device time per call (profiler, 50 calls); bound "
+              f"{bound8:.6f} ms (bytes), {bound8 / ms:.1%} of it  [{card}]",
+              flush=True)
 
-    # the zamba2-7b shape goes into the summary; mamba2-130m's (N 128) is
-    # printed with its own bound
+    # the zamba2-7b shape goes into the summary; mamba2-130m's (N 128) beside
+    # it, each with its own bound and the split of P the wrapper chose
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, _, _ in ssd_shapes[:2]:
         x, dt, A, Bm, Cm, chunk = inputs[f"ssd/{label}"]
         flops, nbytes = ssd_work(*x.shape[:3], Bm.shape[2], x.shape[3],
@@ -513,19 +533,48 @@ def main():
         r = dict(
             ms=timer(lambda: ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk,
                                          use_pallas=True)),
-            plain_ms=timer(lambda: ssd_ref.ssd_chunked(x, dt, A, Bm, Cm,
-                                                       chunk=chunk), iters=5),
+            plain_ms=timer(lambda: ssd_ref.ssd_chunked_tc(x, dt, A, Bm, Cm,
+                                                          chunk=chunk),
+                           iters=5),
             library_ms=None,            # no PyTorch call computes the scan
             flops=flops, bytes=nbytes, dtype="bfloat16")
+        add_bound(r)
+        n_split, pb = ssd_ops.split_plan(x.shape[0], x.shape[2], x.shape[3],
+                                         Bm.shape[3], n_sm)
+        print(f"[time] ssd {label} {tuple(x.shape)} N {Bm.shape[3]}: kernel "
+              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it; "
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), plain "
+              f"{r['plain_ms']:.4f} ms; P in {n_split} part(s) of {pb}, "
+              f"{x.shape[0] * x.shape[2] * n_split} blocks  [{card}]",
+              flush=True)
         if label.startswith("zamba2"):
             results["ssd"].update(r)
         else:
-            bound = max(nbytes / PEAK_BYTES_PER_S,
-                        flops / PEAK_FLOPS["bfloat16"]) * 1e3
-            print(f"[time] ssd {label} {tuple(x.shape)} N {Bm.shape[3]}: "
-                  f"kernel {r['ms']:.4f} ms, bound {bound:.4f} ms "
-                  f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), plain "
-                  f"{r['plain_ms']:.4f} ms  [{card}]", flush=True)
+            results["ssd"]["mamba2_130m_shape"] = r
+    # the split of P at batch 1, where the main paths' 8 requests become one:
+    # every split the kernel takes beside the one split_plan picks
+    for label, (h, p, n) in (("zamba2-7b", (zH, zP, zN)),
+                             ("mamba2-130m", (mam.ssm_heads, mam.ssm_head_dim,
+                                              mam.ssm_state))):
+        x, Bm, Cm = (randn(1, S, h, p, dtype=torch.bfloat16),
+                     randn(1, S, 1, n, dtype=torch.bfloat16),
+                     randn(1, S, 1, n, dtype=torch.bfloat16))
+        dt = F.softplus(randn(1, S, h, dtype=torch.float32) - 4.0)
+        A = -torch.exp(torch.rand(h, generator=gen, device=dev) * 2.0)
+        times = []
+        for n_split in (1, 2, 4):
+            pb = next((w for w in ssd_ops.PART_WIDTHS if w * n_split >= p),
+                      None)
+            if pb is None or (n_split - 1) * pb >= p:
+                continue
+            ms = timer(lambda: ssd_ops._launch(x, dt, A, Bm, Cm, min(256, S),
+                                               n_split, pb))
+            times.append(f"{n_split} x {pb} {ms:.4f} ms")
+        n_split, pb = ssd_ops.split_plan(1, h, p, n, n_sm)
+        print(f"[time] ssd at batch 1, {label}'s widths (1, {S}, {h}, {p}) N "
+              f"{n}, P split as {'; '.join(times)}; split_plan picks "
+              f"{n_split} x {pb}  [{card}]", flush=True)
 
     # host time to issue one call at the decode step's shapes: at batch 8 a
     # decode step is a chain of small launches, so this bounds its speed
@@ -593,10 +642,10 @@ def main():
                         **{key: r[key] for key in ("device_ms",
                                                     "library_device_ms")
                            if key in r},
-                        **({"zamba2_7b_shape": {
-                            key: val for key, val in r["zamba2_7b_shape"].items()
-                            if key not in ("flops", "bytes", "dtype")}}
-                           if "zamba2_7b_shape" in r else {})})
+                        **{shape: {key: val for key, val in r[shape].items()
+                                   if key not in ("flops", "bytes", "dtype")}
+                           for shape in ("zamba2_7b_shape",
+                                         "mamba2_130m_shape") if shape in r}})
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

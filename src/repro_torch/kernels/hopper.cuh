@@ -1,8 +1,8 @@
 // PTX wrappers for the Hopper (sm_90a) kernels of the port: mbarriers, TMA
-// tile copies, wgmma and its shared-memory descriptors, and the mma.sync /
-// ldmatrix / cp.async instructions. Included by csrc/<name>.cu after
-// common.cuh; _build.py hashes every *.cuh of kernels/ into each library's
-// name, so an edit here rebuilds them all.
+// tile copies, wgmma and its shared-memory descriptors, the mma.sync /
+// ldmatrix / cp.async instructions and bulk copies to global memory.
+// Included by csrc/<name>.cu after common.cuh; _build.py hashes every *.cuh
+// of kernels/ into each library's name, so an edit here rebuilds them all.
 #pragma once
 #include <cuda.h>
 #include <stdint.h>
@@ -444,6 +444,30 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// ------------------------------------------------ bulk copies to global
+// bytes (a multiple of 16, both addresses 16-byte aligned) from shared to
+// global memory by the copy engine; the issuing thread goes on at once
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// wait until this thread's bulk copies have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// wait until this thread's bulk copies are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+// order this thread's writes to shared memory before copies that read it
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 }  // namespace

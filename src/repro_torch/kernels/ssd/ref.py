@@ -4,6 +4,8 @@ kernel is held against.
 
 ``ssd_naive``   the per-timestep linear recurrence (the ground truth).
 ``ssd_chunked`` the SSD blocked algorithm (arXiv:2405.21060 section 6).
+``ssd_chunked_tc`` the same algorithm at the bf16 tensor-core kernel's
+                rounding points (the plain version of that kernel).
 ``ssd_step``    one decode step of the recurrence.
 
 Shapes (G = #B/C groups, heads map to groups by h // (H // G)):
@@ -109,6 +111,91 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = 256,
 
     y = (y_intra + y_inter).reshape(B, Sp, H, P)[:, :S].to(x.dtype)
     return y, h
+
+
+def ssd_chunked_tc(x, dt, A, Bm, Cm, *, chunk: int = 256, n_split: int = 1
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 CUDA kernel's arithmetic (``csrc/ssd.cu``, ``ssd_fwd_mma``).
+
+    Products take bf16 operands and sum in f32, as ``precision="mixed"``:
+    C B^T of the bf16 inputs; att = select(j <= i, C B^T exp(cum_i - cum_j)
+    dt_j) rounded to bf16 before att . x. Below the 16-row diagonal tiles
+    the kernel takes exp(cum_i - cum_j) dt_j as exp(cum_i - cum_q) times
+    exp(cum_q - cum_j) dt_j, q = j | 15 the last row of j's tile (both
+    factors at most 1). It differs from "mixed" in the state terms, which
+    run on the tensor cores too:
+      y_i   += exp(cum_i) C_i . bf16(state)^T, the f32 state rounded
+               once per chunk for the product (it carries on in f32);
+      state  = exp(cum_last) state + sum_j x_j (x) bf16(w_j B_j),
+               w_j = exp(cum_last - cum_j) dt_j, rounded once with B_j
+    (mixed rounds w_j alone). The prefix sum cum is f64 within the chunk, and
+    the exponents are (hi_i - hi_j) + (lo_i - lo_j) of cum split into two
+    f32 parts. ``n_split`` cuts P into parts computed on their own, as the
+    kernel's blocks do; the columns of P are independent, so the result does
+    not depend on it. x, B and C are taken as they are (bf16 in the kernel).
+    """
+    B, S, H, P = x.shape
+    if n_split > 1:
+        pb = -(-P // n_split)
+        parts = [ssd_chunked_tc(x[..., p0:p0 + pb], dt, A, Bm, Cm,
+                                chunk=chunk) for p0 in range(0, P, pb)]
+        return (torch.cat([y for y, _ in parts], dim=-1),
+                torch.cat([h for _, h in parts], dim=2))
+    N = Bm.shape[-1]
+    L = min(chunk, S)
+    pad = (-S) % L
+    if pad:          # dt = 0 rows: exp(0 * A) = 1 and B = 0, so no-ops
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    nc = (S + pad) // L
+
+    def bf16(t):
+        return t.to(torch.bfloat16).float()
+
+    xf = x.float().reshape(B, nc, L, H, P)
+    dtf = dt.float().reshape(B, nc, L, H)
+    Bh = _expand_groups(Bm, H).float().reshape(B, nc, L, H, N)
+    Ch = _expand_groups(Cm, H).float().reshape(B, nc, L, H, N)
+    cum = torch.cumsum((dtf * A.float()).double(), dim=2)      # f64
+    hi = cum.float()
+    lo = (cum - hi.double()).float()
+    causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    row = torch.arange(L, device=x.device)
+    below = (row[:, None] // 16) > (row[None, :] // 16)       # [i, j]
+    q = torch.clamp(row | 15, max=L - 1)        # last row of j's 16-row tile
+
+    def t(u):                                   # (B, L, H) -> (B, H, L)
+        return u.permute(0, 2, 1)
+
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        xc, Bc, Cc = xf[:, c], Bh[:, c], Ch[:, c]               # (B,L,H,.)
+        hi_c, lo_c, dt_c = t(hi[:, c]), t(lo[:, c]), t(dtf[:, c])
+        cum_c = t(cum[:, c])
+        ex = ((hi_c[..., :, None] - hi_c[..., None, :])
+              + (lo_c[..., :, None] - lo_c[..., None, :]))
+        ex_q = ((hi_c[..., :, None] - hi_c[..., None, q])
+                + (lo_c[..., :, None] - lo_c[..., None, q]))
+        v = torch.exp((cum_c[..., q] - cum_c).float()) * dt_c
+        cb = torch.einsum("blhn,bshn->bhls", Cc, Bc)
+        att = torch.where(
+            below, cb * (torch.exp(ex_q.masked_fill(~below, 0.0))
+                         * v[..., None, :]),
+            torch.where(causal, cb * torch.exp(ex.masked_fill(~causal, 0.0))
+                        * dt_c[..., None, :], 0.0))
+        y = torch.einsum("bhls,bshp->blhp", bf16(att), xc)
+        y = y + (torch.einsum("blhn,bhpn->blhp", Cc, bf16(h))
+                 * torch.exp(hi[:, c])[..., None])
+        ys.append(y)
+        clast = cum[:, c, -1]                                   # (B, H)
+        w = torch.exp((clast[:, None] - cum[:, c]).float()) * dtf[:, c]
+        h = (h * torch.exp(clast.float())[..., None, None]
+             + torch.einsum("blhp,blhn->bhpn", xc, bf16(w[..., None] * Bc)))
+    y = torch.stack(ys, dim=1).reshape(B, nc * L, H, P)[:, :S]
+    return y.to(x.dtype), h
 
 
 def ssd_step(x_t, dt_t, A, B_t, C_t, h):

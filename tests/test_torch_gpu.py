@@ -273,6 +273,66 @@ def test_ssd_kernel_vs_plain(cuda, shape, chunk, dtype):
     assert err < SSD_TOL[dtype], f"{shape} {dtype}: {err}"
 
 
+# the bf16 tensor-core kernel against the plain version of its arithmetic
+# (ref.ssd_chunked_tc; both round y to bf16 from f32 sums taken in another
+# order, so an entry may land one bf16 step, 2^-8 of it, away: 1e-2) and
+# against the recurrence in f32 on the same bf16 inputs (3e-2, as above)
+SSD_TC_TOL = 1e-2
+
+
+@pytest.mark.parametrize("shape,chunk", [
+    ((2, 128, 4, 1, 32, 64), 32), ((1, 96, 4, 2, 16, 32), 32),
+    ((1, 256, 2, 1, 64, 128), 128), ((1, 1000, 8, 2, 64, 64), 256),
+    ((2, 1024, 16, 1, 64, 64), 256), ((2, 300, 4, 1, 64, 128), 256),
+    ((1, 12, 2, 1, 16, 16), 32),
+    ((1, 300, 4, 1, 24, 40), 256),     # P, N multiples of 8, not of 16
+    ((2, 200, 3, 1, 56, 120), 64),
+    ((1, 70, 2, 1, 8, 8), 7),          # chunk shorter than a 16-row tile
+    ((1, 40, 2, 1, 8, 24), 5)])
+def test_ssd_tc_kernel_vs_its_plain_version_and_naive(cuda, shape, chunk):
+    rng = np.random.default_rng(7)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, shape, torch.bfloat16, cuda)
+    n0 = ssd_ops.launches
+    y, h = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk, use_pallas=True)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == n0 + 1, "one call is one launch"
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    assert bool(torch.isfinite(y.float()).all())
+    y1, h1 = ssd_ref.ssd_chunked_tc(x, dt, A, Bm, Cm, chunk=chunk)
+    assert max(_rel(y, y1), _rel(h, h1)) < SSD_TC_TOL
+    y0, h0 = ssd_ref.ssd_naive(x.float(), dt, A, Bm.float(), Cm.float())
+    assert max(_rel(y, y0), _rel(h, h0)) < SSD_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("P,N", [(64, 64), (64, 128), (24, 40), (40, 16),
+                                 (56, 120), (16, 32)])
+def test_ssd_tc_kernel_every_split_of_p(cuda, P, N):
+    """Each part of P is a block of its own with its own C B^T: every split
+    the kernel takes (PB 16, 32, 64; the last part ragged or zero-filled)
+    gives the unsplit result bit for bit."""
+    rng = np.random.default_rng(8)
+    args = _ssd_inputs(rng, (2, 300, 3, 1, P, N), torch.bfloat16, cuda)
+    y1, h1 = ssd_ops._launch(*args, 256, 1, next(
+        w for w in ssd_ops.PART_WIDTHS if w >= P))
+    splits = 0
+    for n_split in (2, 4):
+        pb = next((w for w in ssd_ops.PART_WIDTHS if w * n_split >= P), None)
+        if pb is None or (n_split - 1) * pb >= P:
+            continue
+        y, h = ssd_ops._launch(*args, 256, n_split, pb)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y1) and torch.equal(h, h1), (n_split, pb)
+        splits += 1
+    assert splits or P <= 16
+
+
+def test_ssd_split_plan_on_this_card(cuda):
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B, H, P, N in ((8, 112, 64, 64), (8, 24, 64, 128), (1, 24, 64, 128)):
+        n_split, pb = ssd_ops.split_plan(B, H, P, N, n_sm)
+        assert (n_split - 1) * pb < P <= n_split * pb
+
+
 def test_ssd_kernel_vs_naive(cuda):
     rng = np.random.default_rng(5)
     x, dt, A, Bm, Cm = _ssd_inputs(rng, (2, 70, 4, 2, 32, 32), torch.float32,
