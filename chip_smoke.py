@@ -318,9 +318,10 @@ def main():
         """dt = softplus(z - 4) (slow decay) carries the state across
         chunks as the model's small dt does; softplus(z) as the JAX tests.
         The oracle is the recurrence ssd_naive in f32 (on the bf16 inputs in
-        bf16). Also the distance to the kernel's plain version in bf16
-        (ssd_chunked_tc, checked) or, in f32, to ssd_chunked and its own
-        distance to ssd_naive (printed)."""
+        bf16); max|err| of y is taken against the plain ssd_chunked, in f32
+        against the oracle. Also the distance to the bf16 kernel's plain
+        version ssd_chunked_tc (checked) or, in f32, to ssd_chunked and its
+        own distance to ssd_naive (printed)."""
         b, s, h, g, p, n = shape
         x = randn(b, s, h, p, dtype=dtype)
         dt = F.softplus(randn(b, s, h, dtype=torch.float32)
@@ -336,18 +337,18 @@ def main():
             return max(rel_err(a[0], b[0]), rel_err(a[1], b[1]))
 
         oracle = ssd_ref.ssd_naive(x.float(), dt, A, Bm.float(), Cm.float())
+        chunked = ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
         if dtype == torch.float32:
-            plain = ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
             plain_err = None
-            note = (f"; vs ssd_chunked {rel2((y, hf), plain):.3e}, "
-                    f"ssd_chunked vs ssd_naive {rel2(plain, oracle):.3e}")
-            plain = oracle
+            note = (f"; vs ssd_chunked {rel2((y, hf), chunked):.3e}, "
+                    f"ssd_chunked vs ssd_naive {rel2(chunked, oracle):.3e}")
+            chunked = oracle
         else:
-            plain = ssd_ref.ssd_chunked_tc(x, dt, A, Bm, Cm, chunk=chunk)
-            plain_err = rel2((y, hf), plain)
+            tc = ssd_ref.ssd_chunked_tc(x, dt, A, Bm, Cm, chunk=chunk)
+            plain_err = rel2((y, hf), tc)
             note = (f"; vs its plain version ssd_chunked_tc {plain_err:.3e} "
                     f"(tol {SSD_TC_TOL})")
-        return (rel2((y, hf), oracle), max_err(y, plain[0]),
+        return (rel2((y, hf), oracle), max_err(y, chunked[0]),
                 (x, dt, A, Bm, Cm, chunk), note, plain_err)
 
     zH, zP, zN = zam.ssm_heads, zam.ssm_head_dim, zam.ssm_state
@@ -413,8 +414,9 @@ def main():
                 print(f"[check] ssd {label} {shape} chunk {chunk} "
                       f"{'slow' if slow else 'fast'} decay {dtype_name}: "
                       f"max|err|/max|want| {err:.3e} of y and the final state "
-                      f"vs ssd_naive (tol {tol}), max|err| of y vs the plain "
-                      f"version {abs_err:.3e}{note}", flush=True)
+                      f"vs ssd_naive (tol {tol}), max|err| of y vs "
+                      f"{'ssd_naive' if dtype_name == 'float32' else 'ssd_chunked'}"
+                      f" {abs_err:.3e}{note}", flush=True)
                 check(err < tol, f"ssd {shape} {dtype_name}: {err}")
                 check(plain_err is None or plain_err < SSD_TC_TOL,
                       f"ssd {shape} bf16 vs ssd_chunked_tc: {plain_err}")
@@ -524,8 +526,7 @@ def main():
               flush=True)
 
     # the zamba2-7b shape goes into the summary; mamba2-130m's (N 128) beside
-    # it, each with its own bound and the split of P the wrapper chose
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    # it, each with its own bound
     for label, _, _ in ssd_shapes[:2]:
         x, dt, A, Bm, Cm, chunk = inputs[f"ssd/{label}"]
         flops, nbytes = ssd_work(*x.shape[:3], Bm.shape[2], x.shape[3],
@@ -533,48 +534,21 @@ def main():
         r = dict(
             ms=timer(lambda: ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk,
                                          use_pallas=True)),
-            plain_ms=timer(lambda: ssd_ref.ssd_chunked_tc(x, dt, A, Bm, Cm,
-                                                          chunk=chunk),
-                           iters=5),
+            plain_ms=timer(lambda: ssd_ref.ssd_chunked(x, dt, A, Bm, Cm,
+                                                       chunk=chunk), iters=5),
             library_ms=None,            # no PyTorch call computes the scan
             flops=flops, bytes=nbytes, dtype="bfloat16")
         add_bound(r)
-        n_split, pb = ssd_ops.split_plan(x.shape[0], x.shape[2], x.shape[3],
-                                         Bm.shape[3], n_sm)
         print(f"[time] ssd {label} {tuple(x.shape)} N {Bm.shape[3]}: kernel "
               f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it; "
               f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), plain "
-              f"{r['plain_ms']:.4f} ms; P in {n_split} part(s) of {pb}, "
-              f"{x.shape[0] * x.shape[2] * n_split} blocks  [{card}]",
-              flush=True)
+              f"ssd_chunked {r['plain_ms']:.4f} ms, "
+              f"{x.shape[0] * x.shape[2]} blocks  [{card}]", flush=True)
         if label.startswith("zamba2"):
             results["ssd"].update(r)
         else:
             results["ssd"]["mamba2_130m_shape"] = r
-    # the split of P at batch 1, where the main paths' 8 requests become one:
-    # every split the kernel takes beside the one split_plan picks
-    for label, (h, p, n) in (("zamba2-7b", (zH, zP, zN)),
-                             ("mamba2-130m", (mam.ssm_heads, mam.ssm_head_dim,
-                                              mam.ssm_state))):
-        x, Bm, Cm = (randn(1, S, h, p, dtype=torch.bfloat16),
-                     randn(1, S, 1, n, dtype=torch.bfloat16),
-                     randn(1, S, 1, n, dtype=torch.bfloat16))
-        dt = F.softplus(randn(1, S, h, dtype=torch.float32) - 4.0)
-        A = -torch.exp(torch.rand(h, generator=gen, device=dev) * 2.0)
-        times = []
-        for n_split in (1, 2, 4):
-            pb = next((w for w in ssd_ops.PART_WIDTHS if w * n_split >= p),
-                      None)
-            if pb is None or (n_split - 1) * pb >= p:
-                continue
-            ms = timer(lambda: ssd_ops._launch(x, dt, A, Bm, Cm, min(256, S),
-                                               n_split, pb))
-            times.append(f"{n_split} x {pb} {ms:.4f} ms")
-        n_split, pb = ssd_ops.split_plan(1, h, p, n, n_sm)
-        print(f"[time] ssd at batch 1, {label}'s widths (1, {S}, {h}, {p}) N "
-              f"{n}, P split as {'; '.join(times)}; split_plan picks "
-              f"{n_split} x {pb}  [{card}]", flush=True)
 
     # host time to issue one call at the decode step's shapes: at batch 8 a
     # decode step is a chain of small launches, so this bounds its speed

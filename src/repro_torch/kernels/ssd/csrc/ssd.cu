@@ -29,14 +29,12 @@
 // time at the bf16 tensor-core peak.
 //
 // bfloat16: ssd_fwd_mma, on the tensor cores (mma.sync.m16n8k16, bf16
-// operands, f32 accumulators). One block of 8 warps owns (batch, head, part
-// of P): the columns of P are independent (only C B^T is shared by them), so
-// the wrapper may cut P into n_split parts of PB columns, chosen from the SM
-// count (ops.split_plan). Each chunk is staged once: x, B and C by cp.async
-// into shared memory as bf16 rows whose 16-byte pieces are permuted per row
+// operands, f32 accumulators). One block of 8 warps owns (batch, head), as
+// in the f32 kernel. Each chunk is staged once: x, B and C by cp.async into
+// shared memory as bf16 rows whose 16-byte pieces are permuted per row
 // (swz), so ldmatrix reads them without bank conflicts; widths past P and N
-// are zero-filled up to the tile (NP = 16, 32, 64 or 128; PB = 16, 32 or
-// 64). Where two blocks' shared memory fits on an SM (zamba2-7b's widths,
+// are zero-filled up to the tile (NP = 16, 32, 64 or 128 for N; PB = 64 for
+// P). Where two blocks' shared memory fits on an SM (zamba2-7b's widths,
 // N = P = 64) the block is held to 128 registers a thread so that two run
 // side by side, one computing while the other loads, stores or waits.
 // The 256-row chunk is 16 query tiles of 16 rows; warp w takes tiles w and
@@ -51,7 +49,7 @@
 // att . x, accumulated into y's registers. The finished y tile goes to the
 // warp's own rows of C (no other warp reads them) and out to y by bulk
 // copies (cp.async.bulk), so the warp does not wait on the stores. The state
-// never leaves registers: its N x PB tiles are spread over the 8 warps as
+// never leaves registers: its NP x PB tiles are spread over the 8 warps as
 // mma accumulators, scaled by exp(cum_last) and updated by
 //   state^T += bf16(w_j B_j)^T . x_j,   w_j = exp(cum_last - cum_j) dt_j
 // each chunk, and written to shared memory in bf16 at the start of the next
@@ -81,6 +79,7 @@ constexpr int TK = 64;          // key rows per tile
 constexpr int MAX_L = NT;       // chunk length: one row per thread in the scan
 constexpr int MAX_P = 64;       // head dim: one 4-column group per thread
 constexpr int MAX_N = 128;      // state width
+constexpr int PB = MAX_P;       // the bf16 kernel's tile of P, zero-filled
 constexpr int MAX_SMEM = 232448;
 
 struct Strides {                // in elements; the last dim is contiguous
@@ -350,7 +349,7 @@ __device__ __forceinline__ int swz(int row, int col) {
   return row * W + (((col / 8) ^ f) * 8) + col % 8;
 }
 
-template <int NP, int PB>
+template <int NP>
 struct Tc {
   static constexpr int NT8 = PB / 8;        // n8 tiles of y and of the state
   static constexpr int TILES = (NP / 16) * NT8;   // m16 x n8 tiles of state^T
@@ -371,14 +370,14 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t u, float lo,
   return pack_bf16(f.x * lo, f.y * hi);
 }
 
-template <int NP, int PB>
-__global__ void __launch_bounds__(NT, (Tc<NP, PB>::MINB))
+template <int NP>
+__global__ void __launch_bounds__(NT, (Tc<NP>::MINB))
 ssd_fwd_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
             const float* __restrict__ A, const bf16* __restrict__ Bm,
             const bf16* __restrict__ Cm, bf16* __restrict__ y,
             float* __restrict__ hf, int S, int H, int G, int P, int N, int L,
-            int n_split, Strides st) {
-  using K = Tc<NP, PB>;
+            Strides st) {
+  using K = Tc<NP>;
   extern __shared__ __align__(16) float smem[];   // one name in this file
   bf16* xs = reinterpret_cast<bf16*>(smem);    // [MAX_L][PB], swizzled
   bf16* bs = xs + MAX_L * PB;                  // [MAX_L][NP]
@@ -396,18 +395,16 @@ ssd_fwd_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int lane = tid % 32;
   const int r = lane / 4;                      // fragment rows r and r + 8
   const int c = 2 * (lane % 4);                // fragment columns c and c + 1
-  const int bh = blockIdx.x / n_split;
-  const int p0 = (blockIdx.x % n_split) * PB;
-  const int pw = min(PB, P - p0);              // columns of P in this part
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
   const int g = h / (H / G);
   const float a = A[h];
-  const bf16* xb = x + b * st.x_b + h * st.x_h + p0;
+  const bf16* xb = x + b * st.x_b + h * st.x_h;
   const float* dtb = dt + b * st.dt_b + h * st.dt_h;
   const bf16* bb = Bm + b * st.b_b + g * st.b_g;
   const bf16* cb = Cm + b * st.c_b + g * st.c_g;
-  bf16* yb = y + b * st.y_b + h * st.y_h + p0;
+  bf16* yb = y + b * st.y_b + h * st.y_h;
 
   // this warp's tiles of state^T: rows n of m16 tile sm, columns p of the n8
   // tiles sn0 .. sn0 + TPW - 1 (none when the state has fewer than 8 tiles)
@@ -436,7 +433,7 @@ ssd_fwd_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
     for (int i = tid; i < nq * 16 * (PB / 8); i += NT) {
       const int rr = i / (PB / 8);
       const int cc = 8 * (i % (PB / 8));
-      const bool ok = rr < nv && cc < pw;
+      const bool ok = rr < nv && cc < P;
       cp_async16(xs + swz<PB>(rr, cc),
                  ok ? xb + (long long)(t0 + rr) * st.x_s + cc : xb, ok ? 16 : 0);
     }
@@ -613,7 +610,7 @@ ssd_fwd_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
         __syncwarp();
         if (lane < 16 && i0 + lane < nv) {
           bulk_store(yb + (long long)(t0 + i0 + lane) * st.y_s, ys + lane * PB,
-                     pw * 2);
+                     P * 2);
           bulk_commit();
         }
       } else {
@@ -623,7 +620,7 @@ ssd_fwd_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
             const int i = i0 + r + 8 * hr;
-            if (i < nv && p < pw)
+            if (i < nv && p < P)
               *reinterpret_cast<__nv_bfloat162*>(
                   yb + (long long)(t0 + i) * st.y_s + p) =
                   __floats2bfloat162_rn(acc[j][2 * hr], acc[j][2 * hr + 1]);
@@ -677,12 +674,12 @@ ssd_fwd_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
       for (int e = 0; e < 4; ++e) {
         const int n = 16 * sm + r + 8 * (e / 2);
         const int p = 8 * (sn0 + k) + c + e % 2;
-        if (n < N && p < pw) hb[(long long)(p0 + p) * N + n] = sacc[k][e];
+        if (n < N && p < P) hb[(long long)p * N + n] = sacc[k][e];
       }
   }
 }
 
-static_assert(Tc<128, 64>::SMEM <= MAX_SMEM && Tc<64, 64>::MINB == 2,
+static_assert(Tc<128>::SMEM <= MAX_SMEM && Tc<64>::MINB == 2,
               "the tile sets must fit in shared memory");
 
 cudaError_t launch_f32(const void* x, const float* dt, const float* A,
@@ -706,37 +703,20 @@ cudaError_t launch_f32(const void* x, const float* dt, const float* A,
 static_assert(smem_floats(MAX_P, MAX_N) * sizeof(float) <= MAX_SMEM,
               "the largest tile set must fit in shared memory");
 
-template <int NP, int PB>
+template <int NP>
 cudaError_t launch_mma(const void* x, const float* dt, const float* A,
                        const void* Bm, const void* Cm, void* y, float* hf,
                        int B, int S, int H, int G, int P, int N, int L,
-                       int n_split, const Strides& st, cudaStream_t stream) {
+                       const Strides& st, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      ssd_fwd_mma<NP, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tc<NP, PB>::SMEM);
+      ssd_fwd_mma<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tc<NP>::SMEM);
   if (attr != cudaSuccess) return attr;
-  ssd_fwd_mma<NP, PB><<<B * H * n_split, NT, Tc<NP, PB>::SMEM, stream>>>(
+  ssd_fwd_mma<NP><<<B * H, NT, Tc<NP>::SMEM, stream>>>(
       static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(Bm),
       static_cast<const bf16*>(Cm), static_cast<bf16*>(y), hf, S, H, G, P, N,
-      L, n_split, st);
+      L, st);
   return cudaGetLastError();
-}
-
-// the instantiation of the tile widths: N up to NP, PB columns of P
-template <int NP>
-cudaError_t launch_pb(int pb, const void* x, const float* dt, const float* A,
-                      const void* Bm, const void* Cm, void* y, float* hf,
-                      int B, int S, int H, int G, int P, int N, int L,
-                      int n_split, const Strides& st, cudaStream_t s) {
-  switch (pb) {
-    case 16: return launch_mma<NP, 16>(x, dt, A, Bm, Cm, y, hf, B, S, H, G, P,
-                                       N, L, n_split, st, s);
-    case 32: return launch_mma<NP, 32>(x, dt, A, Bm, Cm, y, hf, B, S, H, G, P,
-                                       N, L, n_split, st, s);
-    case 64: return launch_mma<NP, 64>(x, dt, A, Bm, Cm, y, hf, B, S, H, G, P,
-                                       N, L, n_split, st, s);
-  }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -744,13 +724,12 @@ cudaError_t launch_pb(int pb, const void* x, const float* dt, const float* A,
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y); dt and A are float32.
 // x (B,S,H,P), dt (B,S,H), B/C (B,S,G,N) and y (B,S,H,P) are addressed through
 // strides in elements with a contiguous last dim; A (H,) and h_final
-// (B,H,P,N) f32 are contiguous. L is the chunk length. bfloat16 cuts P into
-// n_split parts of pb (16, 32 or 64) columns, one block each; float32 takes
-// n_split = 1. Returns a cudaError_t.
+// (B,H,P,N) f32 are contiguous. L is the chunk length. Returns a
+// cudaError_t.
 extern "C" int ssd_fwd_launch(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, void* y, void* h_final, int dtype, int B, int S, int H,
-    int G, int P, int N, int L, int pb, int n_split,
+    int G, int P, int N, int L,
     long long x_b, long long x_s, long long x_h,
     long long dt_b, long long dt_s, long long dt_h,
     long long b_b, long long b_s, long long b_g,
@@ -759,7 +738,7 @@ extern "C" int ssd_fwd_launch(
   const int vec = dtype == 0 ? 4 : 8;
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || L <= 0 ||
       L > MAX_L || P <= 0 || P > MAX_P || P % vec != 0 || N <= 0 ||
-      N > MAX_N || N % vec != 0 || n_split <= 0)
+      N > MAX_N || N % vec != 0)
     return (int)cudaErrorInvalidValue;
   const Strides st{x_b, x_s, x_h, dt_b, dt_s, dt_h, b_b, b_s, b_g,
                    c_b, c_s, c_g, y_b, y_s, y_h};
@@ -767,23 +746,19 @@ extern "C" int ssd_fwd_launch(
   const float* ap = static_cast<const float*>(A);
   float* hp = static_cast<float*>(h_final);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (n_split != 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
     return (int)launch_f32(x, dtp, ap, Bm, Cm, y, hp, B, S, H, G, P, N, L, st,
                            s);
-  }
-  if (dtype != 1 || (pb != 16 && pb != 32 && pb != 64) ||
-      (n_split - 1) * pb >= P || n_split * pb < P)
-    return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (N <= 16)
-    return (int)launch_pb<16>(pb, x, dtp, ap, Bm, Cm, y, hp, B, S, H, G, P, N,
-                              L, n_split, st, s);
+    return (int)launch_mma<16>(x, dtp, ap, Bm, Cm, y, hp, B, S, H, G, P, N,
+                               L, st, s);
   if (N <= 32)
-    return (int)launch_pb<32>(pb, x, dtp, ap, Bm, Cm, y, hp, B, S, H, G, P, N,
-                              L, n_split, st, s);
+    return (int)launch_mma<32>(x, dtp, ap, Bm, Cm, y, hp, B, S, H, G, P, N,
+                               L, st, s);
   if (N <= 64)
-    return (int)launch_pb<64>(pb, x, dtp, ap, Bm, Cm, y, hp, B, S, H, G, P, N,
-                              L, n_split, st, s);
-  return (int)launch_pb<128>(pb, x, dtp, ap, Bm, Cm, y, hp, B, S, H, G, P, N,
-                             L, n_split, st, s);
+    return (int)launch_mma<64>(x, dtp, ap, Bm, Cm, y, hp, B, S, H, G, P, N,
+                               L, st, s);
+  return (int)launch_mma<128>(x, dtp, ap, Bm, Cm, y, hp, B, S, H, G, P, N,
+                              L, st, s);
 }

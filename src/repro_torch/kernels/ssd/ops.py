@@ -6,9 +6,8 @@ by bytes: x read and y written once, plus dt, B/C and the final state. The
 CUDA kernels (``csrc/ssd.cu``) give each (batch, head) a block that walks its
 chunks in order, reading x, dt and B/C in place through strides (the TPU
 wrapper's transposes and padding are not repeated). In bf16 the products run
-on the tensor cores with the P x N state in registers, and the wrapper may cut
-the head dim P into parts, one block each (``split_plan``); in f32 they are
-scalar FMAs.
+on the tensor cores with the P x N state in registers; in f32 they are scalar
+FMAs.
 
 ``use_pallas=False`` runs the plain ``ref.ssd_chunked`` on any device, as it
 selects XLA in the JAX package. With ``use_pallas=True`` a CPU tensor takes
@@ -32,41 +31,9 @@ from . import ref
 launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"ssd_fwd_launch": [_P] * 7 + [_I] * 10 + [_L] * 15 + [_P]}
+_SIGNATURES = {"ssd_fwd_launch": [_P] * 7 + [_I] * 8 + [_L] * 15 + [_P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK, MAX_P, MAX_N = 256, 64, 128
-PART_WIDTHS = (16, 32, 64)      # the bf16 kernel's column widths of P
-STATE_TILES = (16, 32, 64, 128)  # and its state widths, N zero-filled up
-
-
-def _blocks_per_sm(np_: int, pb: int) -> int:
-    """Blocks of the bf16 kernel at widths (NP, PB) that one SM holds at
-    once: two where their shared memory fits, else one (``Tc<NP, PB>`` in
-    ``csrc/ssd.cu``: x, B, C of a 256-row chunk, the bf16 state, warp totals
-    and five f32 rows, against an SM's 233,472 bytes less 1,024 a block)."""
-    smem = 256 * (pb + 2 * np_) * 2 + np_ * pb * 2 + 8 * 8 + 5 * 256 * 4
-    return 2 if 2 * (smem + 1024) <= 233472 else 1
-
-
-def split_plan(B: int, H: int, P: int, N: int, n_sm: int) -> Tuple[int, int]:
-    """(n_split, pb): the bf16 kernel cuts P into n_split parts of pb
-    columns, one block each. A block's time is about proportional to NP + pb
-    (C B^T is computed again in every part, att . x and the state only for
-    its columns); an SM takes its ceil(blocks / n_sm) blocks in turns of as
-    many as it holds at once, which run side by side. The plan with the
-    least time so reckoned wins, the fewest parts on a tie. Depends on the
-    shapes and the SM count, never on data."""
-    np_ = next(w for w in STATE_TILES if w >= N)
-    best = None
-    for n_split in (1, 2, 4):
-        pb = next((w for w in PART_WIDTHS if w * n_split >= P), None)
-        if pb is None or (n_split - 1) * pb >= P:
-            continue                    # no such width, or an empty part
-        per_sm = -(-B * H * n_split // n_sm)
-        cost = -(-per_sm // _blocks_per_sm(np_, pb)) * (np_ + pb)
-        if best is None or cost < best[0]:
-            best = (cost, n_split, pb)
-    return best[1], best[2]
 
 
 def _check(x, dt, A, Bm, Cm, L):
@@ -109,6 +76,7 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, use_pallas: bool = False,
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD scan. See ``ref.py`` for shapes. Returns y (B,S,H,P) in x's dtype
     and the final state (B,H,P,N) in f32."""
+    global launches
     if not use_pallas:
         return ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk, h0=h0,
                                precision=precision)
@@ -122,31 +90,17 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, use_pallas: bool = False,
     if x.device.type != "cuda":
         raise ValueError(f"ssd runs on cpu or cuda, not {x.device}")
     B, S, H, P = x.shape
-    N = Bm.shape[3]
+    G, N = Bm.shape[2], Bm.shape[3]
     L = min(chunk, S)
     _check(x, dt, A, Bm, Cm, L)
-    if x.dtype == torch.bfloat16:
-        n_split, pb = split_plan(B, H, P, N, torch.cuda.get_device_properties(
-            x.device).multi_processor_count)
-    else:
-        n_split, pb = 1, 0
-    return _launch(x, dt, A, Bm, Cm, L, n_split, pb)
-
-
-def _launch(x, dt, A, Bm, Cm, L: int, n_split: int, pb: int):
-    """One launch of the kernel on checked CUDA tensors, P cut into
-    ``n_split`` parts of ``pb`` columns (bf16; f32 takes 1 and 0)."""
-    global launches
-    B, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     h_final = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     lib = _build.load("ssd", _SIGNATURES)
     err = lib.ssd_fwd_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), y.data_ptr(), h_final.data_ptr(), _DTYPES[x.dtype],
-        B, S, H, G, P, N, L, pb, n_split, *x.stride()[:3], *dt.stride(),
-        *Bm.stride()[:3], *Cm.stride()[:3], *y.stride()[:3],
+        B, S, H, G, P, N, L, *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
+        *Cm.stride()[:3], *y.stride()[:3],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, "ssd", err)
     launches += 1

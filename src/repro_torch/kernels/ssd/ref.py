@@ -113,7 +113,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = 256,
     return y, h
 
 
-def ssd_chunked_tc(x, dt, A, Bm, Cm, *, chunk: int = 256, n_split: int = 1
+def ssd_chunked_tc(x, dt, A, Bm, Cm, *, chunk: int = 256
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The bf16 CUDA kernel's arithmetic (``csrc/ssd.cu``, ``ssd_fwd_mma``).
 
@@ -130,17 +130,9 @@ def ssd_chunked_tc(x, dt, A, Bm, Cm, *, chunk: int = 256, n_split: int = 1
                w_j = exp(cum_last - cum_j) dt_j, rounded once with B_j
     (mixed rounds w_j alone). The prefix sum cum is f64 within the chunk, and
     the exponents are (hi_i - hi_j) + (lo_i - lo_j) of cum split into two
-    f32 parts. ``n_split`` cuts P into parts computed on their own, as the
-    kernel's blocks do; the columns of P are independent, so the result does
-    not depend on it. x, B and C are taken as they are (bf16 in the kernel).
+    f32 parts. x, B and C are taken as they are (bf16 in the kernel).
     """
     B, S, H, P = x.shape
-    if n_split > 1:
-        pb = -(-P // n_split)
-        parts = [ssd_chunked_tc(x[..., p0:p0 + pb], dt, A, Bm, Cm,
-                                chunk=chunk) for p0 in range(0, P, pb)]
-        return (torch.cat([y for y, _ in parts], dim=-1),
-                torch.cat([h for _, h in parts], dim=2))
     N = Bm.shape[-1]
     L = min(chunk, S)
     pad = (-S) % L

@@ -304,33 +304,16 @@ def test_ssd_tc_kernel_vs_its_plain_version_and_naive(cuda, shape, chunk):
     assert max(_rel(y, y0), _rel(h, h0)) < SSD_TOL["bfloat16"]
 
 
-@pytest.mark.parametrize("P,N", [(64, 64), (64, 128), (24, 40), (40, 16),
-                                 (56, 120), (16, 32)])
-def test_ssd_tc_kernel_every_split_of_p(cuda, P, N):
-    """Each part of P is a block of its own with its own C B^T: every split
-    the kernel takes (PB 16, 32, 64; the last part ragged or zero-filled)
-    gives the unsplit result bit for bit."""
+@pytest.mark.parametrize("P", [8, 16, 24, 32, 40, 48, 56, 64])
+def test_ssd_tc_kernel_zero_fills_p_to_its_tile(cuda, P):
+    """Every width of P the kernel admits runs in its 64-column tile, the
+    columns past P zero-filled and never written."""
     rng = np.random.default_rng(8)
-    args = _ssd_inputs(rng, (2, 300, 3, 1, P, N), torch.bfloat16, cuda)
-    y1, h1 = ssd_ops._launch(*args, 256, 1, next(
-        w for w in ssd_ops.PART_WIDTHS if w >= P))
-    splits = 0
-    for n_split in (2, 4):
-        pb = next((w for w in ssd_ops.PART_WIDTHS if w * n_split >= P), None)
-        if pb is None or (n_split - 1) * pb >= P:
-            continue
-        y, h = ssd_ops._launch(*args, 256, n_split, pb)
-        torch.cuda.synchronize()
-        assert torch.equal(y, y1) and torch.equal(h, h1), (n_split, pb)
-        splits += 1
-    assert splits or P <= 16
-
-
-def test_ssd_split_plan_on_this_card(cuda):
-    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for B, H, P, N in ((8, 112, 64, 64), (8, 24, 64, 128), (1, 24, 64, 128)):
-        n_split, pb = ssd_ops.split_plan(B, H, P, N, n_sm)
-        assert (n_split - 1) * pb < P <= n_split * pb
+    args = _ssd_inputs(rng, (2, 300, 3, 1, P, 64), torch.bfloat16, cuda)
+    y, h = ssd_ops.ssd(*args, chunk=256, use_pallas=True)
+    y1, h1 = ssd_ref.ssd_chunked_tc(*args, chunk=256)
+    assert y.shape == args[0].shape and h.shape == (2, 3, P, 64)
+    assert max(_rel(y, y1), _rel(h, h1)) < SSD_TC_TOL
 
 
 def test_ssd_kernel_vs_naive(cuda):

@@ -64,18 +64,22 @@ def _args(d):
 ])
 def test_ssd_vs_jax_pallas_and_naive(shape, chunk, dtype):
     """Twin of test_ssd_pallas_vs_naive: the wrapper on CPU tensors (the
-    kernel's plain version) against the Pallas kernel and ``ssd_naive``."""
+    kernel's plain version: ``ssd_chunked_tc`` in bf16) against the Pallas
+    kernel, ``ssd_naive`` and the JAX ``ssd_chunked(precision="mixed")``."""
     j, t = _inputs(shape, dtype)
     yp, hp = ssd_pallas(*_args(j), chunk=chunk, interpret=True)
     yn, hn = j_ref.ssd_naive(*_args(j))
+    ym, hm = j_ref.ssd_chunked(*_args(j), chunk=chunk, precision="mixed")
     n0 = ssd_ops.launches
     y, h = ssd_ops.ssd(*_args(t), chunk=chunk, use_pallas=True)
     assert ssd_ops.launches == n0, "a CPU tensor must not launch the kernel"
     assert y.dtype == t["x"].dtype and y.shape == t["x"].shape
     assert h.dtype == torch.float32
-    for want_y, want_h in ((yp, hp), (yn, hn)):
+    for name, (want_y, want_h) in (("ssd_pallas", (yp, hp)),
+                                   ("ssd_naive", (yn, hn)),
+                                   ("jax mixed", (ym, hm))):
         err = max(_rel(y, want_y), _rel(h, want_h))
-        assert err < TOL[dtype], f"{shape} {dtype}: {err:.2e}"
+        assert err < TOL[dtype], f"{shape} {dtype} vs {name}: {err:.2e}"
     # the port's own ground truth against JAX's
     y0, h0 = ref.ssd_naive(*_args(t))
     assert max(_rel(y0, yn), _rel(h0, hn)) < TOL[dtype]

@@ -1,10 +1,10 @@
 """The plain version of the bf16 tensor-core SSD kernel on the CPU
 (``ref.ssd_chunked_tc``: bf16 operands of C B^T, att . x and both state
 terms, f32 sums, the f32 state rounded to bf16 for C . state^T) against the
-recurrence ``ssd_naive``, the JAX package's Pallas kernel run in interpret
-mode and its ``ssd_chunked(precision="mixed")``, on the same numpy inputs;
-the split of the head dim P across blocks (``n_split``) and the wrapper's
-choice of it (``ops.split_plan``).
+recurrence ``ssd_naive`` at the widths and chunks only the kernel's tiles
+make special, on the same numpy inputs (the shapes of the JAX package's SSD
+tests are in tests/test_torch_ssd.py); and the shapes the wrapper admits to
+the kernel (``ops._check``).
 
 Tolerance 3e-2 relative to max|want|, as the JAX package's bf16 SSD tests:
 the att and state operands are rounded to bf16 where the oracles keep f32."""
@@ -14,12 +14,10 @@ import pytest
 import torch
 
 from repro.kernels.ssd import ref as j_ref
-from repro.kernels.ssd.ssd import ssd_pallas
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref
 
 TOL = 3e-2
-H100_SMS = 132
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -53,28 +51,6 @@ def _rel(port, want):
     return float(np.max(np.abs(p - w)) / (np.max(np.abs(w)) + 1e-9))
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape,chunk", [
-    ((2, 128, 4, 1, 32, 64), 32),
-    ((1, 96, 4, 2, 16, 32), 32),       # grouped B/C, ragged chunks
-    ((1, 256, 2, 1, 64, 128), 128),    # production-like tile
-])
-def test_tc_plain_vs_naive_pallas_and_mixed(shape, chunk, dtype):
-    """The shapes of test_ssd_vs_jax_pallas_and_naive."""
-    j, t = _inputs(shape, dtype)
-    y, h = ref.ssd_chunked_tc(*t, chunk=chunk)
-    assert y.dtype == t[0].dtype and y.shape == t[0].shape
-    assert h.dtype == torch.float32 and h.shape == (
-        shape[0], shape[2], shape[4], shape[5])
-    wants = {"ssd_naive": ref.ssd_naive(*t),
-             "ssd_pallas": ssd_pallas(*j, chunk=chunk, interpret=True),
-             "jax mixed": j_ref.ssd_chunked(*j, chunk=chunk,
-                                            precision="mixed")}
-    for name, (want_y, want_h) in wants.items():
-        err = max(_rel(y, want_y), _rel(h, want_h))
-        assert err < TOL, f"{shape} {dtype} vs {name}: {err:.2e}"
-
-
 @pytest.mark.parametrize("shape,chunk", [
     ((1, 300, 4, 1, 24, 40), 256),     # P, N multiples of 8, not of 16
     ((2, 200, 3, 1, 56, 120), 64),
@@ -85,18 +61,6 @@ def test_tc_plain_odd_widths_and_short_chunks(shape, chunk):
     y, h = ref.ssd_chunked_tc(*t, chunk=chunk)
     yn, hn = j_ref.ssd_naive(*j)
     assert max(_rel(y, yn), _rel(h, hn)) < TOL
-
-
-@pytest.mark.parametrize("n_split", [2, 4])
-@pytest.mark.parametrize("P", [64, 24])
-def test_tc_split_of_p_changes_nothing(P, n_split):
-    """The columns of P are independent: the parts, each with its own C B^T,
-    give the single pass's y and state (to the order of f32 sums)."""
-    _, t = _inputs((2, 100, 3, 1, P, 32), seed=2)
-    y1, h1 = ref.ssd_chunked_tc(*t, chunk=32)
-    y, h = ref.ssd_chunked_tc(*t, chunk=32, n_split=n_split)
-    assert y.shape == y1.shape and h.shape == h1.shape
-    assert _rel(y, y1) < 1e-6 and _rel(h, h1) < 1e-6
 
 
 def test_tc_plain_never_exponentiates_above_the_diagonal():
@@ -119,22 +83,52 @@ def test_cpu_kernel_route_in_bf16_is_the_tc_plain_version():
     assert torch.equal(y, y0) and torch.equal(h, h0)
 
 
-@pytest.mark.parametrize("arch,shape,plan", [
-    ("zamba2-7b", (8, 112, 64, 64), (1, 64)),      # 896 blocks: no split
-    ("mamba2-130m", (8, 24, 64, 128), (1, 64)),    # 192 blocks, one an SM
-    ("mamba2-130m batch 1", (1, 24, 64, 128), (4, 16)),
-    ("mamba2-130m batch 2", (2, 24, 64, 128), (2, 32)),
-    ("mamba2-130m batch 4", (4, 24, 64, 128), (1, 64)),
-    ("zamba2-7b batch 1", (1, 112, 64, 64), (2, 32)),   # two blocks an SM
-    ("zamba2-7b batch 2", (2, 112, 64, 64), (1, 64)),
+def _kernel_args(B=1, S=64, H=4, G=1, P=64, N=64, dtype=torch.bfloat16):
+    x = torch.zeros(B, S, H, P, dtype=dtype)
+    dt = torch.ones(B, S, H)
+    A = -torch.ones(H)
+    Bm = torch.zeros(B, S, G, N, dtype=dtype)
+    return [x, dt, A, Bm, Bm.clone()]
+
+
+@pytest.mark.parametrize("widths", [
+    dict(P=64, N=64), dict(P=64, N=128), dict(P=24, N=40), dict(P=8, N=8),
+    dict(P=4, N=4, dtype=torch.float32), dict(P=12, N=20, dtype=torch.float32),
 ])
-def test_split_plan_at_the_main_path_shapes(arch, shape, plan):
-    assert ssd_ops.split_plan(*shape, H100_SMS) == plan, arch
+def test_kernel_admits_its_widths(widths):
+    """P up to 64 and N up to 128 in multiples of one 16-byte vector: 8 in
+    bf16 (zero-filled up to the tensor-core tiles), 4 in f32."""
+    ssd_ops._check(*_kernel_args(**widths), L=64)
 
 
-@pytest.mark.parametrize("P", [8, 16, 24, 40, 48, 56, 64])
-@pytest.mark.parametrize("BH", [1, 24, 200, 896])
-def test_split_plan_covers_p_with_no_empty_part(P, BH):
-    n_split, pb = ssd_ops.split_plan(1, BH, P, 64, H100_SMS)
-    assert pb in ssd_ops.PART_WIDTHS and n_split in (1, 2, 4)
-    assert (n_split - 1) * pb < P <= n_split * pb
+def _edit(i, f):
+    def go(args):
+        args[i] = f(args[i])
+        return args
+    return go
+
+
+@pytest.mark.parametrize("case,make,L,error", [
+    ("P not a multiple of 8 in bf16", lambda: _kernel_args(P=20), 64,
+     ValueError),
+    ("P past 64", lambda: _kernel_args(P=72), 64, ValueError),
+    ("N past 128", lambda: _kernel_args(N=136), 64, ValueError),
+    ("chunk past 256", lambda: _kernel_args(S=300), 257, ValueError),
+    ("no chunk", lambda: _kernel_args(), 0, ValueError),
+    ("B in another dtype", lambda: _edit(3, lambda t: t.float())(
+        _kernel_args()), 64, TypeError),
+    ("dt in bf16", lambda: _edit(1, lambda t: t.bfloat16())(_kernel_args()),
+     64, TypeError),
+    ("heads not a multiple of groups", lambda: _kernel_args(H=3, G=2), 64,
+     ValueError),
+    ("dt of another length", lambda: _edit(1, lambda t: t[:, :32])(
+        _kernel_args()), 64, ValueError),
+    ("x's last dim strided", lambda: _edit(0, lambda t: t.transpose(1, 3))(
+        _kernel_args(S=64, P=64)), 64, ValueError),
+    ("x's rows not 16-byte aligned", lambda: _edit(
+        0, lambda t: torch.zeros(1, 64, 4, 68, dtype=t.dtype)[..., 4:])(
+        _kernel_args()), 64, ValueError),
+])
+def test_kernel_refuses_what_it_cannot_read(case, make, L, error):
+    with pytest.raises(error):
+        ssd_ops._check(*make(), L=L)
