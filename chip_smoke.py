@@ -2,23 +2,29 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA
-card, ``nvcc`` (``/usr/local/cuda``) and Triton, and fails without them.
+card and ``nvcc`` (``/usr/local/cuda``), and fails without them.
 
 Phases, each printing its lines; any failed check exits non-zero:
   1. device: the card's name, count and power limit;
-  2. build: every CUDA kernel from the checkout's sources (one nvcc per
+  2. build: the four CUDA kernels from the checkout's sources (one nvcc per
      source, in parallel), with ptxas' registers and spills, and the tensor
      core instructions in the SASS (cuobjdump): HGMMA (wgmma) in every bf16
      flash-attention instantiation, HMMA (mma.sync) in every bf16
      decode-attention and SSD-scan one;
   3. kernel vs plain: each kernel's wrapper on CUDA tensors at the main
-     paths' shapes against its plain PyTorch version, tolerance stated;
+     paths' shapes against its plain PyTorch version, tolerance stated
+     (RMSNorm gated and ungated at every main-path width, 8 and 8,192 rows,
+     and at d = 77);
   4. kernel times (CUDA events, L2 flushed before each launch) beside the
      least time the card could take, the plain version and a library call;
-     the 8-row RMSNorm's from the profiler's device time; flash and decode
-     attention also at zamba2-7b's shape, beside SDPA, and decode attention's
-     device time per call from the profiler (split and combine kernels); the
-     SSD scan at zamba2-7b's and mamba2-130m's shapes;
+     the 8-row RMSNorm's from the profiler's device time, with its rows
+     split across a cluster of blocks and one block a row; the gated RMSNorm
+     (zamba2-7b's and mamba2-130m's Mamba2 norm) beside the three eager
+     calls it replaces; flash and decode attention also at zamba2-7b's
+     shape, beside SDPA, and decode attention's device time per call from
+     the profiler (split and combine kernels); the SSD scan at zamba2-7b's
+     and mamba2-130m's shapes; the host time per call of the wrappers and
+     eager calls of a decode step;
   5. main paths, each served with ``serve_batch`` at full width with random
      bf16 weights from a seed: 8 requests of 1,024 prompt tokens, 32 greedy
      new tokens, with the kernels' launch counts set to 0 just before and
@@ -78,6 +84,9 @@ SSD_TC_TOL = 1e-2
 # to the f32 plain path, over the bf16 plain path's, read 1.03, 1.10 and 0.99.
 F32_LOGIT_TOL = 1e-4
 BF16_ERR_RATIO = 1.5
+# aten calls of one decode step of the kernel path in PR 14's run of this
+# script, before the gated norm (H100 80GB HBM3, 700 W)
+PR14_ATEN_CALLS = {"chatglm3-6b": 5197, "zamba2-7b": 26652, "mamba2-130m": 6452}
 
 
 def check(ok, msg):
@@ -246,7 +255,8 @@ def main():
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
     logs = _build.build_all()
-    check(sorted(logs) == sorted(_build.CUDA_KERNELS), f"built {sorted(logs)}")
+    check(sorted(logs) == sorted(_build.CUDA_KERNELS) == sorted(ops_of),
+          f"built {sorted(logs)}, not the four kernels {sorted(ops_of)}")
     for name, log in logs.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
@@ -308,11 +318,15 @@ def main():
                                            scale=dh ** -0.5).transpose(1, 2)
         return max_err(got, want), (q, k, v, vl, dh ** -0.5)
 
-    def norm_case(rows, dim, dtype):
+    def norm_case(rows, dim, dtype, gated):
         x, w = randn(rows, dim, dtype=dtype), randn(dim, dtype=dtype) * 0.1
-        got = rn_ops.rmsnorm(x, w, eps=glm.norm_eps)
+        gate = randn(rows, dim, dtype=dtype) if gated else None
+        got = rn_ops.rmsnorm(x, w, eps=glm.norm_eps, gate=gate)
         torch.cuda.synchronize()
-        return max_err(got, rn_ref.rmsnorm_ref(x, w, eps=glm.norm_eps)), (x, w)
+        check(got.shape == x.shape and got.dtype == x.dtype,
+              f"fused_rmsnorm ({rows}, {dim}) output")
+        want = rn_ref.rmsnorm_ref(x, w, eps=glm.norm_eps, gate=gate)
+        return max_err(got, want), (x, w, gate)
 
     def ssd_case(shape, chunk, dtype, slow_decay):
         """dt = softplus(z - 4) (slow decay) carries the state across
@@ -393,19 +407,24 @@ def main():
                 inputs[f"decode_attention/{label}"] = args
                 if label == "chatglm3-6b":
                     results["decode_attention"] = {"max_abs_err": err}
+        # every width a norm of the main paths has, gated (the Mamba2 norm,
+        # y * silu(z) normalized) and not; d = 77 takes the scalar kernel
         for rows in (B * S, B):
             for dim in (glm.d_model, zam.d_model, zam.ssm_d_inner, mam.d_model,
-                        mam.ssm_d_inner):
-                err, args = norm_case(rows, dim, dtype)
-                tol = NORM_TOL[dtype_name]
-                print(f"[check] fused_rmsnorm ({rows}, {dim}) {dtype_name}: "
-                      f"max|err| {err:.3e} (tol {tol})", flush=True)
-                check(err < tol, f"fused_rmsnorm ({rows},{dim}) {dtype_name}: "
-                      f"{err}")
-                if dtype_name == "bfloat16" and dim == glm.d_model:
-                    inputs[f"fused_rmsnorm/{rows}"] = args
-                    if rows == B * S:
-                        results["fused_rmsnorm"] = {"max_abs_err": err}
+                        mam.ssm_d_inner, 77):
+                for gated in (False, True):
+                    err, args = norm_case(rows, dim, dtype, gated)
+                    tol = NORM_TOL[dtype_name]
+                    label = "gated " if gated else ""
+                    print(f"[check] {label}fused_rmsnorm ({rows}, {dim}) "
+                          f"{dtype_name}: max|err| {err:.3e} (tol {tol})",
+                          flush=True)
+                    check(err < tol, f"{label}fused_rmsnorm ({rows},{dim}) "
+                          f"{dtype_name}: {err}")
+                    if dtype_name == "bfloat16":
+                        inputs[f"fused_rmsnorm/{label}{rows}x{dim}"] = args
+                        if rows == B * S and dim == glm.d_model and not gated:
+                            results["fused_rmsnorm"] = {"max_abs_err": err}
         for label, shape, chunk in ssd_shapes:
             for slow in (False, True):
                 err, abs_err, args, note, plain_err = ssd_case(
@@ -497,33 +516,103 @@ def main():
                       f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms"
                       f"  [{card}]", flush=True)
 
-    # the prefill rows here; the decode rows' (8 x 4,096) kernel time is
-    # shorter than the host's launch of it, so events would time the host:
-    # the profiler's device time reads it below and in phase 6
+    # RMSNorm. Rows of a prefill by CUDA events; a decode step's rows (8 x d)
+    # take less device time than the host's launch of them, so events would
+    # time the host: the profiler's device time reads those, here and in
+    # phase 6. The gated norm (the Mamba2 block's) is timed beside the three
+    # eager calls it replaces (F.silu, the product, F.rms_norm).
+    eps = glm.norm_eps
     d = glm.d_model
-    x, w = inputs[f"fused_rmsnorm/{B * S}"]
-    w1 = (1.0 + w.float()).to(x.dtype)
-    results["fused_rmsnorm"].update(
-        ms=timer(lambda: rn_ops.rmsnorm(x, w, eps=glm.norm_eps), 50),
-        plain_ms=timer(lambda: rn_ref.rmsnorm_ref(x, w, eps=glm.norm_eps), 50),
-        library_ms=timer(lambda: F.rms_norm(x, (d,), weight=w1,
-                                            eps=glm.norm_eps), 50),
-        flops=4 * B * S * d, bytes=2 * (2 * B * S * d + d), dtype="float32")
+    norm = results["fused_rmsnorm"]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    x8, w8 = inputs[f"fused_rmsnorm/{B}"]
-    w8_1 = (1.0 + w8.float()).to(x8.dtype)
-    bound8 = 2 * (2 * B * d + d) / PEAK_BYTES_PER_S * 1e3     # bytes bound it
-    for label, fn in (
-            ("kernel", lambda: rn_ops.rmsnorm(x8, w8, eps=glm.norm_eps)),
-            ("plain version", lambda: rn_ref.rmsnorm_ref(x8, w8,
-                                                         eps=glm.norm_eps)),
-            ("F.rms_norm", lambda: F.rms_norm(x8, (d,), weight=w8_1,
-                                              eps=glm.norm_eps))):
-        ms = device_ms_per_call(torch, fn)
-        print(f"[time] fused_rmsnorm ({B}, {d}) bf16, {label}: {ms:.5f} ms of "
-              f"device time per call (profiler, 50 calls); bound "
-              f"{bound8:.6f} ms (bytes), {bound8 / ms:.1%} of it  [{card}]",
-              flush=True)
+    def norm_fns(key):
+        x, w, gate = inputs[f"fused_rmsnorm/{key}"]
+        dim, n = x.shape[-1], x.numel()
+        w1 = (1.0 + w.float()).to(x.dtype)
+        if gate is None:                    # one PyTorch call computes it
+            lib = lambda: F.rms_norm(x, (dim,), weight=w1, eps=eps)
+        else:
+            lib = lambda: F.rms_norm(x * F.silu(gate), (dim,), weight=w1,
+                                     eps=eps)
+        return dict(
+            kernel=lambda: rn_ops.rmsnorm(x, w, eps=eps, gate=gate),
+            plain=lambda: rn_ref.rmsnorm_ref(x, w, eps=eps, gate=gate),
+            lib=lib,
+            # x (and the gate) read once, out written once, w; the square,
+            # sum and two scalings an element, and silu's four and the
+            # product with a gate (f32 arithmetic)
+            flops=(4 if gate is None else 9) * n,
+            bytes=x.element_size() * ((2 if gate is None else 3) * n + dim),
+            dtype="float32", rows=x.shape[0], dim=dim,
+            vec=16 // x.element_size())
+
+    def split_and_whole(fn):
+        """Device time per call (profiler) with the rows split across a
+        cluster of blocks and with one block a row, in turns (split, whole,
+        whole, split): [split readings], [whole readings]."""
+        split, whole = [], []
+        for turn in ("split", "whole", "whole", "split"):
+            rn_ops.MAX_CLUSTER = 8 if turn == "split" else 1
+            (split if turn == "split" else whole).append(
+                device_ms_per_call(torch, fn))
+        rn_ops.MAX_CLUSTER = 8
+        return split, whole
+
+    for key, name, label in (
+            (f"{B * S}x{d}", None, "chatglm3-6b prefill"),
+            (f"gated {B * S}x{zam.ssm_d_inner}", "gated_zamba2_7b_prefill",
+             "zamba2-7b Mamba2 norm, prefill"),
+            (f"gated {B * S}x{mam.ssm_d_inner}", "gated_mamba2_130m_prefill",
+             "mamba2-130m Mamba2 norm, prefill")):
+        f = norm_fns(key)
+        r = dict(ms=timer(f["kernel"], 50), plain_ms=timer(f["plain"], 20),
+                 flops=f["flops"], bytes=f["bytes"], dtype=f["dtype"])
+        other = timer(f["lib"], 50)
+        add_bound(r)
+        yard = "F.rms_norm" if name is None else "eager silu + mul + F.rms_norm"
+        print(f"[time] {key} bf16 fused_rmsnorm ({label}; plan "
+              f"{rn_ops.plan(f['rows'], f['dim'], f['vec'], True, n_sm)}): "
+              f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB; "
+              f"{r['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f}"
+              f" ms, {yard} {other:.4f} ms  [{card}]", flush=True)
+        if name is None:
+            norm.update(r, library_ms=other)
+        else:
+            r["eager_ms"] = other
+            norm[name] = r
+    gz = norm["gated_zamba2_7b_prefill"]
+    for target, met in (
+            (f"{B * S} x {d} at most 0.0504 ms and at least 80% of its bound",
+             norm["ms"] <= 0.0504 and norm["bound_ms"] >= 0.8 * norm["ms"]),
+            (f"gated {B * S} x {zam.ssm_d_inner} faster than the three eager "
+             f"calls and at least 70% of its bound",
+             gz["ms"] < gz["eager_ms"] and gz["bound_ms"] >= 0.7 * gz["ms"])):
+        print(f"[time] fused_rmsnorm target, {target}: "
+              f"{'met' if met else 'missed'}", flush=True)
+
+    for key, name, yard in (
+            (f"{B}x{d}", "decode_8x4096", "F.rms_norm"),
+            (f"gated {B}x{zam.ssm_d_inner}", "gated_decode_8x7168",
+             "eager silu + mul + F.rms_norm")):
+        f = norm_fns(key)
+        split, whole = split_and_whole(f["kernel"])
+        r = dict(device_ms=statistics.mean(split),
+                 one_block_a_row_device_ms=statistics.mean(whole),
+                 plain_device_ms=device_ms_per_call(torch, f["plain"]),
+                 yardstick_device_ms=device_ms_per_call(torch, f["lib"]),
+                 bound_ms=f["bytes"] / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+        norm[name] = r
+        print(f"[time] {key} bf16 fused_rmsnorm, device time per call "
+              f"(profiler, 50 calls each): split across a cluster "
+              f"{rn_ops.plan(f['rows'], f['dim'], f['vec'], True, n_sm)} "
+              f"{', '.join(f'{v:.5f}' for v in split)} ms, one block a row "
+              f"{rn_ops.plan(f['rows'], f['dim'], f['vec'], True, n_sm, 1)} "
+              f"{', '.join(f'{v:.5f}' for v in whole)} ms (in turns: split, "
+              f"whole, whole, split); plain {r['plain_device_ms']:.5f} ms, "
+              f"{yard} {r['yardstick_device_ms']:.5f} ms; bound "
+              f"{r['bound_ms']:.6f} ms (bytes)  [{card}]", flush=True)
 
     # the zamba2-7b shape goes into the summary; mamba2-130m's (N 128) beside
     # it, each with its own bound
@@ -551,25 +640,50 @@ def main():
             results["ssd"]["mamba2_130m_shape"] = r
 
     # host time to issue one call at the decode step's shapes: at batch 8 a
-    # decode step is a chain of small launches, so this bounds its speed
+    # decode step is a chain of small launches, so this bounds its speed.
+    # Beside each, the reading of PR 14's run of this script (H100 80GB HBM3,
+    # 700 W), where it had one.
     qd, kd, vd, vld, sd = inputs["decode_attention/chatglm3-6b"]
-    for label, fn in (
-            ("fused_rmsnorm wrapper (8 rows)",
-             lambda: rn_ops.rmsnorm(x8, w8, eps=glm.norm_eps)),
+    x8, w8, _ = inputs[f"fused_rmsnorm/{B}x{d}"]
+    y8, wg8, z8 = inputs[f"fused_rmsnorm/gated {B}x{zam.ssm_d_inner}"]
+    w8_1 = (1.0 + w8.float()).to(x8.dtype)
+    wg8_1 = (1.0 + wg8.float()).to(y8.dtype)
+    di = zam.ssm_d_inner
+    host = {}
+    for label, fn, before in (
             ("decode_attention wrapper",
-             lambda: da_ops.decode_attention(qd, kd, vd, vld, scale=sd)),
-            ("F.rms_norm (8 rows)",
-             lambda: F.rms_norm(x8, (d,), weight=w8_1, eps=glm.norm_eps)),
-            ("torch add (8 rows)", lambda: x8 + x8)):
+             lambda: da_ops.decode_attention(qd, kd, vd, vld, scale=sd),
+             "78.8 us (64.1 in PR 11)"),
+            (f"fused_rmsnorm wrapper ({B} x {d})",
+             lambda: rn_ops.rmsnorm(x8, w8, eps=eps), "59.4 us, Triton"),
+            (f"gated fused_rmsnorm wrapper ({B} x {di})",
+             lambda: rn_ops.rmsnorm(y8, wg8, eps=eps, gate=z8),
+             "none: PR 14 ran the eager silu and product, then the norm"),
+            (f"eager F.silu + mul + F.rms_norm ({B} x {di})",
+             lambda: F.rms_norm(y8 * F.silu(z8), (di,), weight=wg8_1, eps=eps),
+             "not measured"),
+            (f"F.rms_norm ({B} x {d})",
+             lambda: F.rms_norm(x8, (d,), weight=w8_1, eps=eps), "23.4 us"),
+            (f"torch add ({B} x {d})", lambda: x8 + x8, "13.6 us")):
         fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            fn()
-        host_us = (time.perf_counter() - t0) / 200 * 1e6
-        torch.cuda.synchronize()
-        print(f"[host] {label}: {host_us:.1f} us of host time per call",
-              flush=True)
+        rounds = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            rounds.append((time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+        host[label] = statistics.median(rounds)
+        print(f"[host] {label}: {host[label]:.1f} us of host time per call "
+              f"(median of 5 x 200 calls; PR 14: {before})", flush=True)
+    ratio = (host[f"fused_rmsnorm wrapper ({B} x {d})"]
+             / host[f"F.rms_norm ({B} x {d})"])
+    print(f"[host] target, the RMSNorm wrapper's host time per call at most "
+          f"F.rms_norm's: {'met' if ratio <= 1 else 'missed'} ({ratio:.2f}x)",
+          flush=True)
+    norm["host_us_per_call"] = {k: v for k, v in host.items()
+                                if "rms" in k}
 
     for name, r in results.items():
         add_bound(r)
@@ -579,7 +693,7 @@ def main():
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%}"
               f" of it), plain {r['plain_ms']:.4f} ms, library {lib}  "
               f"[{card}]", flush=True)
-    del inputs, q, k, v, x, w, w1, x8, w8, qd, kd, vd, dt, A, Bm, Cm
+    del inputs, q, k, v, x, x8, w8, y8, wg8, z8, qd, kd, vd, dt, A, Bm, Cm
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 5. and 6. main paths
@@ -598,8 +712,8 @@ def main():
             ("decode_attention", "cuda",
              "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention/decode_attention.py:23"),
-            ("fused_rmsnorm", "triton",
-             "src/repro_torch/kernels/fused_rmsnorm/fused_rmsnorm.py",
+            ("fused_rmsnorm", "cuda",
+             "src/repro_torch/kernels/fused_rmsnorm/csrc/fused_rmsnorm.cu",
              "src/repro/kernels/fused_rmsnorm/fused_rmsnorm.py:13"),
             ("ssd", "cuda", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
              "src/repro/kernels/ssd/ssd.py:29")):
@@ -613,13 +727,13 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        **{key: r[key] for key in ("device_ms",
-                                                    "library_device_ms")
-                           if key in r},
-                        **{shape: {key: val for key, val in r[shape].items()
-                                   if key not in ("flops", "bytes", "dtype")}
-                           for shape in ("zamba2_7b_shape",
-                                         "mamba2_130m_shape") if shape in r}})
+                        **{shape: ({key: val for key, val in sub.items()
+                                    if key not in ("flops", "bytes", "dtype")}
+                                   if isinstance(sub, dict) else sub)
+                           for shape, sub in r.items() if shape not in (
+                               "flops", "bytes", "dtype", "max_abs_err", "ms",
+                               "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")}})
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
@@ -776,8 +890,13 @@ def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
             ops = [e for e in prof.key_averages()
                    if e.self_cpu_time_total > 0 and e.key.startswith("aten::")]
             ops.sort(key=lambda e: -e.self_cpu_time_total)
+            counts = {e.key: e.count for e in ops}
             print(f"[profile] {arch} {label}, host: {sum(e.count for e in ops)} "
-                  f"aten op calls, {sum(e.self_cpu_time_total for e in ops) / 1e3:.3f}"
+                  f"aten op calls (PR 14: {PR14_ATEN_CALLS[arch]}; of them "
+                  f"aten::silu {counts.get('aten::silu', 0)}, aten::mul "
+                  f"{counts.get('aten::mul', 0)}, aten::view "
+                  f"{counts.get('aten::view', 0)}), "
+                  f"{sum(e.self_cpu_time_total for e in ops) / 1e3:.3f}"
                   f" ms of self host time under the profiler; the most:")
             for e in ops[:8]:
                 print(f"[profile]   {e.self_cpu_time_total / 1e3:9.3f} ms "
@@ -813,14 +932,12 @@ def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
     # rows' RMSNorm has no other true time (see phase 4)
     # (decode attention is two kernels, split and combine, per launch)
     for where, key, what, kernels in (
-            ("prefill", "rmsnorm_kernel", f"fused_rmsnorm ({B * S} rows)", 1),
             ("prefill", "flash_fwd", "flash_attention", 1),
             ("prefill", "ssd_fwd", "ssd", 1),
-            ("decode step", "rmsnorm_kernel", f"fused_rmsnorm ({B} rows)", 1),
             ("decode step", "decode_fwd",
              f"decode_attention (B {B}, valid {S + 1})", 2)):
         hits = [(ms, n) for k, ms, n in rows[where] if key in k]
-        if not hits and key in ("flash_fwd", "ssd_fwd", "decode_fwd"):
+        if not hits:
             continue                   # a path without this kernel
         check(len(hits) == kernels and len({n for _, n in hits}) == 1,
               f"not {kernels} {key} row(s) of one count in the {arch} {where} "
@@ -829,6 +946,17 @@ def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
         print(f"[time] {arch} {what} bf16 in the {where}: {ms / n:.5f} ms per "
               f"launch (profiler device time, {n} launches)  [{card}]",
               flush=True)
+    # RMSNorm: one row per instantiation the step ran (gated or not, split
+    # across a cluster or not); a step runs 2 per block and a final one
+    for where, n_rows in (("prefill", B * S), ("decode step", B)):
+        hits = [(k, ms, n) for k, ms, n in rows[where] if "rmsnorm_" in k]
+        check(hits, f"no RMSNorm kernel in the {arch} {where} profile")
+        for k, ms, n in hits:
+            inst = re.search(r"rmsnorm_\w+<[^>]*>", k)
+            print(f"[time] {arch} fused_rmsnorm ({n_rows} rows) bf16 in the "
+                  f"{where}, {inst.group(0) if inst else k[:60]}: "
+                  f"{ms / n:.5f} ms per launch (profiler device time, {n} "
+                  f"launches)  [{card}]", flush=True)
     del cache
 
 

@@ -17,6 +17,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 def _leaf_to_torch(a: np.ndarray, device) -> torch.Tensor:
     if not isinstance(a, np.ndarray):
@@ -38,10 +40,16 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def to_torch(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
-    """Nested dict of numpy arrays -> nested dict of tensors on ``device``."""
+def to_torch(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """Nested dict of numpy arrays -> nested dict of tensors on ``device``:
+    the card unless the caller asks for the CPU (without CUDA the default
+    raises, as the port's entry points do)."""
+    return _tree_to_torch(tree, resolve_device(device))
+
+
+def _tree_to_torch(tree, device):
     if isinstance(tree, dict):
-        return {k: to_torch(v, device) for k, v in tree.items()}
+        return {k: _tree_to_torch(v, device) for k, v in tree.items()}
     return _leaf_to_torch(tree, device)
 
 

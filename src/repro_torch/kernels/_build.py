@@ -25,7 +25,7 @@ KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-CUDA_KERNELS = ("flash_attention", "decode_attention", "ssd")
+CUDA_KERNELS = ("flash_attention", "decode_attention", "fused_rmsnorm", "ssd")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -99,11 +99,11 @@ def build_all(names: List[str] = CUDA_KERNELS) -> Dict[str, str]:
 def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed, with the
     ``argtypes`` of each C entry point in ``signatures`` declared (every entry
-    point returns a CUDA error code as an int)."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
+    point returns a CUDA error code as an int). A loaded library is returned
+    without taking the lock: a launch pays one dict lookup."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     build_all([name])
     with _lock:
         if name not in _libs:

@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from ...device import sm_count, stream_ptr
 from .. import _build
 from . import ref
 
@@ -97,8 +98,8 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, scale: float):
     _check(q, k_cache, v_cache, valid_len)
     B, _, H, hd = q.shape
     _, S, KV, _ = k_cache.shape
-    n_split, rows = split_plan(
-        B, KV, S, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    dev = q.get_device()
+    n_split, rows = split_plan(B, KV, S, sm_count(dev))
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     # f32 partials of every (batch, head, split): acc[hd], then (m, l)
     scratch = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
@@ -109,7 +110,7 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, scale: float):
         valid_len.data_ptr(), scratch.data_ptr(), _DTYPES[q.dtype], B, S, H,
         KV, hd, n_split, rows, q.stride(0), q.stride(2),
         *k_cache.stride()[:3], *v_cache.stride()[:3], o.stride(0), o.stride(2),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        float(scale), stream_ptr(dev))
     _build.check(lib, "decode_attention", err)
     launches += 1
     return o

@@ -1,45 +1,131 @@
-"""RMSNorm with the (1 + w) parametrization, fused into one pass per row.
+"""RMSNorm with the (1 + w) parametrization, fused into one pass per row,
+optionally on ``x * silu(gate)`` (the Mamba2 block's gated norm).
 
 Replaces the TPU kernel ``repro/kernels/fused_rmsnorm/fused_rmsnorm.py``
 (``_rmsnorm_kernel`` / ``fused_rmsnorm``) and its shim ``ops.py``. On the H100
-it is bound by bytes: each element is read once and written once by the
-Triton kernel in ``fused_rmsnorm.py``, with the row sum in f32.
+it is bound by bytes: the CUDA kernels (``csrc/fused_rmsnorm.cu``) read each
+element once and write it once, with the row sum in f32. ``plan`` picks their
+launch from the row count, the width and the SM count: at many rows a row
+per group of warps; at few rows (a decode step's 8) each row split across a
+cluster of blocks, so the rows occupy more SMs.
+
+At a decode step the kernel takes ~2 us of device time and its launch more
+of the host's, so the CUDA path of ``rmsnorm`` is kept short: the library
+handle and the SM count are cached, the checks are the kernel's needs only,
+one output is allocated and one ``ctypes`` call launches.
 
 A CPU tensor takes the plain version (``ref.rmsnorm_ref``); a CUDA tensor
 launches the kernel or raises. ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from ...device import sm_count, stream_ptr
+from .. import _build
 from . import ref
-from .fused_rmsnorm import fused_rmsnorm
 
 launches = 0
 
-_DTYPES = (torch.float32, torch.bfloat16)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {"fused_rmsnorm_fwd":
+               [_P] * 4 + [_I] * 3 + [_L] * 3 + [ctypes.c_float] + [_I] * 3
+               + [_P]}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+LOADS = 4            # 16-byte loads of its row slice a thread holds (NV)
+MAX_THREADS = 512    # threads of a block
+ROW_THREADS = 128    # threads a block is given where rows are narrow
+# Blocks a row may be split across (a thread block cluster; 8 is the
+# portable most). 1 turns the split off.
+MAX_CLUSTER = 8
+
+_lib = None
 
 
-def rmsnorm(x, w, *, eps: float = 1e-6):
-    """x (..., d), w (d,) -> x's shape and dtype."""
+@functools.lru_cache(maxsize=None)
+def plan(rows: int, d: int, vec: int, aligned: bool, n_sm: int,
+         max_cluster: int = MAX_CLUSTER):
+    """(threads, rows per block, cluster) of the launch for ``rows`` rows of
+    width ``d`` in ``vec``-element 16-byte vectors. ``aligned``: every row
+    starts 16-byte aligned and d is a multiple of vec. threads 0 is the
+    scalar kernel (rows not aligned, or too wide to hold in registers).
+    Otherwise a row is split across ``cluster`` blocks where rows are too few
+    to give every SM a block, each slice at least a warp's 32 vectors, and
+    each thread holds up to LOADS vectors of its slice."""
+    if not aligned:
+        return 0, 1, 1
+    nvec = d // vec
+    cluster = max(1, min(max_cluster, n_sm // rows, nvec // 32))
+    per = -(-nvec // cluster)
+    threads = max(32, -(-per // (32 * LOADS)) * 32)
+    if threads > MAX_THREADS:
+        return 0, 1, 1
+    rows_per_block = 1 if cluster > 1 else max(1, min(rows,
+                                                      ROW_THREADS // threads))
+    return threads, rows_per_block, cluster
+
+
+def _row_stride(t, d: int, name: str) -> int:
+    if t.stride(-1) != 1:
+        raise ValueError(f"rmsnorm takes {name} with a contiguous last dim")
+    return t.view(-1, d).stride(0)     # raises where rows are not evenly spaced
+
+
+def _load():
+    global _lib
+    _lib = _build.load("fused_rmsnorm", _SIGNATURES)
+    return _lib
+
+
+def rmsnorm(x, w, *, eps: float = 1e-6, gate=None):
+    """x (..., d), w (d,) -> x's shape and dtype. With ``gate`` (x's shape,
+    dtype and device) it normalizes ``x * silu(gate)``."""
     global launches
-    if x.device.type == "cpu":
-        return ref.rmsnorm_ref(x, w, eps=eps)
-    if x.device.type != "cuda":
+    if gate is not None:
+        if gate.shape != x.shape:
+            raise ValueError(f"gate {tuple(gate.shape)} is not x's shape "
+                             f"{tuple(x.shape)}")
+        if gate.dtype != x.dtype:
+            raise TypeError(f"gate is {gate.dtype}, x {x.dtype}")
+        if gate.device != x.device:
+            raise ValueError("x and gate must be on one device")
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return ref.rmsnorm_ref(x, w, eps=eps, gate=gate)
         raise ValueError(f"rmsnorm runs on cpu or cuda, not {x.device}")
-    if w.device != x.device:
+    dev = x.get_device()
+    if w.get_device() != dev:
         raise ValueError("x and w must be on one device")
-    if x.dtype not in _DTYPES or w.dtype not in _DTYPES:
-        raise TypeError(f"rmsnorm takes float32 or bfloat16, got {x.dtype}, "
-                        f"{w.dtype}")
+    dtype = _DTYPES.get(x.dtype)
+    if dtype is None or w.dtype != x.dtype:
+        raise TypeError(f"rmsnorm takes float32 or bfloat16 x and w of one "
+                        f"dtype, got {x.dtype}, {w.dtype}")
     d = x.shape[-1]
     if w.shape != (d,) or not w.is_contiguous():
         raise ValueError(f"w must be a contiguous ({d},) vector, got "
                          f"{tuple(w.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("rmsnorm takes a contiguous x")
-    x2 = x.view(-1, d)
-    out = torch.empty_like(x2)
-    fused_rmsnorm(x2, w, out, float(eps))
+    xs = d if x.is_contiguous() else _row_stride(x, d, "x")
+    gp, gs = 0, 0
+    if gate is not None:
+        gp = gate.data_ptr()
+        gs = d if gate.is_contiguous() else _row_stride(gate, d, "gate")
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if out.numel() == 0:
+        return out
+    rows = out.numel() // d
+    xp, wp = x.data_ptr(), w.data_ptr()
+    vec = 16 // x.element_size()
+    aligned = not (d % vec or xs % vec or gs % vec or (xp | wp | gp) & 15)
+    threads, rows_per_block, cluster = plan(rows, d, vec, aligned,
+                                            sm_count(dev), MAX_CLUSTER)
+    lib = _lib or _load()
+    err = lib.fused_rmsnorm_fwd(xp, gp, wp, out.data_ptr(), dtype, rows,
+                                d, xs, gs, d, eps, threads, rows_per_block,
+                                cluster, stream_ptr(dev))
+    if err:
+        _build.check(lib, "fused_rmsnorm", err)
     launches += 1
-    return out.view(x.shape)
+    return out

@@ -51,12 +51,15 @@ def init_rmsnorm(d: int, dtype, device, lead: Tuple[int, ...] = ()):
     return {"scale": torch.zeros((*lead, d), dtype=dtype, device=device)}
 
 
-def rmsnorm(p, x, eps: float, use_pallas: bool = False):
+def rmsnorm(p, x, eps: float, use_pallas: bool = False, *, gate=None):
     """RMSNorm with (1 + w) parametrization (covers both llama & gemma styles:
-    llama-style init w=1 is stored as scale=0). ``use_pallas`` routes it
-    through the fused kernel, which computes the same function."""
+    llama-style init w=1 is stored as scale=0). With ``gate`` it normalizes
+    ``x * silu(gate)`` (the Mamba2 block's gated norm). ``use_pallas`` routes
+    it through the fused kernel, which computes the same function."""
     if use_pallas:
-        return rn_ops.rmsnorm(x, p["scale"], eps=eps)
+        return rn_ops.rmsnorm(x, p["scale"], eps=eps, gate=gate)
+    if gate is not None:
+        x = x * F.silu(gate)
     dt = x.dtype
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)

@@ -7,7 +7,8 @@ x/B/C separate depthwise convs: mathematically the fused in_proj/conv of the
 reference implementation, since depthwise convs are per channel.
 
 Under ``cfg.use_pallas`` the prefill scan runs the CUDA SSD kernel and the
-gated norm the RMSNorm kernel (at width d_inner); decode runs the plain
+gated norm ``rmsnorm(y * silu(z))`` the RMSNorm kernel with its gate fused in
+(one pass at width d_inner, in prefill and decode); decode runs the plain
 ``ssd_step``, as the JAX package does. ``mamba2_decode`` writes the conv
 windows and the state into the caller's cache tensors in place, as the
 attention decode writes its K/V rows.
@@ -114,7 +115,7 @@ def mamba2_full(p, x, cfg: ModelConfig, *, return_cache: bool = False):
     y4 = y4 + (p["D"][None, None, :, None] * x4.float()).to(y4.dtype)
 
     y = y4.reshape(B, S, di)
-    y = L.rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps, cfg.use_pallas)
+    y = L.rmsnorm(p["norm"], y, cfg.norm_eps, cfg.use_pallas, gate=z)
     out = L.linear(p["w_out"], y)
 
     cache = None
@@ -160,7 +161,7 @@ def mamba2_decode(p, x, cfg: ModelConfig, cache):
     y3 = y3 + (p["D"][None, :, None]
                * xin.reshape(B, H, P).float()).to(y3.dtype)
     y = y3.reshape(B, di)
-    y = L.rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps, cfg.use_pallas)
+    y = L.rmsnorm(p["norm"], y, cfg.norm_eps, cfg.use_pallas, gate=z)
     out = L.linear(p["w_out"], y)[:, None, :]
     for name, new in (("conv_x", conv_x), ("conv_B", conv_B),
                       ("conv_C", conv_C), ("state", h)):

@@ -22,7 +22,7 @@ def _leaves(tree, prefix=""):
 def test_bridge_round_trip_is_bit_exact(arch, dtype):
     cfg = get_smoke_config(arch, dtype=dtype)
     params = jax.tree.map(np.asarray, jM.init_params(jax.random.PRNGKey(3), cfg))
-    tp = bridge.to_torch(params)
+    tp = bridge.to_torch(params, device="cpu")
     want_dtype = torch.float32 if dtype == "float32" else torch.bfloat16
     for name, t in _leaves(tp):
         assert t.dtype == want_dtype, name
@@ -39,7 +39,7 @@ def test_bridge_round_trip_is_bit_exact(arch, dtype):
 def test_bridge_keeps_layout_and_values():
     cfg = get_smoke_config("stablelm-3b", dtype="float32")
     params = jax.tree.map(np.asarray, jM.init_params(jax.random.PRNGKey(0), cfg))
-    tp = bridge.to_torch(params)
+    tp = bridge.to_torch(params, device="cpu")
     w = params["layers"]["attn"]["wq"]["w"]
     assert tuple(tp["layers"]["attn"]["wq"]["w"].shape) == w.shape
     assert w.shape == (cfg.num_layers, cfg.d_model, cfg.num_heads * cfg.head_dim)
@@ -48,4 +48,15 @@ def test_bridge_keeps_layout_and_values():
 
 def test_bridge_rejects_non_numpy():
     with pytest.raises(TypeError):
-        bridge.to_torch({"w": [1.0, 2.0]})
+        bridge.to_torch({"w": [1.0, 2.0]}, device="cpu")
+
+
+def test_bridge_defaults_to_the_card_and_raises_without_cuda(monkeypatch):
+    """Like the port's entry points, the bridge puts weights on the card
+    unless the caller asks for the CPU: without CUDA the default raises
+    instead of quietly keeping them on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bridge.to_torch({"w": np.zeros(2, np.float32)})
+    assert bridge.to_torch({"w": np.zeros(2, np.float32)},
+                           device="cpu")["w"].device.type == "cpu"

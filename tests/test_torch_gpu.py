@@ -1,10 +1,11 @@
-"""The port's kernels on the card: each CUDA/Triton kernel against its plain
+"""The port's kernels on the card: each CUDA kernel against its plain
 PyTorch version on the same CUDA tensors, and the model and serving path on
 the kernels against the plain path.
 
-Every test here needs a CUDA device (and Triton for RMSNorm). Whether one is
-present is decided inside the ``cuda`` fixture, never at import, so every
-pytest-xdist worker collects the same tests; without a card they skip.
+Every test here needs a CUDA device (and nvcc, which builds the kernels;
+nothing needs Triton). Whether a device is present is decided inside the
+``cuda`` fixture, never at import, so every pytest-xdist worker collects the
+same tests; without a card they skip.
 Run on the card (where JAX, which tests/conftest.py imports, is absent):
 ``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_gpu.py``.
 """
@@ -41,12 +42,6 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
-
-
-@pytest.fixture
-def triton_cuda(cuda):
-    pytest.importorskip("triton", reason="the RMSNorm kernel is Triton")
-    return cuda
 
 
 def _randn(rng, shape, dtype, device):
@@ -203,22 +198,107 @@ def test_decode_kernel_valid_len_zero_returns_zeros(cuda):
     assert not bool(got.any())
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("rows,d",[(1, 32), (37, 128), (70, 256), (8, 4096),
-                                    (8192, 4096), (5, 3000)])
-def test_rmsnorm_kernel_vs_plain(triton_cuda, rows, d, dtype):
-    rng = np.random.default_rng(2)
+# f32: rsqrt and the row sum's order; bf16: one output rounding. The gated
+# kernel rounds silu(gate) and the product to x's dtype as the plain path's
+# eager ops do, so it differs from it only by the row sum's order too.
+NORM_TOL = {"float32": 2e-5, "bfloat16": 0.05}
+
+
+def _norm_case(cuda, rows, d, dtype, gated, seed=2):
+    rng = np.random.default_rng(seed)
     dt = DTYPES[dtype]
-    x = _randn(rng, (rows, d), dt, triton_cuda)
-    w = _randn(rng, (d,), dt, triton_cuda) * 0.1
+    x = _randn(rng, (rows, d), dt, cuda)
+    w = _randn(rng, (d,), dt, cuda) * 0.1
+    gate = _randn(rng, (rows, d), dt, cuda) if gated else None
+    return x, w, gate
+
+
+def _norm_err(got, x, w, gate):
+    want = rn_ref.rmsnorm_ref(x, w, eps=1e-5, gate=gate)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    return (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("rows,d,gated", [
+    (1, 32, False), (37, 128, False), (70, 256, False), (8, 4096, False),
+    (8192, 4096, False), (5, 3000, False), (5, 77, False), (8, 77, True),
+    (8, 7168, True), (8192, 7168, True), (8, 1536, True), (37, 128, True)])
+def test_rmsnorm_kernel_vs_plain(cuda, rows, d, gated, dtype):
+    """d = 77: rows that are not 16-byte aligned take the scalar kernel."""
+    x, w, gate = _norm_case(cuda, rows, d, dtype, gated)
     n0 = rn_ops.launches
-    got = rn_ops.rmsnorm(x, w, eps=1e-5)
+    got = rn_ops.rmsnorm(x, w, eps=1e-5, gate=gate)
     torch.cuda.synchronize()
     assert rn_ops.launches == n0 + 1
-    want = rn_ref.rmsnorm_ref(x, w, eps=1e-5)
-    err = (got.float() - want.float()).abs().max().item()
-    # f32: rsqrt and the row sum's order; bf16: one output rounding
-    assert err < (2e-5 if dtype == "float32" else 0.05), f"{rows}x{d}: {err}"
+    err = _norm_err(got, x, w, gate)
+    assert err < NORM_TOL[dtype], f"{rows}x{d} gated={gated}: {err}"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("rows,d,width", [
+    (8, 4096, 4096 + 64), (8192, 768, 1024), (9, 96, 104), (9, 96, 97)])
+def test_rmsnorm_kernel_takes_rows_of_a_wider_buffer(cuda, rows, d, width,
+                                                    gated, dtype):
+    """x and the gate as the first d columns of (rows, width) buffers, read
+    in place through their row stride (16-byte aligned rows take the vector
+    kernel, width 97 the scalar one); the output is contiguous."""
+    x, w, gate = _norm_case(cuda, rows, width, dtype, gated, seed=4)
+    w = w[:d].contiguous()
+    x = x[:, :d]
+    gate = gate[:, :d] if gated else None
+    got = rn_ops.rmsnorm(x, w, eps=1e-5, gate=gate)
+    torch.cuda.synchronize()
+    assert got.is_contiguous()
+    assert _norm_err(got, x, w, gate) < NORM_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("rows,d,gated", [
+    (8, 4096, False), (8, 7168, True), (8, 768, False), (1, 3584, True)])
+def test_rmsnorm_cluster_split_and_one_block_a_row_agree(cuda, rows, d,
+                                                        gated, dtype):
+    """The decode step's rows split across a cluster of blocks (the sums of
+    the slices exchanged through distributed shared memory) and the same
+    rows one block each: both within the tolerance of the plain version."""
+    x, w, gate = _norm_case(cuda, rows, d, dtype, gated, seed=6)
+    vec = 16 // x.element_size()
+    assert rn_ops.plan(rows, d, vec, True, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)[2] > 1
+    split = rn_ops.rmsnorm(x, w, eps=1e-5, gate=gate)
+    old = rn_ops.MAX_CLUSTER
+    rn_ops.MAX_CLUSTER = 1
+    try:
+        whole = rn_ops.rmsnorm(x, w, eps=1e-5, gate=gate)
+    finally:
+        rn_ops.MAX_CLUSTER = old
+    torch.cuda.synchronize()
+    assert _norm_err(split, x, w, gate) < NORM_TOL[dtype]
+    assert _norm_err(whole, x, w, gate) < NORM_TOL[dtype]
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_rmsnorm_kernel_too_wide_for_the_registers(cuda, gated):
+    """Rows wider than 512 threads x 4 16-byte loads take the scalar kernel
+    at many rows and the cluster split at few."""
+    for rows in (200, 4):
+        x, w, gate = _norm_case(cuda, rows, 20000, "bfloat16", gated)
+        got = rn_ops.rmsnorm(x, w, eps=1e-5, gate=gate)
+        torch.cuda.synchronize()
+        assert _norm_err(got, x, w, gate) < NORM_TOL["bfloat16"]
+
+
+def test_rmsnorm_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(4, 64, device=cuda)
+    with pytest.raises(TypeError):            # w in another dtype than x
+        rn_ops.rmsnorm(x, torch.zeros(64, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):           # w on the host
+        rn_ops.rmsnorm(x, torch.zeros(64))
+    with pytest.raises(ValueError):           # the gate on the host
+        rn_ops.rmsnorm(x, torch.zeros(64, device=cuda), gate=torch.zeros(4, 64))
+    with pytest.raises(TypeError):
+        rn_ops.rmsnorm(x.half(), torch.zeros(64, device=cuda).half())
 
 
 def _ssd_inputs(rng, shape, dtype, device):
@@ -353,15 +433,15 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     ("chatglm3-6b", {}), ("stablelm-3b", {}), ("qwen2-vl-7b", {}),
     ("mamba2-130m", {}), ("zamba2-7b", {}),
     ("zamba2-7b", {"num_layers": 5, "attn_every": 2})])
-def test_model_kernel_path_matches_plain_path(triton_cuda, arch, over):
+def test_model_kernel_path_matches_plain_path(cuda, arch, over):
     cfg = get_smoke_config(arch, dtype="float32", **over)
-    params = M.init_params(cfg, seed=0, device=triton_cuda)
+    params = M.init_params(cfg, seed=0, device=cuda)
     B, S = 2, 40
-    gen = torch.Generator(device=triton_cuda).manual_seed(0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                           device=triton_cuda, dtype=torch.int32)
+                           device=cuda, dtype=torch.int32)
     batch = {"tokens": tokens, "positions": _positions(cfg, B, S,
-                                                       device=triton_cuda)}
+                                                       device=cuda)}
     plain = dataclasses.replace(cfg, use_pallas=False)
     lk, _, ck = M.forward(params, cfg, batch, mode="prefill")
     lp, _, cp = M.forward(params, plain, batch, mode="prefill")
@@ -369,19 +449,19 @@ def test_model_kernel_path_matches_plain_path(triton_cuda, arch, over):
     from repro_torch.distributed.serve_step import pad_cache
     ck, cp = pad_cache(ck, cfg, S + 4), pad_cache(cp, cfg, S + 4)
     db = {"tokens": tokens[:, :1],
-          "positions": _positions(cfg, B, 1, start=S, device=triton_cuda)}
+          "positions": _positions(cfg, B, 1, start=S, device=cuda)}
     dk, _ = M.decode(params, cfg, db, ck)
     dp, _ = M.decode(params, plain, db, cp)
     assert (dk - dp).abs().max().item() < 1e-4
 
 
-def test_serve_batch_runs_every_kernel(triton_cuda):
+def test_serve_batch_runs_every_kernel(cuda):
     cfg = get_smoke_config("chatglm3-6b")
     for ops in (fa_ops, da_ops, rn_ops):
         ops.launches = 0
     n, new = 3, 5
     res = serve_batch(cfg, n_requests=n, prompt_len=24, max_new_tokens=new,
-                      quiet=True, device=triton_cuda)
+                      quiet=True, device=cuda)
     L = cfg.num_layers
     assert fa_ops.launches == L
     assert da_ops.launches == L * (new - 1)
@@ -389,7 +469,7 @@ def test_serve_batch_runs_every_kernel(triton_cuda):
     assert res["tokens"].shape == (n, 24 + new)
 
 
-def test_serve_batch_runs_every_kernel_hybrid(triton_cuda):
+def test_serve_batch_runs_every_kernel_hybrid(cuda):
     """zamba2's smoke config with a tail: 2 groups of 2 SSM layers, each
     followed by the shared attention block, then 1 tail layer."""
     cfg = get_smoke_config("zamba2-7b", num_layers=5, attn_every=2)
@@ -397,7 +477,7 @@ def test_serve_batch_runs_every_kernel_hybrid(triton_cuda):
         ops.launches = 0
     n, new = 3, 5
     res = serve_batch(cfg, n_requests=n, prompt_len=40, max_new_tokens=new,
-                      quiet=True, device=triton_cuda)
+                      quiet=True, device=cuda)
     groups = 2
     assert ssd_ops.launches == cfg.num_layers
     assert fa_ops.launches == groups

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor anything of ``repro``."""
+"""The port stands alone: it imports neither JAX nor anything of ``repro``,
+and no Triton (every kernel of the port is CUDA C++)."""
 import ast
 import os
 import subprocess
@@ -24,7 +25,7 @@ def _imported_modules(path: Path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "triton")
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -38,6 +39,7 @@ def test_port_imports_with_jax_absent():
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py"))
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+            "sys.modules['triton'] = None\n"
             "import importlib\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m.removesuffix('.__init__'))\n"

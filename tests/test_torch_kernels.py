@@ -159,11 +159,12 @@ def test_decode_wrapper_takes_valid_len_only_as_a_tensor():
 
 def test_every_cuda_source_is_built():
     """``build_all`` builds every ``csrc/<name>.cu`` of the kernels, the SSD
-    scan's included, and nothing else."""
+    scan's and RMSNorm's included, and nothing else: every kernel of the
+    port is CUDA C++."""
     from repro_torch.kernels import _build
     sources = {p.stem for p in _build.KERNELS_DIR.glob("*/csrc/*.cu")}
     assert sources == set(_build.CUDA_KERNELS) == {
-        "flash_attention", "decode_attention", "ssd"}
+        "flash_attention", "decode_attention", "fused_rmsnorm", "ssd"}
     for name in _build.CUDA_KERNELS:
         assert _build._source(name).is_file()
 

@@ -47,7 +47,8 @@ def _setup(arch, use_pallas):
     jcfg = jget_smoke(arch, dtype="float32")
     cfg = get_smoke_config(arch, dtype="float32", use_pallas=use_pallas)
     jparams = jM.init_params(jax.random.PRNGKey(0), jcfg)
-    params = bridge.to_torch(jax.tree.map(np.asarray, jparams))
+    params = bridge.to_torch(jax.tree.map(np.asarray, jparams),
+                             device="cpu")
     return jcfg, cfg, jparams, params
 
 

@@ -24,7 +24,8 @@ def test_greedy_generate_matches_jax_tokens(arch, use_pallas):
     jcfg = jget_smoke(arch, dtype="float32")
     cfg = get_smoke_config(arch, dtype="float32", use_pallas=use_pallas)
     jparams = jM.init_params(jax.random.PRNGKey(1), jcfg)
-    params = bridge.to_torch(jax.tree.map(np.asarray, jparams))
+    params = bridge.to_torch(jax.tree.map(np.asarray, jparams),
+                             device="cpu")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 10),
                                                 dtype=np.int32)
     want = np.asarray(jserve.generate(jparams, jcfg, jnp.asarray(prompts),
@@ -43,7 +44,7 @@ def test_pad_cache_matches_jax():
                         for n in ("k", "v")}}
     want = jss.pad_cache(jax.tree.map(jnp.asarray, cache),
                          jget_smoke("chatglm3-6b"), 9)
-    got = ss.pad_cache(bridge.to_torch(cache), cfg, 9)
+    got = ss.pad_cache(bridge.to_torch(cache, device="cpu"), cfg, 9)
     assert got["layers"]["k"].shape == (2, 3, 9, 4, 16)
     for n in ("k", "v"):
         np.testing.assert_array_equal(got["layers"][n].numpy(),

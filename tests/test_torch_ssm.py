@@ -61,7 +61,8 @@ def _setup(arch, over, use_pallas=True, seed=0):
     cfg = get_smoke_config(arch, dtype="float32", use_pallas=use_pallas, **over)
     jparams = jM.init_params(jax.random.PRNGKey(seed), jcfg)
     return jcfg, cfg, jparams, bridge.to_torch(jax.tree.map(np.asarray,
-                                                            jparams))
+                                                            jparams),
+                                               device="cpu")
 
 
 def _batch(cfg, B, S, seed=0, start=0):
@@ -132,7 +133,7 @@ def test_mamba2_decode_matches_jax_and_writes_in_place():
     lp = jax.tree.map(lambda t: t[1], jp["layers"]["ssm"])
     want, wc = jssm.mamba2_decode(lp, jnp.asarray(x), jcfg,
                                   jax.tree.map(jnp.asarray, cache))
-    tc = bridge.to_torch(cache)
+    tc = bridge.to_torch(cache, device="cpu")
     held = dict(tc)
     got, nc = ssm.mamba2_decode(M._layer(tp["layers"]["ssm"], 1),
                                 torch.from_numpy(x), cfg, tc)
@@ -248,7 +249,7 @@ def test_bridge_round_trip_is_bit_exact(arch, over, dtype):
     params = jax.tree.map(np.asarray, jM.init_params(jax.random.PRNGKey(3),
                                                      cfg))
     src = dict(_leaves(params))
-    tp = bridge.to_torch(params)
+    tp = bridge.to_torch(params, device="cpu")
     for name, t in _leaves(tp):
         f32 = name.rsplit("/", 1)[-1] in ("A_log", "D", "dt_bias")
         assert t.dtype == (torch.float32 if f32 or dtype == "float32"
@@ -275,7 +276,7 @@ def test_pad_cache_on_a_hybrid_cache_matches_jax():
     cache = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
         a.dtype) if a.ndim else a, cache)
     want = jss.pad_cache(jax.tree.map(jnp.asarray, cache), jcfg, 9)
-    tc = bridge.to_torch(cache)
+    tc = bridge.to_torch(cache, device="cpu")
     got = ss.pad_cache(tc, cfg, 9)
     assert got["attn"]["k"].shape == (2, 3, 9, cfg.num_kv_heads, cfg.head_dim)
     _close_tree(got, jax.tree.map(np.asarray, want), 0)
