@@ -17,8 +17,7 @@ Phases, each printing its lines; any failed check exits non-zero:
      and at d = 77);
   4. kernel times (CUDA events, L2 flushed before each launch) beside the
      least time the card could take, the plain version and a library call;
-     the 8-row RMSNorm's from the profiler's device time, with its rows
-     split across a cluster of blocks and one block a row; the gated RMSNorm
+     the 8-row RMSNorm's from the profiler's device time; the gated RMSNorm
      (zamba2-7b's and mamba2-130m's Mamba2 norm) beside the three eager
      calls it replaces; flash and decode attention also at zamba2-7b's
      shape, beside SDPA, and decode attention's device time per call from
@@ -73,6 +72,9 @@ N_REQUESTS, PROMPT_LEN, NEW_TOKENS, SEED = 8, 1024, 32, 0
 # entry may land one bf16 step (2^-8 of it) away.
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 NORM_TOL = {"float32": 2e-5, "bfloat16": 0.05}
+# The gated RMSNorm in bf16 (the Mamba2 norm): the same, but its outputs
+# reach 8 and more (g = y * silu(z) is heavy-tailed), where one rounding step
+# of the output is 0.0625; there the bound is one bf16 step, 2^-7 of |want|.
 SSD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 SSD_TC_TOL = 1e-2
 # Kernel path vs plain path at full width, teacher-forced, per step:
@@ -325,8 +327,13 @@ def main():
         torch.cuda.synchronize()
         check(got.shape == x.shape and got.dtype == x.dtype,
               f"fused_rmsnorm ({rows}, {dim}) output")
-        want = rn_ref.rmsnorm_ref(x, w, eps=glm.norm_eps, gate=gate)
-        return max_err(got, want), (x, w, gate)
+        want = rn_ref.rmsnorm_ref(x, w, eps=glm.norm_eps, gate=gate).float()
+        tol = NORM_TOL["float32" if dtype == torch.float32 else "bfloat16"]
+        bound = torch.full_like(want, tol)
+        if gated and dtype == torch.bfloat16:
+            bound = torch.maximum(bound, want.abs() * 2.0 ** -7)
+        diff = (got.float() - want).abs()
+        return diff.max().item(), (diff / bound).max().item(), (x, w, gate)
 
     def ssd_case(shape, chunk, dtype, slow_decay):
         """dt = softplus(z - 4) (slow decay) carries the state across
@@ -413,13 +420,14 @@ def main():
             for dim in (glm.d_model, zam.d_model, zam.ssm_d_inner, mam.d_model,
                         mam.ssm_d_inner, 77):
                 for gated in (False, True):
-                    err, args = norm_case(rows, dim, dtype, gated)
-                    tol = NORM_TOL[dtype_name]
+                    err, share, args = norm_case(rows, dim, dtype, gated)
                     label = "gated " if gated else ""
                     print(f"[check] {label}fused_rmsnorm ({rows}, {dim}) "
-                          f"{dtype_name}: max|err| {err:.3e} (tol {tol})",
+                          f"{dtype_name}: max|err| {err:.3e}, {share:.2f} of "
+                          f"the bound (tol {NORM_TOL[dtype_name]}"
+                          f"{', or 2^-7 of |want|' if label and dtype_name == 'bfloat16' else ''})",
                           flush=True)
-                    check(err < tol, f"{label}fused_rmsnorm ({rows},{dim}) "
+                    check(share < 1, f"{label}fused_rmsnorm ({rows},{dim}) "
                           f"{dtype_name}: {err}")
                     if dtype_name == "bfloat16":
                         inputs[f"fused_rmsnorm/{label}{rows}x{dim}"] = args
@@ -544,20 +552,9 @@ def main():
             # product with a gate (f32 arithmetic)
             flops=(4 if gate is None else 9) * n,
             bytes=x.element_size() * ((2 if gate is None else 3) * n + dim),
-            dtype="float32", rows=x.shape[0], dim=dim,
-            vec=16 // x.element_size())
-
-    def split_and_whole(fn):
-        """Device time per call (profiler) with the rows split across a
-        cluster of blocks and with one block a row, in turns (split, whole,
-        whole, split): [split readings], [whole readings]."""
-        split, whole = [], []
-        for turn in ("split", "whole", "whole", "split"):
-            rn_ops.MAX_CLUSTER = 8 if turn == "split" else 1
-            (split if turn == "split" else whole).append(
-                device_ms_per_call(torch, fn))
-        rn_ops.MAX_CLUSTER = 8
-        return split, whole
+            dtype="float32", plan=rn_ops.plan(x.shape[0], dim,
+                                              16 // x.element_size(), True,
+                                              n_sm, gate is not None))
 
     for key, name, label in (
             (f"{B * S}x{d}", None, "chatglm3-6b prefill"),
@@ -572,7 +569,7 @@ def main():
         add_bound(r)
         yard = "F.rms_norm" if name is None else "eager silu + mul + F.rms_norm"
         print(f"[time] {key} bf16 fused_rmsnorm ({label}; plan "
-              f"{rn_ops.plan(f['rows'], f['dim'], f['vec'], True, n_sm)}): "
+              f"{f['plan']}): "
               f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB; "
               f"{r['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f}"
@@ -580,6 +577,21 @@ def main():
         if name is None:
             norm.update(r, library_ms=other)
         else:
+            # the gated rows' persistent grid against a block per row block
+            x, w, gate = inputs[f"fused_rmsnorm/{key}"]
+            threads, rpb, _ = f["plan"]
+            out = torch.empty_like(x)
+            fwd = rn_ops._load()
+            one_pass = lambda: fwd(
+                x.data_ptr(), gate.data_ptr(), w.data_ptr(), out.data_ptr(), 1,
+                x.shape[0], x.shape[1], x.shape[1], x.shape[1], eps, threads,
+                rpb, -(-x.shape[0] // rpb),
+                torch.cuda.current_stream().cuda_stream)
+            r["one_block_a_row_block_ms"] = timer(one_pass, 50)
+            print(f"[time] {key} bf16 fused_rmsnorm with a block per row "
+                  f"block instead of the persistent grid: "
+                  f"{r['one_block_a_row_block_ms']:.4f} ms  [{card}]",
+                  flush=True)
             r["eager_ms"] = other
             norm[name] = r
     gz = norm["gated_zamba2_7b_prefill"]
@@ -597,22 +609,21 @@ def main():
             (f"gated {B}x{zam.ssm_d_inner}", "gated_decode_8x7168",
              "eager silu + mul + F.rms_norm")):
         f = norm_fns(key)
-        split, whole = split_and_whole(f["kernel"])
-        r = dict(device_ms=statistics.mean(split),
-                 one_block_a_row_device_ms=statistics.mean(whole),
+        r = dict(device_ms=device_ms_per_call(torch, f["kernel"]),
                  plain_device_ms=device_ms_per_call(torch, f["plain"]),
                  yardstick_device_ms=device_ms_per_call(torch, f["lib"]),
                  bound_ms=f["bytes"] / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
         norm[name] = r
-        print(f"[time] {key} bf16 fused_rmsnorm, device time per call "
-              f"(profiler, 50 calls each): split across a cluster "
-              f"{rn_ops.plan(f['rows'], f['dim'], f['vec'], True, n_sm)} "
-              f"{', '.join(f'{v:.5f}' for v in split)} ms, one block a row "
-              f"{rn_ops.plan(f['rows'], f['dim'], f['vec'], True, n_sm, 1)} "
-              f"{', '.join(f'{v:.5f}' for v in whole)} ms (in turns: split, "
-              f"whole, whole, split); plain {r['plain_device_ms']:.5f} ms, "
-              f"{yard} {r['yardstick_device_ms']:.5f} ms; bound "
-              f"{r['bound_ms']:.6f} ms (bytes)  [{card}]", flush=True)
+        print(f"[time] {key} bf16 fused_rmsnorm (plan "
+              f"{f['plan']}): "
+              f"{r['device_ms']:.5f} ms of device time per call (profiler, 50 "
+              f"calls); plain {r['plain_device_ms']:.5f} ms, {yard} "
+              f"{r['yardstick_device_ms']:.5f} ms; bound {r['bound_ms']:.6f} ms"
+              f" (bytes)  [{card}]", flush=True)
+    met = norm["decode_8x4096"]["device_ms"] <= 0.00152
+    print(f"[time] fused_rmsnorm target, {B} x {d} device time per call at "
+          f"most 0.00152 ms (PR 14's Triton kernel): "
+          f"{'met' if met else 'missed'}", flush=True)
 
     # the zamba2-7b shape goes into the summary; mamba2-130m's (N 128) beside
     # it, each with its own bound
@@ -693,7 +704,8 @@ def main():
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%}"
               f" of it), plain {r['plain_ms']:.4f} ms, library {lib}  "
               f"[{card}]", flush=True)
-    del inputs, q, k, v, x, x8, w8, y8, wg8, z8, qd, kd, vd, dt, A, Bm, Cm
+    del inputs, q, k, v, x, w, gate, out, x8, w8, y8, wg8, z8, qd, kd, vd, dt, \
+        A, Bm, Cm
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 5. and 6. main paths
@@ -946,8 +958,8 @@ def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
         print(f"[time] {arch} {what} bf16 in the {where}: {ms / n:.5f} ms per "
               f"launch (profiler device time, {n} launches)  [{card}]",
               flush=True)
-    # RMSNorm: one row per instantiation the step ran (gated or not, split
-    # across a cluster or not); a step runs 2 per block and a final one
+    # RMSNorm: one row per instantiation the step ran (gated or not); a step
+    # runs 2 per block and a final one
     for where, n_rows in (("prefill", B * S), ("decode step", B)):
         hits = [(k, ms, n) for k, ms, n in rows[where] if "rmsnorm_" in k]
         check(hits, f"no RMSNorm kernel in the {arch} {where} profile")

@@ -15,28 +15,30 @@
 // Bound on the H100: bytes (x, the gate, w read once, out written once) over
 // 3.35 TB/s; a norm does ~4 operations an element. What the design does:
 //
-// rmsnorm_rows: a row, or a slice of it, is held in registers between the
-// sum and the scale, so it is read from device memory once. Each thread
-// issues all of its 16-byte loads (up to NV of x, of the gate and of w)
-// before it uses any, so a row slice costs one memory round trip. A row
-// group of `threads` threads (whole warps) sums its squares by warp
-// shuffles and, across its warps, in shared memory.
-//   Many rows (prefill's 8,192): one row a group, several groups a block
-//   where rows are narrow, thousands of blocks to fill the card.
-//   Few rows (the decode step's 8): each row is split across a thread block
-//   cluster of `cluster` blocks (grid.y), so 8 rows occupy up to 64 SMs
-//   instead of 8. Each block sums the squares of its slice; the partial
-//   sums are exchanged through distributed shared memory (mapa +
-//   ld.shared::cluster between two cluster barriers), every block adds them
-//   in the same order, and scales its own slice. A block arrives at the
-//   cluster barrier once it has read the others' partials and waits on it
-//   only before it exits, so the scaling and stores run in between.
+// rmsnorm_rows: a row group of `threads` threads (whole warps) holds a row
+//   in registers between the sum and the scale, so the row is read from
+//   device memory once; each thread holds up to NV 16-byte vectors of it,
+//   kept as loaded (a gated row as g, rounded and packed back). The group
+//   sums its squares by warp shuffles and, across its warps, in shared
+//   memory. The grid is persistent: each block walks row blocks
+//   blockIdx.x, + gridDim.x, ..., so w is loaded into registers once per
+//   block instead of once per row, and the loads of a thread's next row
+//   are issued before it reduces the current one, so a row's memory round
+//   trip overlaps the previous row's sum and stores.
+//   Many rows (prefill's 8,192): each thread holds up to 4 vectors, a few
+//   narrow rows share a block, about a full SM's worth of threads a block
+//   grid. Few rows (a decode step's 8): one block a row with as many
+//   threads as the row has vectors (up to 512), so a thread's serial chain
+//   of loads, sums and stores is as short as it can be. (Splitting a row
+//   across a thread block cluster, the partial sums exchanged through
+//   distributed shared memory, was built and measured slower on the card
+//   at 8 x 4,096 and at the gated 8 x 7,168: PERF.md, PR 15.)
 // rmsnorm_loop: rows whose start is not 16-byte aligned (an odd width, a
 //   row stride that is not a multiple of 16 bytes) or too wide for the
 //   registers: scalar loads, the row read once for the sum and again, from
 //   the cache, for the scale.
 //
-// The launch parameters (threads, rows a block, cluster size) are chosen by
+// The launch parameters (threads, rows a block, blocks) are chosen by
 // ops.plan from the row count, the width and the SM count.
 #include <math.h>
 #include <stdint.h>
@@ -46,9 +48,8 @@
 
 namespace {
 
-constexpr int NV = 4;              // 16-byte loads of a row slice a thread holds
+constexpr int NV = 4;              // 16-byte vectors of a row a thread holds
 constexpr int MAX_THREADS = 512;   // threads of a block (ops.MAX_THREADS)
-constexpr int MAX_CLUSTER = 8;     // portable cluster size (ops.MAX_CLUSTER)
 constexpr int LOOP_THREADS = 256;
 
 // 16 bytes of T widened to f32 (4 floats or 8 bf16 values), and back
@@ -94,110 +95,104 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ------------------------------------------------------- cluster helpers
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-// an f32 in the shared memory of block `rank` of the cluster, at the offset
-// that `p` has in this block's
-__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
-  uint32_t remote;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];"
-               : "=f"(v) : "r"(remote) : "memory");
-  return v;
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
 }
 
-// Block (threads, rows_per_block); grid (row blocks, cluster). Row group
-// threadIdx.y takes row blockIdx.x * blockDim.y + threadIdx.y, and of it the
-// slice blockIdx.y of gridDim.y (the block's rank in its cluster of
-// (1, cluster, 1) blocks; CLUSTER is false when the grid has one slice).
-// The slice's V-element vectors v0 <= v < v1 go to thread t as
-// v0 + t + i * threads, i < NV.
-template <typename T, bool GATED, bool CLUSTER>
+// Block (threads, rows_per_block), a row group a threadIdx.y; grid of
+// persistent blocks. Row group y of block b takes the rows
+// (b + k * gridDim.x) * rows_per_block + y, k = 0, 1, ...; thread t holds
+// the V-element vectors t + i * threads, i < NV, of each.
+template <typename T, bool GATED>
 __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_rows(
     const T* __restrict__ x, const T* __restrict__ gate,
     const T* __restrict__ w, T* __restrict__ out, int rows, int d,
-    long long xs, long long gs, long long os, float eps) {
+    long long xs, long long gs, float eps) {
   constexpr int V = 16 / sizeof(T);
-  __shared__ float red[MAX_THREADS / 32];
-  __shared__ float part;
+  __shared__ float red[2][MAX_THREADS / 32];   // warp sums, by iteration parity
   const int threads = blockDim.x;
-  const int row = blockIdx.x * blockDim.y + threadIdx.y;
-  const bool live = row < rows;
   const int nvec = d / V;
-  const int per = (nvec + gridDim.y - 1) / gridDim.y;
-  const int v0 = blockIdx.y * per;
-  const int v1 = min(nvec, v0 + per);
-
-  const T* xr = x + (long long)row * xs;
-  const T* gr = gate + (long long)row * gs;
-  uint4 xv[NV], gv[NV], wv[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int v = v0 + threadIdx.x + i * threads;
-    if (live && v < v1) {
-      xv[i] = *reinterpret_cast<const uint4*>(xr + (long long)v * V);
-      if (GATED) gv[i] = *reinterpret_cast<const uint4*>(gr + (long long)v * V);
-      wv[i] = *reinterpret_cast<const uint4*>(w + (long long)v * V);
-    }
-  }
-  float val[NV][V];
-  float ss = 0.0f;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int v = v0 + threadIdx.x + i * threads;
-    if (live && v < v1) {
-      widen<T>(xv[i], val[i]);
-      if (GATED) {
-        float g[V];
-        widen<T>(gv[i], g);
-#pragma unroll
-        for (int j = 0; j < V; ++j) val[i][j] = gated<T>(val[i][j], g[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < V; ++j) ss += val[i][j] * val[i][j];
-    }
-  }
-
-  // the row group's sum: warps are whole and lie in one group
-  ss = warp_sum(ss);
   const int nw = threads >> 5;
-  if (nw > 1) {
-    const int first = threadIdx.y * nw;
-    if ((threadIdx.x & 31) == 0) red[first + (threadIdx.x >> 5)] = ss;
-    __syncthreads();
-    ss = 0.0f;
-    for (int i = 0; i < nw; ++i) ss += red[first + i];
-  }
-  if (CLUSTER) {                    // one row a block: add the slices' sums
-    if (threadIdx.x == 0) part = ss;
-    cluster_arrive();
-    cluster_wait();                 // every block's partial is written
-    ss = 0.0f;
-    for (uint32_t r = 0; r < gridDim.y; ++r) ss += ld_cluster(&part, r);
-    cluster_arrive();               // this block is done reading the others'
-  }
+  const int first = threadIdx.y * nw;          // the group's first warp
+  const int row_blocks = (rows + blockDim.y - 1) / blockDim.y;
+  const int step = gridDim.x * blockDim.y;
 
-  const float inv = rsqrtf(ss / (float)d + eps);
-  T* orow = out + (long long)row * os;
+  uint4 wv[NV], xv[NV], gv[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const int v = v0 + threadIdx.x + i * threads;
-    if (live && v < v1) {
-      float wf[V], o[V];
-      widen<T>(wv[i], wf);
+    const int v = threadIdx.x + i * threads;
+    if (v < nvec) wv[i] = ld16(w + (long long)v * V);
+  }
+  int row = blockIdx.x * blockDim.y + threadIdx.y;
 #pragma unroll
-      for (int j = 0; j < V; ++j) o[j] = val[i][j] * inv * (1.0f + wf[j]);
-      *reinterpret_cast<uint4*>(orow + (long long)v * V) = narrow<T>(o);
+  for (int i = 0; i < NV; ++i) {
+    const int v = threadIdx.x + i * threads;
+    if (row < rows && v < nvec) {
+      xv[i] = ld16(x + row * xs + (long long)v * V);
+      if (GATED) gv[i] = ld16(gate + row * gs + (long long)v * V);
     }
   }
-  if (CLUSTER) cluster_wait();      // keep `part` until every block has read it
+
+  // every thread of a block runs the same iterations (row blocks), so the
+  // barrier below is reached by all; the group past the last row idles
+  for (int rb = blockIdx.x, it = 0; rb < row_blocks;
+       rb += gridDim.x, row += step, ++it) {
+    // the next row's loads, in flight while this row is summed and stored
+    const int next = row + step;
+    uint4 xn[NV], gn[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int v = threadIdx.x + i * threads;
+      if (next < rows && v < nvec) {
+        xn[i] = ld16(x + next * xs + (long long)v * V);
+        if (GATED) gn[i] = ld16(gate + next * gs + (long long)v * V);
+      }
+    }
+    const bool live = row < rows;
+    float ss = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int v = threadIdx.x + i * threads;
+      if (live && v < nvec) {
+        float f[V];
+        widen<T>(xv[i], f);
+        if (GATED) {
+          float g[V];
+          widen<T>(gv[i], g);
+#pragma unroll
+          for (int j = 0; j < V; ++j) f[j] = gated<T>(f[j], g[j]);
+          xv[i] = narrow<T>(f);      // exact: f is already rounded to T
+        }
+#pragma unroll
+        for (int j = 0; j < V; ++j) ss += f[j] * f[j];
+      }
+    }
+
+    ss = warp_sum(ss);
+    if (nw > 1) {                    // the group's warp sums, by each warp
+      const int lane = threadIdx.x & 31;
+      float* r = red[it & 1];
+      if (lane == 0) r[first + (threadIdx.x >> 5)] = ss;
+      __syncthreads();
+      ss = warp_sum(lane < nw ? r[first + lane] : 0.0f);
+    }
+    const float inv = rsqrtf(ss / (float)d + eps);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int v = threadIdx.x + i * threads;
+      if (live && v < nvec) {
+        float f[V], wf[V];
+        widen<T>(xv[i], f);
+        widen<T>(wv[i], wf);
+#pragma unroll
+        for (int j = 0; j < V; ++j) f[j] = f[j] * inv * (1.0f + wf[j]);
+        *reinterpret_cast<uint4*>(out + (long long)row * d + (long long)v * V) =
+            narrow<T>(f);
+      }
+      xv[i] = xn[i];
+      if (GATED) gv[i] = gn[i];
+    }
+  }
 }
 
 // One block of LOOP_THREADS a row, scalar loads: the row is read for the sum
@@ -206,11 +201,11 @@ template <typename T, bool GATED>
 __global__ void __launch_bounds__(LOOP_THREADS) rmsnorm_loop(
     const T* __restrict__ x, const T* __restrict__ gate,
     const T* __restrict__ w, T* __restrict__ out, int d, long long xs,
-    long long gs, long long os, float eps) {
+    long long gs, float eps) {
   __shared__ float red[LOOP_THREADS / 32];
   const T* xr = x + (long long)blockIdx.x * xs;
   const T* gr = gate + (long long)blockIdx.x * gs;
-  T* orow = out + (long long)blockIdx.x * os;
+  T* orow = out + (long long)blockIdx.x * d;
   float ss = 0.0f;
   for (int c = threadIdx.x; c < d; c += LOOP_THREADS) {
     float v = to_f32(xr[c]);
@@ -233,75 +228,52 @@ __global__ void __launch_bounds__(LOOP_THREADS) rmsnorm_loop(
 
 template <typename T, bool GATED>
 int launch(const void* x, const void* gate, const void* w, void* out, int rows,
-           int d, long long xs, long long gs, long long os, float eps,
-           int threads, int rows_per_block, int cluster, cudaStream_t s) {
+           int d, long long xs, long long gs, float eps,
+           int threads, int rows_per_block, int blocks, cudaStream_t s) {
   const T* xp = static_cast<const T*>(x);
   const T* gp = static_cast<const T*>(gate);
   const T* wp = static_cast<const T*>(w);
   T* op = static_cast<T*>(out);
-  if (threads == 0) {
+  if (threads == 0)
     rmsnorm_loop<T, GATED><<<rows, LOOP_THREADS, 0, s>>>(xp, gp, wp, op, d,
-                                                         xs, gs, os, eps);
-    return (int)cudaGetLastError();
-  }
-  const dim3 block(threads, rows_per_block);
-  const dim3 grid((rows + rows_per_block - 1) / rows_per_block, cluster);
-  if (cluster == 1) {
-    rmsnorm_rows<T, GATED, false><<<grid, block, 0, s>>>(
-        xp, gp, wp, op, rows, d, xs, gs, os, eps);
-    return (int)cudaGetLastError();
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = cluster;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, rmsnorm_rows<T, GATED, true>, xp, gp, wp, op, rows, d, xs, gs, os,
-      eps);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+                                                         xs, gs, eps);
+  else
+    rmsnorm_rows<T, GATED><<<blocks, dim3(threads, rows_per_block), 0, s>>>(
+        xp, gp, wp, op, rows, d, xs, gs, eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x, gate (null without one) and out: `rows` rows of width d, row strides xs,
-// gs and os in elements; w (d,). dtype 0 = float32, 1 = bfloat16 (w in x's
-// dtype). threads 0 takes rmsnorm_loop; otherwise rmsnorm_rows with blocks of
-// (threads, rows_per_block) and each row split across `cluster` blocks, which
-// needs 16-byte aligned rows of a width that is a multiple of 16 bytes.
-// Returns a CUDA error code (0 on success).
+// x and gate (null without one): `rows` rows of width d, row strides xs and
+// gs in elements; out (rows, d) contiguous; w (d,). dtype 0 = float32, 1 = bfloat16 (w in x's
+// dtype). threads 0 takes rmsnorm_loop; otherwise rmsnorm_rows with `blocks`
+// blocks of (threads, rows_per_block), which needs 16-byte aligned rows of a
+// width that is a multiple of 16 bytes. Returns a CUDA error code (0 on
+// success).
 extern "C" int fused_rmsnorm_fwd(const void* x, const void* gate, const void* w,
                                  void* out, int dtype, int rows, int d,
-                                 long long xs, long long gs, long long os,
+                                 long long xs, long long gs,
                                  float eps, int threads, int rows_per_block,
-                                 int cluster, void* stream) {
+                                 int blocks, void* stream) {
   if (rows <= 0 || d <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (threads != 0) {
     const int vec = dtype == 0 ? 4 : 8;
     if (d % vec || threads % 32 || threads > MAX_THREADS ||
         rows_per_block < 1 || threads * rows_per_block > MAX_THREADS ||
-        cluster < 1 || cluster > MAX_CLUSTER ||
-        (cluster > 1 && rows_per_block != 1) ||
-        threads * NV * cluster < d / vec)
+        blocks < 1 || threads * NV < d / vec)
       return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool g = gate != nullptr;
   if (dtype == 0)
-    return g ? launch<float, true>(x, gate, w, out, rows, d, xs, gs, os, eps,
-                                   threads, rows_per_block, cluster, s)
-             : launch<float, false>(x, gate, w, out, rows, d, xs, gs, os, eps,
-                                    threads, rows_per_block, cluster, s);
-  return g ? launch<__nv_bfloat16, true>(x, gate, w, out, rows, d, xs, gs, os,
-                                         eps, threads, rows_per_block, cluster, s)
-           : launch<__nv_bfloat16, false>(x, gate, w, out, rows, d, xs, gs, os,
-                                          eps, threads, rows_per_block, cluster, s);
+    return g ? launch<float, true>(x, gate, w, out, rows, d, xs, gs, eps,
+                                   threads, rows_per_block, blocks, s)
+             : launch<float, false>(x, gate, w, out, rows, d, xs, gs, eps,
+                                    threads, rows_per_block, blocks, s);
+  return g ? launch<__nv_bfloat16, true>(x, gate, w, out, rows, d, xs, gs,
+                                         eps, threads, rows_per_block, blocks, s)
+           : launch<__nv_bfloat16, false>(x, gate, w, out, rows, d, xs, gs,
+                                          eps, threads, rows_per_block, blocks, s);
 }

@@ -5,14 +5,14 @@ Replaces the TPU kernel ``repro/kernels/fused_rmsnorm/fused_rmsnorm.py``
 (``_rmsnorm_kernel`` / ``fused_rmsnorm``) and its shim ``ops.py``. On the H100
 it is bound by bytes: the CUDA kernels (``csrc/fused_rmsnorm.cu``) read each
 element once and write it once, with the row sum in f32. ``plan`` picks their
-launch from the row count, the width and the SM count: at many rows a row
-per group of warps; at few rows (a decode step's 8) each row split across a
-cluster of blocks, so the rows occupy more SMs.
+launch from the row count, the width, the gate and the SM count: a row per
+group of warps, each thread holding up to 4 16-byte vectors, a persistent
+grid for gated rows.
 
 At a decode step the kernel takes ~2 us of device time and its launch more
-of the host's, so the CUDA path of ``rmsnorm`` is kept short: the library
-handle and the SM count are cached, the checks are the kernel's needs only,
-one output is allocated and one ``ctypes`` call launches.
+of the host's, so the CUDA path of ``rmsnorm`` is kept short: the C entry
+point, the SM count and the plans are cached, the checks are the kernel's
+needs only, one output is allocated and one ``ctypes`` call launches.
 
 A CPU tensor takes the plain version (``ref.rmsnorm_ref``); a CUDA tensor
 launches the kernel or raises. ``launches`` counts kernel launches.
@@ -32,40 +32,45 @@ launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"fused_rmsnorm_fwd":
-               [_P] * 4 + [_I] * 3 + [_L] * 3 + [ctypes.c_float] + [_I] * 3
+               [_P] * 4 + [_I] * 3 + [_L] * 2 + [ctypes.c_float] + [_I] * 3
                + [_P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-LOADS = 4            # 16-byte loads of its row slice a thread holds (NV)
+LOADS = 4            # 16-byte vectors of a row a thread holds (NV) at most
 MAX_THREADS = 512    # threads of a block
 ROW_THREADS = 128    # threads a block is given where rows are narrow
-# Blocks a row may be split across (a thread block cluster; 8 is the
-# portable most). 1 turns the split off.
-MAX_CLUSTER = 8
+SM_THREADS = 512     # threads an SM is given by a persistent grid
 
-_lib = None
+_fwd = None     # the C entry point, once its library is loaded
 
 
 @functools.lru_cache(maxsize=None)
 def plan(rows: int, d: int, vec: int, aligned: bool, n_sm: int,
-         max_cluster: int = MAX_CLUSTER):
-    """(threads, rows per block, cluster) of the launch for ``rows`` rows of
+         gated: bool = False):
+    """(threads, rows per block, blocks) of the launch for ``rows`` rows of
     width ``d`` in ``vec``-element 16-byte vectors. ``aligned``: every row
     starts 16-byte aligned and d is a multiple of vec. threads 0 is the
     scalar kernel (rows not aligned, or too wide to hold in registers).
-    Otherwise a row is split across ``cluster`` blocks where rows are too few
-    to give every SM a block, each slice at least a warp's 32 vectors, and
-    each thread holds up to LOADS vectors of its slice."""
-    if not aligned:
-        return 0, 1, 1
+
+    Each thread holds up to LOADS vectors of a row, narrow rows share a
+    block of ROW_THREADS where rows outnumber SMs (else a block a row), and
+    a block walks its rows with the next row's loads in flight. A gated row holds three tensors' vectors, so few of its
+    blocks fit on an SM: it takes a persistent grid of about SM_THREADS
+    threads an SM, and at no more rows than SMs (a decode step) a vector or
+    two a thread. An ungated row takes a block per row block (its blocks
+    are resident enough; on the card either grid reads the same), and at a
+    decode step's rows 4 vectors a thread did better than more threads
+    (PERF.md, PR 15)."""
     nvec = d // vec
-    cluster = max(1, min(max_cluster, n_sm // rows, nvec // 32))
-    per = -(-nvec // cluster)
-    threads = max(32, -(-per // (32 * LOADS)) * 32)
-    if threads > MAX_THREADS:
-        return 0, 1, 1
-    rows_per_block = 1 if cluster > 1 else max(1, min(rows,
-                                                      ROW_THREADS // threads))
-    return threads, rows_per_block, cluster
+    loads = 1 if gated and rows <= n_sm else LOADS
+    threads = min(MAX_THREADS, -(-nvec // (32 * loads)) * 32)
+    if not aligned or threads * LOADS < nvec:
+        return 0, 1, rows
+    rows_per_block = 1 if rows <= n_sm else max(1, ROW_THREADS // threads)
+    row_blocks = -(-rows // rows_per_block)
+    if not gated:
+        return threads, rows_per_block, row_blocks
+    per_sm = max(1, SM_THREADS // (threads * rows_per_block))
+    return threads, rows_per_block, min(row_blocks, n_sm * per_sm)
 
 
 def _row_stride(t, d: int, name: str) -> int:
@@ -75,9 +80,9 @@ def _row_stride(t, d: int, name: str) -> int:
 
 
 def _load():
-    global _lib
-    _lib = _build.load("fused_rmsnorm", _SIGNATURES)
-    return _lib
+    global _fwd
+    _fwd = _build.load("fused_rmsnorm", _SIGNATURES).fused_rmsnorm_fwd
+    return _fwd
 
 
 def rmsnorm(x, w, *, eps: float = 1e-6, gate=None):
@@ -96,36 +101,38 @@ def rmsnorm(x, w, *, eps: float = 1e-6, gate=None):
         if x.device.type == "cpu":
             return ref.rmsnorm_ref(x, w, eps=eps, gate=gate)
         raise ValueError(f"rmsnorm runs on cpu or cuda, not {x.device}")
-    dev = x.get_device()
-    if w.get_device() != dev:
-        raise ValueError("x and w must be on one device")
     dtype = _DTYPES.get(x.dtype)
     if dtype is None or w.dtype != x.dtype:
         raise TypeError(f"rmsnorm takes float32 or bfloat16 x and w of one "
                         f"dtype, got {x.dtype}, {w.dtype}")
+    dev = x.get_device()
     d = x.shape[-1]
-    if w.shape != (d,) or not w.is_contiguous():
-        raise ValueError(f"w must be a contiguous ({d},) vector, got "
-                         f"{tuple(w.shape)}")
-    xs = d if x.is_contiguous() else _row_stride(x, d, "x")
-    gp, gs = 0, 0
+    if w.shape != (d,) or w.get_device() != dev or not w.is_contiguous():
+        raise ValueError(f"w must be a contiguous ({d},) vector on x's device,"
+                         f" got {tuple(w.shape)} on {w.device}")
+    if x.is_contiguous():
+        xs = d
+        out = torch.empty_like(x)
+    else:
+        xs = _row_stride(x, d, "x")
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    gp = gs = 0
     if gate is not None:
         gp = gate.data_ptr()
         gs = d if gate.is_contiguous() else _row_stride(gate, d, "gate")
-    out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    if out.numel() == 0:
+    n = out.numel()
+    if n == 0:
         return out
-    rows = out.numel() // d
     xp, wp = x.data_ptr(), w.data_ptr()
-    vec = 16 // x.element_size()
+    vec = 8 if dtype else 4            # elements in 16 bytes
     aligned = not (d % vec or xs % vec or gs % vec or (xp | wp | gp) & 15)
-    threads, rows_per_block, cluster = plan(rows, d, vec, aligned,
-                                            sm_count(dev), MAX_CLUSTER)
-    lib = _lib or _load()
-    err = lib.fused_rmsnorm_fwd(xp, gp, wp, out.data_ptr(), dtype, rows,
-                                d, xs, gs, d, eps, threads, rows_per_block,
-                                cluster, stream_ptr(dev))
+    threads, rows_per_block, blocks = plan(n // d, d, vec, aligned,
+                                           sm_count(dev), gp != 0)
+    err = (_fwd or _load())(xp, gp, wp, out.data_ptr(), dtype, n // d, d, xs,
+                            gs, eps, threads, rows_per_block, blocks,
+                            stream_ptr(dev))
     if err:
-        _build.check(lib, "fused_rmsnorm", err)
+        _build.check(_build.load("fused_rmsnorm", _SIGNATURES),
+                     "fused_rmsnorm", err)
     launches += 1
     return out

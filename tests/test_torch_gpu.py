@@ -200,7 +200,10 @@ def test_decode_kernel_valid_len_zero_returns_zeros(cuda):
 
 # f32: rsqrt and the row sum's order; bf16: one output rounding. The gated
 # kernel rounds silu(gate) and the product to x's dtype as the plain path's
-# eager ops do, so it differs from it only by the row sum's order too.
+# eager ops do, so it differs from it only by the row sum's order too; but a
+# gated row's outputs reach 8 and more (g = x * silu(gate) is heavy-tailed),
+# where one bf16 step is 0.0625: there the bf16 bound is one step, 2^-7 of
+# the value, where that exceeds 0.05.
 NORM_TOL = {"float32": 2e-5, "bfloat16": 0.05}
 
 
@@ -214,9 +217,15 @@ def _norm_case(cuda, rows, d, dtype, gated, seed=2):
 
 
 def _norm_err(got, x, w, gate):
-    want = rn_ref.rmsnorm_ref(x, w, eps=1e-5, gate=gate)
-    assert got.shape == want.shape and got.dtype == want.dtype
-    return (got.float() - want.float()).abs().max().item()
+    """max|got - want| over the bound of each element (see NORM_TOL): below
+    1 passes."""
+    want = rn_ref.rmsnorm_ref(x, w, eps=1e-5, gate=gate).float()
+    assert got.shape == want.shape and got.dtype == x.dtype
+    tol = NORM_TOL["float32" if x.dtype == torch.float32 else "bfloat16"]
+    bound = torch.full_like(want, tol)
+    if gate is not None and x.dtype == torch.bfloat16:
+        bound = torch.maximum(bound, want.abs() * 2.0 ** -7)
+    return ((got.float() - want).abs() / bound).max().item()
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -232,7 +241,7 @@ def test_rmsnorm_kernel_vs_plain(cuda, rows, d, gated, dtype):
     torch.cuda.synchronize()
     assert rn_ops.launches == n0 + 1
     err = _norm_err(got, x, w, gate)
-    assert err < NORM_TOL[dtype], f"{rows}x{d} gated={gated}: {err}"
+    assert err < 1, f"{rows}x{d} gated={gated}: {err} of the bound"
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -251,42 +260,42 @@ def test_rmsnorm_kernel_takes_rows_of_a_wider_buffer(cuda, rows, d, width,
     got = rn_ops.rmsnorm(x, w, eps=1e-5, gate=gate)
     torch.cuda.synchronize()
     assert got.is_contiguous()
-    assert _norm_err(got, x, w, gate) < NORM_TOL[dtype]
+    assert _norm_err(got, x, w, gate) < 1
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("rows,d,gated", [
-    (8, 4096, False), (8, 7168, True), (8, 768, False), (1, 3584, True)])
-def test_rmsnorm_cluster_split_and_one_block_a_row_agree(cuda, rows, d,
-                                                        gated, dtype):
-    """The decode step's rows split across a cluster of blocks (the sums of
-    the slices exchanged through distributed shared memory) and the same
-    rows one block each: both within the tolerance of the plain version."""
+    (1000, 4096, False), (1000, 7168, True), (333, 768, True),
+    (8, 1536, False)])
+def test_rmsnorm_kernel_any_grid_takes_every_row(cuda, rows, d, gated, dtype):
+    """The persistent grid: every block count from one block to one per row
+    block (each block walking its rows, w loaded once) gives the plain
+    version's result, and so does the plan the wrapper picks."""
     x, w, gate = _norm_case(cuda, rows, d, dtype, gated, seed=6)
     vec = 16 // x.element_size()
-    assert rn_ops.plan(rows, d, vec, True, torch.cuda.get_device_properties(
-        cuda).multi_processor_count)[2] > 1
-    split = rn_ops.rmsnorm(x, w, eps=1e-5, gate=gate)
-    old = rn_ops.MAX_CLUSTER
-    rn_ops.MAX_CLUSTER = 1
-    try:
-        whole = rn_ops.rmsnorm(x, w, eps=1e-5, gate=gate)
-    finally:
-        rn_ops.MAX_CLUSTER = old
-    torch.cuda.synchronize()
-    assert _norm_err(split, x, w, gate) < NORM_TOL[dtype]
-    assert _norm_err(whole, x, w, gate) < NORM_TOL[dtype]
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    threads, rpb, blocks = rn_ops.plan(rows, d, vec, True, n_sm)
+    assert threads > 0
+    fwd = rn_ops._load()
+    for n in sorted({1, 7, blocks, -(-rows // rpb)}):
+        out = torch.empty_like(x)
+        err = fwd(
+            x.data_ptr(), 0 if gate is None else gate.data_ptr(), w.data_ptr(),
+            out.data_ptr(), 0 if dtype == "float32" else 1, rows, d, d, d,
+            1e-5, threads, rpb, n, torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        torch.cuda.synchronize()
+        assert _norm_err(out, x, w, gate) < 1, f"{n} blocks"
 
 
 @pytest.mark.parametrize("gated", [False, True])
 def test_rmsnorm_kernel_too_wide_for_the_registers(cuda, gated):
-    """Rows wider than 512 threads x 4 16-byte loads take the scalar kernel
-    at many rows and the cluster split at few."""
+    """Rows wider than 512 threads x 4 16-byte loads take the scalar kernel."""
     for rows in (200, 4):
         x, w, gate = _norm_case(cuda, rows, 20000, "bfloat16", gated)
         got = rn_ops.rmsnorm(x, w, eps=1e-5, gate=gate)
         torch.cuda.synchronize()
-        assert _norm_err(got, x, w, gate) < NORM_TOL["bfloat16"]
+        assert _norm_err(got, x, w, gate) < 1
 
 
 def test_rmsnorm_kernel_refuses_what_it_does_not_take(cuda):

@@ -12,6 +12,8 @@ the product rounded); against JAX's own bf16 ``y * jax.nn.silu(z)``, whose
 silu rounds the sigmoid and then its product, g may differ by one bf16 step
 (2^-8 of it), which the norm carries into the output in proportion: there
 the bound is 0.05 of max(1, |want|) per element."""
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -143,57 +145,66 @@ def test_cpu_tensor_never_launches(gated):
                                rtol=0, atol=0)
 
 
-# (rows, d, itemsize) -> (threads, rows per block, cluster) on 132 SMs: every
-# norm of the three main paths (chatglm3-6b d_model 4,096; zamba2-7b 3,584
-# and d_inner 7,168; mamba2-130m 768 and 1,536) at prefill's 8,192 rows and a
-# decode step's 8, in bf16 and f32. Prefill: a row per group of warps, every
-# thread up to 4 16-byte loads; decode: a row across a cluster of up to 8
-# blocks of one warp.
+# (rows, d, itemsize, gated) -> (threads, rows per block, blocks) on 132
+# SMs: every norm of the three main paths (chatglm3-6b d_model 4,096;
+# zamba2-7b 3,584 and the gated d_inner 7,168; mamba2-130m 768 and the gated
+# 1,536) at prefill's 8,192 rows and a decode step's 8, in bf16 and f32.
+# Each thread holds up to 4 16-byte vectors; ungated rows a block per row
+# block, gated rows a persistent grid of about 512 threads an SM, and at a
+# decode step a vector or two a thread.
 MAIN_PATH_PLANS = {
-    (8192, 4096, 2): (128, 1, 1), (8192, 3584, 2): (128, 1, 1),
-    (8192, 7168, 2): (224, 1, 1), (8192, 768, 2): (32, 4, 1),
-    (8192, 1536, 2): (64, 2, 1),
-    (8, 4096, 2): (32, 1, 8), (8, 3584, 2): (32, 1, 8),
-    (8, 7168, 2): (32, 1, 8), (8, 768, 2): (32, 1, 3),
-    (8, 1536, 2): (32, 1, 6),
-    (8192, 4096, 4): (256, 1, 1), (8192, 7168, 4): (448, 1, 1),
-    (8192, 768, 4): (64, 2, 1),
-    (8, 4096, 4): (32, 1, 8), (8, 7168, 4): (64, 1, 8),
-    (8, 768, 4): (32, 1, 6),
+    (8192, 4096, 2, False): (128, 1, 8192),
+    (8192, 3584, 2, False): (128, 1, 8192),
+    (8192, 7168, 2, True): (224, 1, 264),
+    (8192, 768, 2, False): (32, 4, 2048),
+    (8192, 1536, 2, True): (64, 2, 528),
+    (8, 4096, 2, False): (128, 1, 8),
+    (8, 3584, 2, False): (128, 1, 8),
+    (8, 7168, 2, True): (512, 1, 8),
+    (8, 768, 2, False): (32, 1, 8),
+    (8, 1536, 2, True): (192, 1, 8),
+    (8192, 4096, 4, False): (256, 1, 8192),
+    (8192, 7168, 4, True): (448, 1, 132),
+    (8192, 768, 4, False): (64, 2, 4096),
+    (8192, 1536, 4, True): (96, 1, 660),
+    (8, 4096, 4, False): (256, 1, 8),
+    (8, 7168, 4, True): (512, 1, 8),
+    (8, 768, 4, False): (64, 1, 8),
+    (8, 1536, 4, True): (384, 1, 8),
 }
 
 
 @pytest.mark.parametrize("shape", list(MAIN_PATH_PLANS),
                          ids=lambda s: "x".join(map(str, s)))
 def test_plan_at_the_main_path_shapes(shape):
-    rows, d, itemsize = shape
-    assert rn_ops.plan(rows, d, 16 // itemsize, True, 132) == \
+    rows, d, itemsize, gated = shape
+    assert rn_ops.plan(rows, d, 16 // itemsize, True, 132, gated) == \
         MAIN_PATH_PLANS[shape]
-    # the split turned off: one block a row, as many threads as it needs
-    threads, rpb, cluster = rn_ops.plan(rows, d, 16 // itemsize, True, 132,
-                                        max_cluster=1)
-    assert cluster == 1 and threads * rn_ops.LOADS * 16 // itemsize >= d
 
 
 @pytest.mark.parametrize("vec", [4, 8])
 def test_plan_takes_every_width(vec):
     """The plans the C entry point accepts (its own check, repeated): whole
-    warps, at most 512 threads a block, one row a block when split, every
-    vector of a row held by some thread; the scalar kernel (threads 0) for
-    rows that are not aligned or too wide for the registers."""
-    for rows in (1, 3, 8, 33, 132, 8192):
-        for d in list(range(vec, 40 * vec, vec)) + [768, 4096, 7168, 16384,
-                                                    32768, 65536]:
-            threads, rpb, cluster = rn_ops.plan(rows, d, vec, True, 132)
-            assert rn_ops.plan(rows, d, vec, False, 132) == (0, 1, 1)
-            if threads == 0:
-                assert d // vec > rn_ops.MAX_THREADS * rn_ops.LOADS
-                continue
-            assert threads % 32 == 0 and 32 <= threads <= rn_ops.MAX_THREADS
-            assert 1 <= rpb and threads * rpb <= rn_ops.MAX_THREADS
-            assert 1 <= cluster <= rn_ops.MAX_CLUSTER
-            assert cluster == 1 or (rpb == 1 and rows * cluster <= 132)
-            assert threads * rn_ops.LOADS * cluster >= d // vec
+    warps, at most 512 threads a block, every vector of a row held by a
+    thread of its group, at least one block and no more than there are row
+    blocks; the scalar kernel (threads 0) for rows that are not aligned or
+    too wide for the registers."""
+    for rows, d, gated in itertools.product(
+            (1, 3, 8, 33, 132, 133, 1000, 8192),
+            list(range(vec, 40 * vec, vec)) + [768, 4096, 7168, 8192, 16384,
+                                                32768],
+            (False, True)):
+        threads, rpb, blocks = rn_ops.plan(rows, d, vec, True, 132, gated)
+        assert rn_ops.plan(rows, d, vec, False, 132, gated)[0] == 0
+        if threads == 0:
+            assert d // vec > rn_ops.MAX_THREADS * rn_ops.LOADS
+            continue
+        assert threads % 32 == 0 and 32 <= threads <= rn_ops.MAX_THREADS
+        assert 1 <= rpb and threads * rpb <= rn_ops.MAX_THREADS
+        assert threads * rn_ops.LOADS >= d // vec
+        assert 1 <= blocks <= -(-rows // rpb)
+        if rows <= 132:                 # a block a row
+            assert (rpb, blocks) == (1, rows)
 
 
 def test_load_returns_a_loaded_library_without_the_lock(monkeypatch):
