@@ -20,19 +20,17 @@
 //   device memory once; each thread holds up to NV 16-byte vectors of it,
 //   kept as loaded (a gated row as g, rounded and packed back). The group
 //   sums its squares by warp shuffles and, across its warps, in shared
-//   memory. The grid is persistent: each block walks row blocks
-//   blockIdx.x, + gridDim.x, ..., so w is loaded into registers once per
-//   block instead of once per row, and the loads of a thread's next row
-//   are issued before it reduces the current one, so a row's memory round
-//   trip overlaps the previous row's sum and stores.
-//   Many rows (prefill's 8,192): each thread holds up to 4 vectors, a few
-//   narrow rows share a block, about a full SM's worth of threads a block
-//   grid. Few rows (a decode step's 8): one block a row with as many
-//   threads as the row has vectors (up to 512), so a thread's serial chain
-//   of loads, sums and stores is as short as it can be. (Splitting a row
+//   memory. A gated row holds three tensors' vectors, so few of its blocks
+//   fit on an SM; it runs on a persistent grid instead: each block walks
+//   row blocks blockIdx.x, + gridDim.x, ..., w loaded into registers once
+//   per block instead of once per row, and the loads of a thread's next row
+//   issued before it reduces the current one, so a row's memory round trip
+//   overlaps the previous row's sum and stores. An ungated row, or a decode
+//   step's few rows, take a block per row block. (Splitting a decode row
 //   across a thread block cluster, the partial sums exchanged through
 //   distributed shared memory, was built and measured slower on the card
-//   at 8 x 4,096 and at the gated 8 x 7,168: PERF.md, PR 15.)
+//   than one block a row at 8 x 4,096 and at the gated 8 x 7,168: PERF.md,
+//   PR 15.)
 // rmsnorm_loop: rows whose start is not 16-byte aligned (an odd width, a
 //   row stride that is not a multiple of 16 bytes) or too wide for the
 //   registers: scalar loads, the row read once for the sum and again, from
@@ -99,11 +97,28 @@ __device__ __forceinline__ uint4 ld16(const void* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
-// Block (threads, rows_per_block), a row group a threadIdx.y; grid of
-// persistent blocks. Row group y of block b takes the rows
-// (b + k * gridDim.x) * rows_per_block + y, k = 0, 1, ...; thread t holds
-// the V-element vectors t + i * threads, i < NV, of each.
-template <typename T, bool GATED>
+// this thread's vectors t + i * threads of w
+template <typename T>
+__device__ __forceinline__ void load_w(const T* w, uint4* wv, int nvec,
+                                       int threads) {
+  constexpr int V = 16 / sizeof(T);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int v = threadIdx.x + i * threads;
+    if (v < nvec) wv[i] = ld16(w + (long long)v * V);
+  }
+}
+
+// Block (threads, rows_per_block), a row group a threadIdx.y. Row group y of
+// block b takes the rows (b + k * gridDim.x) * rows_per_block + y,
+// k = 0, 1, ...; thread t holds the V-element vectors t + i * threads,
+// i < NV, of each. PERSIST: a grid of fewer blocks than row blocks, w loaded
+// once a block and each thread's next row loaded while the current one is
+// summed and stored. Otherwise a block per row block, and w loaded after
+// the row's sum, so that the row's loads go out first (at a decode step's
+// 8 rows that launch took ~10% less device time than loading w first, and
+// no prefetch code: PERF.md, PR 15).
+template <typename T, bool GATED, bool PERSIST>
 __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_rows(
     const T* __restrict__ x, const T* __restrict__ gate,
     const T* __restrict__ w, T* __restrict__ out, int rows, int d,
@@ -118,11 +133,7 @@ __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_rows(
   const int step = gridDim.x * blockDim.y;
 
   uint4 wv[NV], xv[NV], gv[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int v = threadIdx.x + i * threads;
-    if (v < nvec) wv[i] = ld16(w + (long long)v * V);
-  }
+  if constexpr (PERSIST) load_w(w, wv, nvec, threads);
   int row = blockIdx.x * blockDim.y + threadIdx.y;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
@@ -140,12 +151,14 @@ __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_rows(
     // the next row's loads, in flight while this row is summed and stored
     const int next = row + step;
     uint4 xn[NV], gn[NV];
+    if constexpr (PERSIST) {
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int v = threadIdx.x + i * threads;
-      if (next < rows && v < nvec) {
-        xn[i] = ld16(x + next * xs + (long long)v * V);
-        if (GATED) gn[i] = ld16(gate + next * gs + (long long)v * V);
+      for (int i = 0; i < NV; ++i) {
+        const int v = threadIdx.x + i * threads;
+        if (next < rows && v < nvec) {
+          xn[i] = ld16(x + next * xs + (long long)v * V);
+          if (GATED) gn[i] = ld16(gate + next * gs + (long long)v * V);
+        }
       }
     }
     const bool live = row < rows;
@@ -177,6 +190,7 @@ __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_rows(
       ss = warp_sum(lane < nw ? r[first + lane] : 0.0f);
     }
     const float inv = rsqrtf(ss / (float)d + eps);
+    if constexpr (!PERSIST) load_w(w, wv, nvec, threads);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int v = threadIdx.x + i * threads;
@@ -189,8 +203,10 @@ __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_rows(
         *reinterpret_cast<uint4*>(out + (long long)row * d + (long long)v * V) =
             narrow<T>(f);
       }
-      xv[i] = xn[i];
-      if (GATED) gv[i] = gn[i];
+      if constexpr (PERSIST) {
+        xv[i] = xn[i];
+        if (GATED) gv[i] = gn[i];
+      }
     }
   }
 }
@@ -237,8 +253,11 @@ int launch(const void* x, const void* gate, const void* w, void* out, int rows,
   if (threads == 0)
     rmsnorm_loop<T, GATED><<<rows, LOOP_THREADS, 0, s>>>(xp, gp, wp, op, d,
                                                          xs, gs, eps);
+  else if (blocks < (rows + rows_per_block - 1) / rows_per_block)
+    rmsnorm_rows<T, GATED, true><<<blocks, dim3(threads, rows_per_block), 0, s>>>(
+        xp, gp, wp, op, rows, d, xs, gs, eps);
   else
-    rmsnorm_rows<T, GATED><<<blocks, dim3(threads, rows_per_block), 0, s>>>(
+    rmsnorm_rows<T, GATED, false><<<blocks, dim3(threads, rows_per_block), 0, s>>>(
         xp, gp, wp, op, rows, d, xs, gs, eps);
   return (int)cudaGetLastError();
 }
