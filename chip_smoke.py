@@ -86,9 +86,11 @@ SSD_TC_TOL = 1e-2
 # to the f32 plain path, over the bf16 plain path's, read 1.03, 1.10 and 0.99.
 F32_LOGIT_TOL = 1e-4
 BF16_ERR_RATIO = 1.5
-# aten calls of one decode step of the kernel path in PR 14's run of this
-# script, before the gated norm (H100 80GB HBM3, 700 W)
-PR14_ATEN_CALLS = {"chatglm3-6b": 5197, "zamba2-7b": 26652, "mamba2-130m": 6452}
+# aten calls of one decode step of the kernel path as this script read them
+# before the gate was fused into the norm and the wrapper lost its two views
+# (H100 80GB HBM3, 700 W)
+ATEN_CALLS_BEFORE = {"chatglm3-6b": 5197, "zamba2-7b": 26652,
+                     "mamba2-130m": 6452}
 
 
 def check(ok, msg):
@@ -622,7 +624,7 @@ def main():
               f" (bytes)  [{card}]", flush=True)
     met = norm["decode_8x4096"]["device_ms"] <= 0.00152
     print(f"[time] fused_rmsnorm target, {B} x {d} device time per call at "
-          f"most 0.00152 ms (PR 14's Triton kernel): "
+          f"most 0.00152 ms (the Triton kernel's before): "
           f"{'met' if met else 'missed'}", flush=True)
 
     # the zamba2-7b shape goes into the summary; mamba2-130m's (N 128) beside
@@ -652,8 +654,8 @@ def main():
 
     # host time to issue one call at the decode step's shapes: at batch 8 a
     # decode step is a chain of small launches, so this bounds its speed.
-    # Beside each, the reading of PR 14's run of this script (H100 80GB HBM3,
-    # 700 W), where it had one.
+    # Beside each, this script's reading before the RMSNorm kernel was CUDA
+    # C++ (H100 80GB HBM3, 700 W), where it had one.
     qd, kd, vd, vld, sd = inputs["decode_attention/chatglm3-6b"]
     x8, w8, _ = inputs[f"fused_rmsnorm/{B}x{d}"]
     y8, wg8, z8 = inputs[f"fused_rmsnorm/gated {B}x{zam.ssm_d_inner}"]
@@ -664,12 +666,12 @@ def main():
     for label, fn, before in (
             ("decode_attention wrapper",
              lambda: da_ops.decode_attention(qd, kd, vd, vld, scale=sd),
-             "78.8 us (64.1 in PR 11)"),
+             "78.8 us, 64.1 us on the first slice"),
             (f"fused_rmsnorm wrapper ({B} x {d})",
              lambda: rn_ops.rmsnorm(x8, w8, eps=eps), "59.4 us, Triton"),
             (f"gated fused_rmsnorm wrapper ({B} x {di})",
              lambda: rn_ops.rmsnorm(y8, wg8, eps=eps, gate=z8),
-             "none: PR 14 ran the eager silu and product, then the norm"),
+             "none: the eager silu and product ran, then the norm"),
             (f"eager F.silu + mul + F.rms_norm ({B} x {di})",
              lambda: F.rms_norm(y8 * F.silu(z8), (di,), weight=wg8_1, eps=eps),
              "not measured"),
@@ -687,7 +689,7 @@ def main():
             torch.cuda.synchronize()
         host[label] = statistics.median(rounds)
         print(f"[host] {label}: {host[label]:.1f} us of host time per call "
-              f"(median of 5 x 200 calls; PR 14: {before})", flush=True)
+              f"(median of 5 x 200 calls; before: {before})", flush=True)
     ratio = (host[f"fused_rmsnorm wrapper ({B} x {d})"]
              / host[f"F.rms_norm ({B} x {d})"])
     print(f"[host] target, the RMSNorm wrapper's host time per call at most "
@@ -904,7 +906,7 @@ def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
             ops.sort(key=lambda e: -e.self_cpu_time_total)
             counts = {e.key: e.count for e in ops}
             print(f"[profile] {arch} {label}, host: {sum(e.count for e in ops)} "
-                  f"aten op calls (PR 14: {PR14_ATEN_CALLS[arch]}; of them "
+                  f"aten op calls (before: {ATEN_CALLS_BEFORE[arch]}; of them "
                   f"aten::silu {counts.get('aten::silu', 0)}, aten::mul "
                   f"{counts.get('aten::mul', 0)}, aten::view "
                   f"{counts.get('aten::view', 0)}), "

@@ -30,7 +30,7 @@
 //   across a thread block cluster, the partial sums exchanged through
 //   distributed shared memory, was built and measured slower on the card
 //   than one block a row at 8 x 4,096 and at the gated 8 x 7,168: PERF.md,
-//   PR 15.)
+//   Findings.)
 // rmsnorm_loop: rows whose start is not 16-byte aligned (an odd width, a
 //   row stride that is not a multiple of 16 bytes) or too wide for the
 //   registers: scalar loads, the row read once for the sum and again, from
@@ -117,7 +117,7 @@ __device__ __forceinline__ void load_w(const T* w, uint4* wv, int nvec,
 // summed and stored. Otherwise a block per row block, and w loaded after
 // the row's sum, so that the row's loads go out first (at a decode step's
 // 8 rows that launch took ~10% less device time than loading w first, and
-// no prefetch code: PERF.md, PR 15).
+// no prefetch code: PERF.md, Findings).
 template <typename T, bool GATED, bool PERSIST>
 __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_rows(
     const T* __restrict__ x, const T* __restrict__ gate,

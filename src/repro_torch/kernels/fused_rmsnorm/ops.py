@@ -45,21 +45,21 @@ _fwd = None     # the C entry point, once its library is loaded
 
 @functools.lru_cache(maxsize=None)
 def plan(rows: int, d: int, vec: int, aligned: bool, n_sm: int,
-         gated: bool = False):
+         gated: bool):
     """(threads, rows per block, blocks) of the launch for ``rows`` rows of
     width ``d`` in ``vec``-element 16-byte vectors. ``aligned``: every row
     starts 16-byte aligned and d is a multiple of vec. threads 0 is the
     scalar kernel (rows not aligned, or too wide to hold in registers).
 
-    Each thread holds up to LOADS vectors of a row, narrow rows share a
-    block of ROW_THREADS where rows outnumber SMs (else a block a row), and
-    a block walks its rows with the next row's loads in flight. A gated row holds three tensors' vectors, so few of its
-    blocks fit on an SM: it takes a persistent grid of about SM_THREADS
-    threads an SM, and at no more rows than SMs (a decode step) a vector or
-    two a thread. An ungated row takes a block per row block (its blocks
-    are resident enough; on the card either grid reads the same), and at a
-    decode step's rows 4 vectors a thread did better than more threads
-    (PERF.md, PR 15)."""
+    Each thread holds up to LOADS vectors of a row, and narrow rows share a
+    block of ROW_THREADS where rows outnumber SMs (else a block a row). A
+    gated row holds three tensors' vectors, so few of its blocks fit on an
+    SM: it takes a persistent grid of about SM_THREADS threads an SM, whose
+    blocks load each next row while they finish the current one, and at no
+    more rows than SMs (a decode step) a vector or two a thread. An ungated
+    row takes a block per row block, and at a decode step's rows 4 vectors
+    a thread: on the card a persistent grid gained nothing there, and more
+    threads a row took longer (PERF.md, Findings)."""
     nvec = d // vec
     loads = 1 if gated and rows <= n_sm else LOADS
     threads = min(MAX_THREADS, -(-nvec // (32 * loads)) * 32)

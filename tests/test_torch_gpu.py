@@ -274,7 +274,7 @@ def test_rmsnorm_kernel_any_grid_takes_every_row(cuda, rows, d, gated, dtype):
     x, w, gate = _norm_case(cuda, rows, d, dtype, gated, seed=6)
     vec = 16 // x.element_size()
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
-    threads, rpb, blocks = rn_ops.plan(rows, d, vec, True, n_sm)
+    threads, rpb, blocks = rn_ops.plan(rows, d, vec, True, n_sm, gated)
     assert threads > 0
     fwd = rn_ops._load()
     for n in sorted({1, 7, blocks, -(-rows // rpb)}):
