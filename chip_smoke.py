@@ -14,7 +14,8 @@ Phases, each printing its lines; any failed check exits non-zero:
   3. kernel vs plain: each kernel's wrapper on CUDA tensors at the main
      paths' shapes against its plain PyTorch version, tolerance stated
      (RMSNorm gated and ungated at every main-path width, 8 and 8,192 rows,
-     and at d = 77);
+     and at d = 77; flash attention also at the training path's head_dim 80,
+     B 8, S 1,024, 32 heads over 32 KV heads);
   4. kernel times (CUDA events, L2 flushed before each launch) beside the
      least time the card could take, the plain version and a library call;
      the 8-row RMSNorm's from the profiler's device time; the gated RMSNorm
@@ -23,7 +24,11 @@ Phases, each printing its lines; any failed check exits non-zero:
      shape, beside SDPA, and decode attention's device time per call from
      the profiler (split and combine kernels); the SSD scan at zamba2-7b's
      and mamba2-130m's shapes; the host time per call of the wrappers and
-     eager calls of a decode step;
+     eager calls of a decode step; at the training path's shapes (flash
+     attention at stablelm-3b's, RMSNorm at 8,192 x 2,560) each kernel's
+     forward beside its backward (its autograd.Function's: the plain version
+     recomputed and its vjp, checked equal to the plain vjp), the plain vjp
+     alone, and the library's forward and backward;
   5. main paths, each served with ``serve_batch`` at full width with random
      bf16 weights from a seed: 8 requests of 1,024 prompt tokens, 32 greedy
      new tokens, with the kernels' launch counts set to 0 just before and
@@ -35,14 +40,32 @@ Phases, each printing its lines; any failed check exits non-zero:
      and decode times;
   6. where the time of one prefill and one decode step goes
      (torch.profiler), for each of the three, and the per-launch device
-     time of the kernels there.
-The line before the last is the ``{"kernels": [...]}`` summary; the last is
+     time of the kernels there;
+  7. training through ``make_train_step`` (AdamW, remat "full", the kernels
+     in every forward and recompute, the plain versions' vjps in the
+     backward) with random bf16 weights from a seed: stablelm-3b at full
+     width and depth (32 layers, d_model 2,560) and mamba2-130m at full
+     size, five steps each on one fixed batch of 8 x 1,024 tokens; each
+     loss finite and the fifth below the first, each step's launch counts
+     exact; one more step in its two parts (forward and backward, then the
+     update) with every leaf's gradient finite and nonzero; step time,
+     tokens/s, peak memory and the model-FLOP share. Then the kernel path's
+     f32 gradients against the plain path's (stablelm-3b at full width and 4
+     layers, mamba2-130m at full size), and a checkpoint round trip
+     (mamba2-130m: saved after step 2, restored into a fresh tree, step 3
+     from both equal bit for bit).
+No serving path is cut to fit the time limit: the whole script takes a few
+minutes on an H100.
+The line before the last is the ``{"kernels": [...]}`` summary (with each
+kernel's launches per serve_batch and per train step); the last is
 ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import json
+import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -50,6 +73,17 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# phase 7: training at full width and depth, five steps on one batch
+TRAIN_PATHS = ("stablelm-3b", "mamba2-130m")
+TRAIN_WIDTH = {"stablelm-3b": (32, 2560), "mamba2-130m": (24, 768)}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
+# f32 gradient parity, kernel path against plain path (depth at full width)
+PARITY_DEPTH = {"stablelm-3b": 4, "mamba2-130m": 24}
+# limits set from the first run's readings (H100 80GB HBM3, 700 W): per leaf
+# at most 6.6e-06 (stablelm-3b) and 1.9e-05 (mamba2-130m), the loss equal in
+# every bit on both (first set at 1e-3 and 1e-5)
+GRAD_LEAF_TOL, GRAD_LOSS_TOL = 1e-4, 1e-6
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
@@ -210,6 +244,24 @@ def sass_counts(lib_path, opcode):
     return counts
 
 
+def want_train_launches(cfg):
+    """Kernel launches of one train step under remat 'full': each layer's
+    forward runs twice (the forward, and its recompute in the backward), the
+    final norm once, the backward (the plain versions' vjps) none. A dense
+    block: 1 flash attention and 2 RMSNorms; a Mamba2 block: the SSD scan, its
+    input norm and its gated norm."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        flash, norms, ssd = 0, 2 * L, L
+    elif cfg.family == "hybrid":
+        flash = L // cfg.attn_every                      # shared-block calls
+        norms, ssd = 2 * L + 2 * flash, L
+    else:
+        flash, norms, ssd = L, 2 * L, 0
+    return {"flash_attention": 2 * flash, "decode_attention": 0,
+            "fused_rmsnorm": 2 * norms + 1, "ssd": 2 * ssd}
+
+
 def want_launches(cfg):
     """Kernel launches of one serve_batch: prefill + NEW_TOKENS - 1 decode
     steps, RMSNorm in every step (2 per block, 1 final), flash attention in
@@ -296,6 +348,7 @@ def main():
     cfgs = {arch: get_config(arch) for arch in PATHS}
     glm = cfgs["chatglm3-6b"]
     zam = cfgs["zamba2-7b"]
+    sl3 = get_config("stablelm-3b")
     B, S = N_REQUESTS, PROMPT_LEN
     S_cache = PROMPT_LEN + NEW_TOKENS
     results = {}
@@ -389,13 +442,16 @@ def main():
                                          glm.head_dim)),
                 ("zamba2-7b prefill", (B, S, zam.num_heads, zam.num_kv_heads,
                                        zam.head_dim)),
-                ("stablelm-3b hd80 ragged", (2, 200, 32, 32, 80))):
+                ("stablelm-3b hd80 ragged", (2, 200, 32, 32, 80)),
+                ("stablelm-3b train", (B, S, sl3.num_heads, sl3.num_kv_heads,
+                                       sl3.head_dim))):
             err, args = flash_case(*shape, dtype)
             tol = ATTN_TOL[dtype_name]
             print(f"[check] flash_attention {label} {shape} {dtype_name}: "
                   f"max|err| {err:.3e} (tol {tol})", flush=True)
             check(err < tol, f"flash_attention {shape} {dtype_name}: {err}")
-            if dtype_name == "bfloat16" and "prefill" in label:
+            if dtype_name == "bfloat16" and label.endswith(("prefill",
+                                                            "train")):
                 inputs[f"flash_attention/{label.split()[0]}"] = args
                 if label.startswith("chatglm"):
                     results["flash_attention"] = {"max_abs_err": err}
@@ -420,7 +476,7 @@ def main():
         # y * silu(z) normalized) and not; d = 77 takes the scalar kernel
         for rows in (B * S, B):
             for dim in (glm.d_model, zam.d_model, zam.ssm_d_inner, mam.d_model,
-                        mam.ssm_d_inner, 77):
+                        mam.ssm_d_inner, sl3.d_model, 77):
                 for gated in (False, True):
                     err, share, args = norm_case(rows, dim, dtype, gated)
                     label = "gated " if gated else ""
@@ -652,6 +708,74 @@ def main():
         else:
             results["ssd"]["mamba2_130m_shape"] = r
 
+    # The training path's shapes (stablelm-3b, bf16): each kernel's forward
+    # beside its backward, which is its autograd.Function's (the plain
+    # version recomputed from the saved inputs, and its vjp), the plain vjp
+    # alone, and the library call's forward and backward.
+    q, k, v, scale = inputs["flash_attention/stablelm-3b"]
+    pairs = B * q.shape[2] * S * (S + 1) // 2
+    xt, wt, _ = inputs[f"fused_rmsnorm/{B * S}x{sl3.d_model}"]
+    n, dim = xt.numel(), xt.shape[-1]
+    for name, label, args, kernel, plain, lib, work in (
+            ("flash_attention", "train_shape_hd80", (q, k, v),
+             lambda q, k, v: fa_ops.flash_attention(q, k, v, scale=scale),
+             lambda q, k, v: fa_ops.plain(q, k, v, scale=scale),
+             lambda q, k, v: F.scaled_dot_product_attention(
+                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 is_causal=True, scale=scale),
+             # the two products forward; five in the backward (S = Q K^T
+             # again, dV, dP, dQ, dK); q, k, v, o (and dO, dq, dk, dv) once
+             dict(flops=4 * q.shape[3] * pairs, bytes=2 * 4 * q.numel(),
+                  bwd_flops=10 * q.shape[3] * pairs, bwd_bytes=2 * 8 * q.numel())),
+            ("fused_rmsnorm", f"train_shape_{B * S}x{dim}", (xt, wt),
+             lambda x, w: rn_ops.rmsnorm(x, w, eps=eps),
+             lambda x, w: rn_ref.rmsnorm_ref(x, w, eps=eps),
+             lambda x, w: F.rms_norm(x, (dim,), weight=1.0 + w, eps=eps),
+             # x read, out written (and x, dy read, dx written, w and dw)
+             dict(flops=4 * n, bytes=2 * (2 * n + dim), bwd_flops=8 * n,
+                  bwd_bytes=2 * (3 * n + 2 * dim)))):
+        leaves = [a.detach().requires_grad_() for a in args]
+        y = kernel(*leaves)
+        check(y.grad_fn is not None and "Backward" in y.grad_fn.name(),
+              f"{name} under grad returned {y.grad_fn} (no autograd.Function)")
+        dy = randn(*y.shape, dtype=y.dtype)
+        y_p, y_l = plain(*leaves), lib(*leaves)
+        got = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        want = torch.autograd.grad(y_p, leaves, dy, retain_graph=True)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{name} backward is not the plain version's vjp")
+        r = dict(
+            ms=timer(lambda: kernel(*args), 50),
+            bwd_ms=timer(lambda: torch.autograd.grad(y, leaves, dy,
+                                                     retain_graph=True), 10),
+            plain_ms=timer(lambda: plain(*args), 10),
+            vjp_ms=timer(lambda: torch.autograd.grad(y_p, leaves, dy,
+                                                     retain_graph=True), 10),
+            library_ms=timer(lambda: lib(*args), 50),
+            library_bwd_ms=timer(lambda: torch.autograd.grad(
+                y_l, leaves, dy.transpose(1, 2) if name == "flash_attention"
+                else dy, retain_graph=True), 20),
+            flops=work["flops"], bytes=work["bytes"], dtype="bfloat16")
+        add_bound(r)
+        bwd = dict(flops=work["bwd_flops"], bytes=work["bwd_bytes"],
+                   dtype="bfloat16")
+        add_bound(bwd)
+        r.update(bwd_bound_ms=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"],
+                 vjp_share=r["vjp_ms"] / r["bwd_ms"])
+        results[name][label] = r
+        del y, y_p, y_l, leaves, got, want
+        print(f"[time] {name} at stablelm-3b's training shape "
+              f"{tuple(args[0].shape)} bf16: forward kernel {r['ms']:.4f} ms "
+              f"(bound {r['bound_ms']:.4f}, {r['bound_by']}; "
+              f"{r['bound_ms'] / r['ms']:.1%} of it); backward (the plain "
+              f"version recomputed + its vjp) {r['bwd_ms']:.4f} ms (bound "
+              f"{r['bwd_bound_ms']:.4f}, {r['bwd_bound_by']}; "
+              f"{r['bwd_bound_ms'] / r['bwd_ms']:.1%} of it), of which the "
+              f"plain vjp alone {r['vjp_ms']:.4f} ms ({r['vjp_share']:.1%}); "
+              f"plain forward {r['plain_ms']:.4f} ms; library forward "
+              f"{r['library_ms']:.4f} ms, backward {r['library_bwd_ms']:.4f} "
+              f"ms  [{card}]", flush=True)
+
     # host time to issue one call at the decode step's shapes: at batch 8 a
     # decode step is a chain of small launches, so this bounds its speed.
     # Beside each, this script's reading before the RMSNorm kernel was CUDA
@@ -669,6 +793,9 @@ def main():
              "78.8 us, 64.1 us on the first slice"),
             (f"fused_rmsnorm wrapper ({B} x {d})",
              lambda: rn_ops.rmsnorm(x8, w8, eps=eps), "59.4 us, Triton"),
+            (f"fused_rmsnorm launch alone, without the wrapper's device, "
+             f"gate and grad checks ({B} x {d})",
+             lambda: rn_ops._launch(x8, w8, eps, None), "not measured"),
             (f"gated fused_rmsnorm wrapper ({B} x {di})",
              lambda: rn_ops.rmsnorm(y8, wg8, eps=eps, gate=z8),
              "none: the eager silu and product ran, then the norm"),
@@ -716,6 +843,16 @@ def main():
         launches[arch] = serve_and_hold(torch, cfgs[arch], ops_of, card, dev)
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ 7. training
+    train_launches = {arch: train_and_hold(torch, get_config(arch), ops_of,
+                                           card, dev)
+                      for arch in TRAIN_PATHS}
+    torch.cuda.empty_cache()
+    for arch, depth in PARITY_DEPTH.items():
+        grad_parity(torch, arch, depth, ops_of, card, dev)
+        torch.cuda.empty_cache()
+    checkpoint_round_trip(torch, get_config("mamba2-130m"), card, dev)
+
     # ----------------------------------------------------------------- result
     print(f"[device] {card}")
     summary = []
@@ -737,6 +874,9 @@ def main():
                         "replaces": replaces,
                         "launches": sum(by_path.values()),
                         "launches_by_path": by_path,
+                        "launches_per_train_step": {
+                            arch: train_launches[arch][name]
+                            for arch in TRAIN_PATHS},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -758,6 +898,7 @@ def serve_and_hold(torch, cfg, ops_of, card, dev):
     serve it at full width with the launch counts read around the call, hold
     it teacher-forced against the plain path, free its weights. Returns the
     launch counts."""
+    from repro_torch import tree as T
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import model as M
 
@@ -767,7 +908,7 @@ def serve_and_hold(torch, cfg, ops_of, card, dev):
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in T.leaves(params))
     print(f"[main] {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B params in bf16, random init in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -803,7 +944,7 @@ def serve_and_hold(torch, cfg, ops_of, card, dev):
     for label, c in (("kernels", cfg), ("plain", plain_cfg)):
         prefill_s[label], decode_ms[label], logits[label] = teacher_forced(
             torch, c, params, tokens, S, S_cache, dev)
-    params32 = _tree_map(lambda t: t.float(), params)
+    params32 = T.tree_map(lambda t: t.float(), params)
     for label, c in (("kernels", cfg), ("plain", plain_cfg)):
         c32 = dataclasses.replace(c, dtype="float32")
         _, _, logits[label + " f32"] = teacher_forced(
@@ -974,6 +1115,244 @@ def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
     del cache
 
 
+def train_batch(torch, cfg, dev):
+    """One fixed batch of TRAIN_BATCH x TRAIN_SEQ random tokens from a
+    seeded generator on the card, labelled with the next token."""
+    from repro_torch.launch.serve import _positions
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    return {"tokens": tokens[:, :-1].contiguous(),
+            "labels": tokens[:, 1:].contiguous(),
+            "positions": _positions(cfg, B, S, device=dev)}
+
+
+def train_and_hold(torch, cfg, ops_of, card, dev):
+    """Phase 7 for one configuration at full width and depth: TRAIN_STEPS
+    AdamW steps through make_train_step on one fixed batch, each step's
+    launch counts read around it; then one more step taken as its two parts
+    (forward and backward, then the update), with every leaf's gradient
+    checked. Returns the launch counts of one step."""
+    from repro_torch import tree as T
+    from repro_torch.distributed.train_step import (make_grad_fn,
+                                                    make_train_step)
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    arch = cfg.name
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    check((cfg.num_layers, cfg.d_model) == TRAIN_WIDTH[arch]
+          and cfg.remat == "full" and cfg.use_pallas and cfg.dtype == "bfloat16",
+          f"{arch} is not at full width and depth, bf16, remat full, kernels")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    batch = train_batch(torch, cfg, dev)
+    opt_cfg = adamw.OptimizerConfig(warmup_steps=1, total_steps=10)
+    opt = adamw.init(params)
+    step = make_train_step(cfg, opt_cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in T.leaves(params))
+    print(f"[train] {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B params in bf16 and f32 moments, random "
+          f"init in {time.perf_counter() - t0:.1f} s; batch {B} x {S} tokens, "
+          f"remat {cfg.remat!r}", flush=True)
+    want = want_train_launches(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        for ops in ops_of.values():
+            ops.launches = 0
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launches = {name: ops.launches for name, ops in ops_of.items()}
+        losses.append(m["loss"].item())
+        print(f"[train] {arch} step {i + 1}: loss {losses[-1]:.6f}, grad_norm "
+              f"{m['grad_norm'].item():.4f}, lr {m['lr'].item():.3e}, "
+              f"{step_s[-1]:.4f} s; launches {launches}", flush=True)
+        check(math.isfinite(losses[-1]), f"{arch} step {i + 1} loss not finite")
+        check(launches == want, f"{arch} train step launches {launches} != "
+              f"{want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(losses[-1] < losses[0], f"{arch} loss did not fall on one batch: "
+          f"{losses}")
+
+    # one more step in its two parts, each ended by a synchronize
+    grad_fn = make_grad_fn(cfg)
+    for ops in ops_of.values():
+        ops.launches = 0
+    t0 = time.perf_counter()
+    grads, _ = grad_fn(params, batch)
+    torch.cuda.synchronize()
+    fwd_bwd_s = time.perf_counter() - t0
+    launches = {name: ops.launches for name, ops in ops_of.items()}
+    check(launches == want, f"{arch} forward+backward launches {launches}")
+    bad = [path for path, g in T.flatten(grads)
+           if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()))]
+    check(not bad, f"{arch} gradients not finite or all zero: {bad}")
+    t0 = time.perf_counter()
+    adamw.update(opt_cfg, opt, grads, params)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    del grads
+    profile_train_step(torch, arch, grad_fn, opt_cfg, params, opt, batch,
+                       (fwd_bwd_s + update_s) * 1e3, card)
+
+    med = statistics.median(step_s[1:])
+    tokens = B * S
+    # parameters in matrix products: all but an untied input embedding table,
+    # which is a lookup; attention's own products are not counted
+    n_mm = n_params - (0 if cfg.tie_embeddings
+                       else params["embed"]["table"].numel())
+    peak = PEAK_FLOPS["bfloat16"]
+    print(f"[train] {arch}: step {med:.4f} s (median of steps 2-{TRAIN_STEPS}"
+          f"), {tokens / med:.0f} tokens/s; one more step apart: forward + "
+          f"backward {fwd_bwd_s:.4f} s, AdamW update {update_s:.4f} s; peak "
+          f"memory {peak_gb:.2f} GB (max_memory_allocated over the "
+          f"{TRAIN_STEPS} steps); model FLOP share 6NT/(step x 989 TFLOP/s) "
+          f"{6 * n_mm * tokens / med / peak:.1%}, with the recompute's 2NT "
+          f"{8 * n_mm * tokens / med / peak:.1%} (N = {n_mm / 1e9:.3f} B "
+          f"params in products, T = {tokens}); every leaf's gradient finite "
+          f"and nonzero; launches per step {want}  [{card}]", flush=True)
+    del params, opt
+    return want
+
+
+def profile_train_step(torch, arch, grad_fn, opt_cfg, params, opt, batch,
+                       step_ms, card):
+    """Phase 7: device time by kernel over one more train step (forward,
+    backward and update), and the device's idle share against the step
+    timed without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.optim import adamw
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        grads, _ = grad_fn(params, batch)
+        adamw.update(opt_cfg, opt, grads, params)
+        del grads
+        torch.cuda.synchronize()
+    rows = sorted(device_rows(prof), key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    mine = {key: sum(ms for k, ms, _ in rows if key in k)
+            for key in ("flash_fwd", "rmsnorm_", "ssd_fwd")}
+
+    def kind(k):
+        low = k.lower()
+        if "gemm" in low or "nvjet" in low:
+            # f32 operands: the plain attention vjp's products (no TF32)
+            f32 = "f32f32_f32f32" in low or "sgemm" in low
+            return "f32 GEMM" if f32 else "GEMM"
+        if "elementwise" in low or "copy" in low:
+            return "elementwise and copies"
+        return "reductions" if "reduce" in low else "other"
+    kinds = {}
+    for k, ms, _ in rows:
+        kinds[kind(k)] = kinds.get(kind(k), 0.0) + ms
+    print(f"[profile] {arch} one train step: device busy {busy_ms:.3f} ms of "
+          f"{step_ms:.3f} ms timed without the profiler "
+          f"({1 - busy_ms / step_ms:.1%} idle); the port's kernels: "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in mine.items())
+          + "; by kind (kernel names): "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in sorted(
+              kinds.items(), key=lambda kv: -kv[1]))
+          + f"  [{card}]", flush=True)
+    for key, ms, n in rows[:12]:
+        print(f"[profile]   {ms:9.3f} ms {n:5d}x  {key[:80]}")
+
+
+def grad_parity(torch, arch, depth, ops_of, card, dev):
+    """Phase 7: the kernel path's f32 gradients against the plain path's,
+    from one set of weights and one batch, per leaf max|diff| / max|grad|,
+    and the loss's relative difference."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.train_step import make_grad_fn
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch, dtype="float32", num_layers=depth)
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    batch = train_batch(torch, cfg, dev)
+    for ops in ops_of.values():
+        ops.launches = 0
+    gk, mk = make_grad_fn(cfg)(params, batch)
+    torch.cuda.synchronize()
+    launches = {name: ops.launches for name, ops in ops_of.items()}
+    check(launches == want_train_launches(cfg),
+          f"{arch} f32 kernel path launches {launches}")
+    gp, mp = make_grad_fn(dataclasses.replace(cfg, use_pallas=False))(
+        params, batch)
+    torch.cuda.synchronize()
+    check(launches == {name: ops.launches for name, ops in ops_of.items()},
+          f"{arch} the plain path launched a kernel")
+    loss_rel = abs(mk["loss"].item() - mp["loss"].item()) / abs(
+        mp["loss"].item())
+    rels = {path: rel_err(g, w) for (path, g), w in zip(T.flatten(gk),
+                                                        T.leaves(gp))}
+    worst = max(rels, key=rels.get)
+    print(f"[parity] {arch} f32, {depth} layers at full width, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: kernel path vs plain path, loss "
+          f"{mk['loss'].item():.7f} vs {mp['loss'].item():.7f} (rel "
+          f"{loss_rel:.3e}, tol {GRAD_LOSS_TOL}); gradients max|diff|/max|grad|"
+          f" per leaf: max {rels[worst]:.3e} ({worst}), median "
+          f"{statistics.median(rels.values()):.3e} over {len(rels)} leaves "
+          f"(tol {GRAD_LEAF_TOL})  [{card}]", flush=True)
+    check(loss_rel < GRAD_LOSS_TOL, f"{arch} f32 loss differs: {loss_rel}")
+    check(rels[worst] < GRAD_LEAF_TOL, f"{arch} f32 gradients differ: {rels}")
+    del params, gk, gp
+
+
+def checkpoint_round_trip(torch, cfg, card, dev):
+    """Phase 7: two steps, a save (the async thread), a restore into a fresh
+    tree of other weights, and a third step from both, compared bit for
+    bit."""
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.distributed.train_step import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    batch = train_batch(torch, cfg, dev)
+    step = make_train_step(cfg, adamw.OptimizerConfig(warmup_steps=1,
+                                                      total_steps=10))
+    opt = adamw.init(params)
+    for _ in range(2):
+        params, opt, _ = step(params, opt, batch)
+    directory = os.path.join(ROOT, "build", "chip_smoke_checkpoint")
+    shutil.rmtree(directory, ignore_errors=True)
+    mgr = CheckpointManager(directory, async_save=True)
+    t0 = time.perf_counter()
+    mgr.save(2, {"params": params, "opt": opt})
+    call_s = time.perf_counter() - t0
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    fresh = {"params": M.init_params(cfg, seed=SEED + 1, device=dev)}
+    fresh["opt"] = adamw.init(fresh["params"])
+    t0 = time.perf_counter()
+    back = mgr.restore(template=fresh)["tree"]
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(directory, "step_00000002", f))
+                 for f in os.listdir(os.path.join(directory, "step_00000002")))
+    a = step(params, opt, batch)
+    b = step(back["params"], back["opt"], batch)
+    pairs = list(zip(T.leaves((a[0], a[1])), T.leaves((b[0], b[1]))))
+    same = sum(torch.equal(x, y) for x, y in pairs)
+    print(f"[ckpt] {cfg.name}: saved after step 2 ({nbytes / 1e6:.1f} MB; the "
+          f"save call returned in {call_s:.3f} s, the thread wrote it in "
+          f"{save_s:.3f} s), restored into a fresh tree in {restore_s:.3f} s;"
+          f" step 3 from both: loss {a[2]['loss'].item():.7f} and "
+          f"{b[2]['loss'].item():.7f}, {same} of {len(pairs)} leaves of the "
+          f"parameters and optimizer state equal bit for bit  [{card}]",
+          flush=True)
+    check(same == len(pairs) and a[2]["loss"].item() == b[2]["loss"].item(),
+          f"{cfg.name} step 3 after the restore differs")
+    shutil.rmtree(directory)
+    del params, opt, back, fresh, a, b
+
+
 def teacher_forced(torch, c, params, tokens, S, S_cache, dev):
     """Prefill on tokens[:, :S], then decode feeding tokens[:, S + t] at step
     t, as generate does with its own samples. Returns the prefill's seconds
@@ -1006,20 +1385,6 @@ def teacher_forced(torch, c, params, tokens, S, S_cache, dev):
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
     return prefill_s, decode_ms, out
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

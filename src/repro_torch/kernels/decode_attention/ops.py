@@ -16,6 +16,11 @@ the same arithmetic in plain PyTorch). bf16 products run on the tensor cores
 A CPU tensor takes the plain version (``ref.decode_attention_ref``); a CUDA
 tensor launches the kernels or raises. ``launches`` counts calls that launched
 them.
+
+There is no gradient: the reference kernel has no backward (its Pallas call
+raises under ``jax.grad``) and no training path decodes. Where grad mode is
+on and an input requires grad, the call raises on any device rather than
+return an output that autograd cannot see through.
 """
 from __future__ import annotations
 
@@ -88,6 +93,11 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, scale: float):
     global launches
     if not isinstance(valid_len, torch.Tensor):
         raise TypeError("valid_len must be an int32 tensor on q's device")
+    if torch.is_grad_enabled() and (q.requires_grad or k_cache.requires_grad
+                                    or v_cache.requires_grad):
+        raise RuntimeError("decode_attention has no gradient (nor has the "
+                           "reference kernel): call it under torch.no_grad() "
+                           "or on tensors that do not require grad")
     if q.device.type == "cpu":
         ot = ref.decode_attention_ref(q.transpose(1, 2), k_cache.transpose(1, 2),
                                       v_cache.transpose(1, 2), valid_len,

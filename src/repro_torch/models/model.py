@@ -13,9 +13,28 @@ them.
 Layers are stacked (leading L dim; the hybrid's groups carry two leading
 dims, (n_groups, attn_every)) as in the JAX package, so weights cross the
 bridge unchanged. JAX's ``lax.scan`` becomes a Python loop over leading-dim
-slices (views, no copies). ``cfg.remat`` and ``cfg.scan_layers`` are read and
-ignored: this serving slice keeps no activations for a backward pass, and
-training will bring ``torch.utils.checkpoint`` for ``remat``.
+slices (views, no copies); ``cfg.scan_layers`` is read and ignored. Where a
+backward pass will run (grad mode on and a parameter requiring grad), the
+slices come from ``torch.unbind``, whose backward stacks the layers'
+gradients into the stacked leaf in one tensor (indexing would add a
+full-size zero gradient per layer).
+
+``cfg.remat`` is JAX's activation-checkpoint policy (``model._remat`` there),
+applied to each layer body (the dense block, each Mamba2 block, the
+hybrid's shared block and its tail) and only where a backward will run:
+
+  * ``"none"``: the plain loop; every activation is kept.
+  * ``"full"``: ``jax.checkpoint`` -> ``torch.utils.checkpoint.checkpoint(
+    ..., use_reentrant=False)``: a layer keeps only its input and reruns its
+    forward in the backward pass (so its kernels launch twice a step).
+  * ``"dots"``: ``jax.checkpoint_policies.dots_saveable`` -> selective
+    activation checkpointing (``create_selective_checkpoint_contexts``)
+    that saves the outputs of the matrix products (``aten.mm``,
+    ``aten.addmm``, ``aten.bmm``, ``aten.matmul``) and recomputes the rest,
+    the kernels included.
+
+The serving path runs none of this: without a parameter that requires grad
+the loop and its ops are the plain ones.
 
 Modes: ``forward(..., mode='train')`` full logits; ``mode='prefill'`` last-token
 logits + filled caches; ``decode(...)`` single-token step against caches,
@@ -23,10 +42,14 @@ which writes the caches in place.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -57,6 +80,45 @@ def _layer(tree, i):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind(tree) -> List[Any]:
+    """Every slice of the stacked leaves along dim 0, through ``unbind``."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+def _slices(tree, n: int, grad: bool) -> List[Any]:
+    """The n layers of a stack: views by index, or under grad by unbind."""
+    return _unbind(tree) if grad else [_layer(tree, i) for i in range(n)]
+
+
+def _needs_grad(params) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in T.leaves(params))
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.matmul.default)
+
+
+def _remat(cfg: ModelConfig, fn, grad: bool):
+    """``fn`` under ``cfg.remat``'s checkpoint policy where a backward will
+    run (see the module docstring), else ``fn`` itself."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', not "
+                         f"{cfg.remat!r}")
+    if not grad or cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     list(_DOTS)))
 
 
 def _stack(trees):
@@ -116,12 +178,14 @@ def ssm_block_decode(p, x, cfg: ModelConfig, cache):
     return x + h, cache
 
 
-def _ssm_stack_full(stacked, n: int, x, cfg: ModelConfig, prefill: bool):
+def _ssm_stack_full(stacked, n: int, x, cfg: ModelConfig, prefill: bool,
+                    grad: bool):
     """The n mamba2 blocks of a stack in order; their prefill caches stacked
     (or None)."""
+    block = _remat(cfg, ssm_block_full, grad)
     caches = []
-    for i in range(n):
-        x, c = ssm_block_full(_layer(stacked, i), x, cfg, return_cache=prefill)
+    for lp in _slices(stacked, n, grad):
+        x, c = block(lp, x, cfg, return_cache=prefill)
         caches.append(c)
     return x, (_stack(caches) if prefill else None)
 
@@ -229,6 +293,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         raise ValueError(f"mode must be 'train' or 'prefill', got {mode!r}")
     _require_ported(cfg)
     prefill = mode == "prefill"
+    grad = _needs_grad(params)
     positions = batch["positions"]
     x = _inputs_to_h(params, cfg, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -236,33 +301,32 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
     if cfg.family == "ssm":
         x, caches["layers"] = _ssm_stack_full(params["layers"], cfg.num_layers,
-                                              x, cfg, prefill)
+                                              x, cfg, prefill, grad)
     elif cfg.family == "hybrid":
         n_groups, tail = _hybrid_layout(cfg)
         shared = params["shared_attn"]
+        shared_block = _remat(cfg, dense_block_full, grad)
         ssm_caches, ks, vs = [], [], []
-        for g in range(n_groups):
-            x, c = _ssm_stack_full(_layer(params["ssm_groups"], g),
-                                   cfg.attn_every, x, cfg, prefill)
-            x, kv = dense_block_full(shared, x, cfg, positions,
-                                     return_kv=prefill)
+        for grp in _slices(params["ssm_groups"], n_groups, grad):
+            x, c = _ssm_stack_full(grp, cfg.attn_every, x, cfg, prefill, grad)
+            x, kv = shared_block(shared, x, cfg, positions, return_kv=prefill)
             if prefill:
                 ssm_caches.append(c)
                 ks.append(kv[0])
                 vs.append(kv[1])
         if tail:
             x, tail_c = _ssm_stack_full(params["ssm_tail"], tail, x, cfg,
-                                        prefill)
+                                        prefill, grad)
         if prefill:
             caches["ssm_groups"] = _stack(ssm_caches)
             if tail:
                 caches["ssm_tail"] = tail_c
             caches["attn"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
     else:
+        block = _remat(cfg, dense_block_full, grad)
         ks, vs = [], []
-        for i in range(cfg.num_layers):
-            x, kv = dense_block_full(_layer(params["layers"], i), x, cfg,
-                                     positions, return_kv=prefill)
+        for lp in _slices(params["layers"], cfg.num_layers, grad):
+            x, kv = block(lp, x, cfg, positions, return_kv=prefill)
             if prefill:
                 ks.append(kv[0])
                 vs.append(kv[1])

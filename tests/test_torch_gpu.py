@@ -493,3 +493,115 @@ def test_serve_batch_runs_every_kernel_hybrid(cuda):
     assert da_ops.launches == groups * (new - 1)
     assert rn_ops.launches == (2 * cfg.num_layers + 2 * groups + 1) * new
     assert res["tokens"].shape == (n, 40 + new)
+
+
+# ------------------------------------------------------------------ training
+def train_step_launches(cfg):
+    """Kernel launches of one train step under remat='full': each layer's
+    forward runs twice (the forward and its recompute in the backward), the
+    final norm once; the backward itself launches nothing."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "fused_rmsnorm": 2 * 2 * L + 1,
+                "ssd": 2 * L, "decode_attention": 0}
+    if cfg.family == "hybrid":
+        shared = L // cfg.attn_every
+        return {"flash_attention": 2 * shared,
+                "fused_rmsnorm": 2 * (2 * L + 2 * shared) + 1,
+                "ssd": 2 * L, "decode_attention": 0}
+    return {"flash_attention": 2 * L, "fused_rmsnorm": 2 * 2 * L + 1,
+            "ssd": 0, "decode_attention": 0}
+
+
+def _launches():
+    return {"flash_attention": fa_ops.launches,
+            "fused_rmsnorm": rn_ops.launches, "ssd": ssd_ops.launches,
+            "decode_attention": da_ops.launches}
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "mamba2-130m", "zamba2-7b",
+                                  "chatglm3-6b"])
+def test_kernel_path_gradients_match_plain_path(cuda, arch):
+    """A train step's f32 gradients with use_pallas=True (the kernels in the
+    forward and its recompute, the plain versions' vjps in the backward)
+    against use_pallas=False, per leaf max|diff| / max|grad| under 1e-4 and
+    the loss within 1e-6 relative (chip_smoke.py's limits at full width);
+    every kernel of the path launches, as counted."""
+    from repro_torch import tree as T
+    from repro_torch.distributed.train_step import make_grad_fn
+    cfg = get_smoke_config(arch, dtype="float32")
+    params = M.init_params(cfg, seed=0, device=cuda)
+    B, S = 2, 40
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "positions": _positions(cfg, B, S, device=cuda)}
+    before = _launches()
+    gk, mk = make_grad_fn(cfg)(params, batch)
+    torch.cuda.synchronize()
+    after = _launches()
+    assert {k: after[k] - before[k] for k in after} == train_step_launches(cfg)
+    gp, mp = make_grad_fn(dataclasses.replace(cfg, use_pallas=False))(
+        params, batch)
+    assert _launches() == after
+    assert abs(mk["loss"].item() - mp["loss"].item()) < 1e-6 * abs(
+        mp["loss"].item())
+    for (path, g), w in zip(T.flatten(gk), T.leaves(gp)):
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any()), path
+        rel = (g - w).abs().max().item() / w.abs().max().item()
+        assert rel < 1e-4, f"{path}: {rel}"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kernel_functions_backward_is_the_plain_vjp(cuda, dtype):
+    """Each training-path wrapper under grad on CUDA tensors: the output
+    comes from the kernel (one launch) through its autograd.Function, and
+    the gradients are the plain version's vjp, bit for bit (the same
+    operations on the same inputs)."""
+    rng = np.random.default_rng(4)
+    dt = DTYPES[dtype]
+
+    def leaves(*shapes, dtype=dt):
+        return [_randn(rng, s, dtype, cuda).requires_grad_() for s in shapes]
+
+    q, k, v = leaves((2, 200, 4, 80), (2, 200, 4, 80), (2, 200, 4, 80))
+    x, w, z = leaves((300, 2560), (2560,), (300, 2560))
+    xs, Bm, Cm = leaves((2, 300, 4, 16), (2, 300, 1, 16), (2, 300, 1, 16))
+    dts = torch.nn.functional.softplus(
+        _randn(rng, (2, 300, 4), torch.float32, cuda) - 2).requires_grad_()
+    A = (-torch.rand(4, device=cuda) - 0.5).requires_grad_()
+    cases = [
+        (fa_ops, lambda q, k, v: fa_ops.flash_attention(q, k, v, scale=0.1),
+         lambda q, k, v: fa_ops.plain(q, k, v, scale=0.1), (q, k, v)),
+        (rn_ops, lambda x, w: rn_ops.rmsnorm(x, w, eps=1e-5),
+         lambda x, w: rn_ref.rmsnorm_ref(x, w, eps=1e-5), (x, w)),
+        (rn_ops, lambda x, w, z: rn_ops.rmsnorm(x, w, eps=1e-5, gate=z),
+         lambda x, w, z: rn_ref.rmsnorm_ref(x, w, eps=1e-5, gate=z),
+         (x, w, z)),
+        (ssd_ops, lambda *a: ssd_ops.ssd(*a, chunk=128, use_pallas=True)[0],
+         lambda *a: ssd_ops.plain(*a, 128)[0], (xs, dts, A, Bm, Cm))]
+    for mod, kernel, plain, inputs in cases:
+        n0 = mod.launches
+        out = kernel(*inputs)
+        assert mod.launches == n0 + 1
+        assert out.grad_fn is not None and "Backward" in out.grad_fn.name()
+        dy = _randn(rng, tuple(out.shape), out.dtype, cuda)
+        got = torch.autograd.grad(out, inputs, dy)
+        want = torch.autograd.grad(plain(*inputs), inputs, dy)
+        assert mod.launches == n0 + 1              # the backward launches none
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_decode_attention_raises_under_grad(cuda):
+    q = torch.randn(2, 1, 4, 64, device=cuda, requires_grad=True)
+    k = torch.randn(2, 64, 2, 64, device=cuda)
+    vl = torch.full((), 10, dtype=torch.int32, device=cuda)
+    n0 = da_ops.launches
+    with pytest.raises(RuntimeError, match="no gradient"):
+        da_ops.decode_attention(q, k, k, vl, scale=0.125)
+    assert da_ops.launches == n0
+    with torch.no_grad():
+        da_ops.decode_attention(q, k, k, vl, scale=0.125)
+    assert da_ops.launches == n0 + 1
