@@ -244,24 +244,6 @@ def sass_counts(lib_path, opcode):
     return counts
 
 
-def want_train_launches(cfg):
-    """Kernel launches of one train step under remat 'full': each layer's
-    forward runs twice (the forward, and its recompute in the backward), the
-    final norm once, the backward (the plain versions' vjps) none. A dense
-    block: 1 flash attention and 2 RMSNorms; a Mamba2 block: the SSD scan, its
-    input norm and its gated norm."""
-    L = cfg.num_layers
-    if cfg.family == "ssm":
-        flash, norms, ssd = 0, 2 * L, L
-    elif cfg.family == "hybrid":
-        flash = L // cfg.attn_every                      # shared-block calls
-        norms, ssd = 2 * L + 2 * flash, L
-    else:
-        flash, norms, ssd = L, 2 * L, 0
-    return {"flash_attention": 2 * flash, "decode_attention": 0,
-            "fused_rmsnorm": 2 * norms + 1, "ssd": 2 * ssd}
-
-
 def want_launches(cfg):
     """Kernel launches of one serve_batch: prefill + NEW_TOKENS - 1 decode
     steps, RMSNorm in every step (2 per block, 1 final), flash attention in
@@ -795,7 +777,7 @@ def main():
              lambda: rn_ops.rmsnorm(x8, w8, eps=eps), "59.4 us, Triton"),
             (f"fused_rmsnorm launch alone, without the wrapper's device, "
              f"gate and grad checks ({B} x {d})",
-             lambda: rn_ops._launch(x8, w8, eps, None), "not measured"),
+             lambda: rn_ops._launch(x8, w8, None, eps=eps), "not measured"),
             (f"gated fused_rmsnorm wrapper ({B} x {di})",
              lambda: rn_ops.rmsnorm(y8, wg8, eps=eps, gate=z8),
              "none: the eager silu and product ran, then the norm"),
@@ -1135,7 +1117,8 @@ def train_and_hold(torch, cfg, ops_of, card, dev):
     (forward and backward, then the update), with every leaf's gradient
     checked. Returns the launch counts of one step."""
     from repro_torch import tree as T
-    from repro_torch.distributed.train_step import (make_grad_fn,
+    from repro_torch.distributed.train_step import (kernel_launches,
+                                                    make_grad_fn,
                                                     make_train_step)
     from repro_torch.models import model as M
     from repro_torch.optim import adamw
@@ -1157,7 +1140,7 @@ def train_and_hold(torch, cfg, ops_of, card, dev):
           f"{n_params / 1e9:.3f} B params in bf16 and f32 moments, random "
           f"init in {time.perf_counter() - t0:.1f} s; batch {B} x {S} tokens, "
           f"remat {cfg.remat!r}", flush=True)
-    want = want_train_launches(cfg)
+    want = kernel_launches(cfg)
     torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
     for i in range(TRAIN_STEPS):
@@ -1175,6 +1158,7 @@ def train_and_hold(torch, cfg, ops_of, card, dev):
         check(math.isfinite(losses[-1]), f"{arch} step {i + 1} loss not finite")
         check(launches == want, f"{arch} train step launches {launches} != "
               f"{want}")
+        step_launches = launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(losses[-1] < losses[0], f"{arch} loss did not fall on one batch: "
           f"{losses}")
@@ -1215,9 +1199,10 @@ def train_and_hold(torch, cfg, ops_of, card, dev):
           f"{6 * n_mm * tokens / med / peak:.1%}, with the recompute's 2NT "
           f"{8 * n_mm * tokens / med / peak:.1%} (N = {n_mm / 1e9:.3f} B "
           f"params in products, T = {tokens}); every leaf's gradient finite "
-          f"and nonzero; launches per step {want}  [{card}]", flush=True)
+          f"and nonzero; launches per step {step_launches}  [{card}]",
+          flush=True)
     del params, opt
-    return want
+    return step_launches
 
 
 def profile_train_step(torch, arch, grad_fn, opt_cfg, params, opt, batch,
@@ -1268,7 +1253,8 @@ def grad_parity(torch, arch, depth, ops_of, card, dev):
     and the loss's relative difference."""
     from repro_torch import tree as T
     from repro_torch.configs import get_config
-    from repro_torch.distributed.train_step import make_grad_fn
+    from repro_torch.distributed.train_step import (kernel_launches,
+                                                    make_grad_fn)
     from repro_torch.models import model as M
 
     cfg = get_config(arch, dtype="float32", num_layers=depth)
@@ -1279,7 +1265,7 @@ def grad_parity(torch, arch, depth, ops_of, card, dev):
     gk, mk = make_grad_fn(cfg)(params, batch)
     torch.cuda.synchronize()
     launches = {name: ops.launches for name, ops in ops_of.items()}
-    check(launches == want_train_launches(cfg),
+    check(launches == kernel_launches(cfg),
           f"{arch} f32 kernel path launches {launches}")
     gp, mp = make_grad_fn(dataclasses.replace(cfg, use_pallas=False))(
         params, batch)

@@ -101,6 +101,27 @@ def make_grad_fn(cfg: ModelConfig, *, accum_steps: int = 1) -> Callable:
     return grad_fn
 
 
+def kernel_launches(cfg: ModelConfig) -> Dict[str, int]:
+    """The CUDA kernel launches of one ``make_grad_fn(cfg)`` pass (one step
+    at ``accum_steps=1``) with ``cfg.use_pallas``, by kernel. Each layer's
+    forward launches its kernels once, and once more in its recompute under
+    remat 'full' or 'dots' (which keeps only matrix products); the final
+    norm launches once; the backward (the plain versions' vjps) launches
+    none. A dense block runs flash attention and 2 RMSNorms, a Mamba2 block
+    the SSD scan, its input norm and its gated norm; the hybrid's shared
+    block runs once per group."""
+    L, runs = cfg.num_layers, 1 if cfg.remat == "none" else 2
+    if cfg.family == "ssm":
+        flash, norms, scans = 0, 2 * L, L
+    elif cfg.family == "hybrid":
+        flash = L // cfg.attn_every
+        norms, scans = 2 * L + 2 * flash, L
+    else:
+        flash, norms, scans = L, 2 * L, 0
+    return {"flash_attention": runs * flash, "decode_attention": 0,
+            "fused_rmsnorm": runs * norms + 1, "ssd": runs * scans}
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig, *,
                     accum_steps: int = 1,
                     grad_compression: Optional[str] = None):

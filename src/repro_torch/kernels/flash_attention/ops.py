@@ -11,14 +11,9 @@ by TMA, P rounded to bf16 before P.V); f32 keeps scalar FMAs, so it holds
 the algorithm at 2e-5.
 
 A CPU tensor takes the plain version (``ref.attention_ref``); a CUDA tensor
-launches the kernel or raises. ``launches`` counts kernel launches.
-
-Gradients: the reference kernel has no backward, and neither has this one.
-Where grad mode is on and q, k or v requires grad, the call goes through
-``FlashAttention``, an ``autograd.Function`` whose forward launches the
-kernel and whose backward is the vector-Jacobian product of
-``ref.attention_ref``, recomputed from the saved q, k and v. Without grad
-the call launches the kernel directly, with no ``Function`` around it.
+launches the kernel or raises. ``launches`` counts kernel launches. Under
+grad the gradient is the vector-Jacobian product of ``ref.attention_ref``
+(``kernels._grad``).
 """
 from __future__ import annotations
 
@@ -26,7 +21,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, _grad
 from . import ref
 
 launches = 0
@@ -82,34 +77,10 @@ def plain(q, k, v, *, scale: float):
 
 def flash_attention(q, k, v, *, scale: float):
     """Causal attention: q (B, S, H, hd), k/v (B, S, KV, hd) -> (B, S, H, hd)."""
-    if q.device.type == "cpu":
-        return plain(q, k, v, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return FlashAttention.apply(q, k, v, scale)
-    return _launch(q, k, v, scale)
+    return _grad.call(_launch, plain, q, k, v, scale=scale)
 
 
-class FlashAttention(torch.autograd.Function):
-    """The kernel forward; the backward is the vjp of the plain version."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        return _launch(q, k, v, scale)
-
-    @staticmethod
-    def backward(ctx, grad_o):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            o = plain(q, k, v, scale=ctx.scale)
-        return (*torch.autograd.grad(o, (q, k, v), grad_o), None)
-
-
-def _launch(q, k, v, scale):
+def _launch(q, k, v, *, scale):
     """Launch the CUDA kernel on q, k, v; a new output, outside autograd."""
     global launches
     _check(q, k, v)

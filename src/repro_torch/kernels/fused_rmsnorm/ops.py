@@ -15,14 +15,9 @@ point, the SM count and the plans are cached, the checks are the kernel's
 needs only, one output is allocated and one ``ctypes`` call launches.
 
 A CPU tensor takes the plain version (``ref.rmsnorm_ref``); a CUDA tensor
-launches the kernel or raises. ``launches`` counts kernel launches.
-
-Gradients: where grad mode is on and x, w or the gate requires grad, the call
-goes through ``RMSNorm``, an ``autograd.Function`` whose forward launches
-the kernel and whose backward is the vector-Jacobian product of
-``ref.rmsnorm_ref`` (gated or not), recomputed from the saved inputs. The
-reference kernel has no backward. Without grad the launch path above is
-taken as it is.
+launches the kernel or raises. ``launches`` counts kernel launches. Under
+grad the gradient is the vector-Jacobian product of ``ref.rmsnorm_ref``,
+gated or not (``kernels._grad``).
 """
 from __future__ import annotations
 
@@ -32,7 +27,7 @@ import functools
 import torch
 
 from ...device import sm_count, stream_ptr
-from .. import _build
+from .. import _build, _grad
 from . import ref
 
 launches = 0
@@ -103,37 +98,15 @@ def rmsnorm(x, w, *, eps: float = 1e-6, gate=None):
             raise TypeError(f"gate is {gate.dtype}, x {x.dtype}")
         if gate.device != x.device:
             raise ValueError("x and gate must be on one device")
-    if not x.is_cuda:
-        if x.device.type == "cpu":
-            return ref.rmsnorm_ref(x, w, eps=eps, gate=gate)
-        raise ValueError(f"rmsnorm runs on cpu or cuda, not {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or (
-            gate is not None and gate.requires_grad)):
-        return RMSNorm.apply(x, w, gate, eps)
-    return _launch(x, w, eps, gate)
+    return _grad.call(_launch, plain, x, w, gate, eps=eps)
 
 
-class RMSNorm(torch.autograd.Function):
-    """The kernel forward; the backward is the vjp of the plain version."""
-
-    @staticmethod
-    def forward(ctx, x, w, gate, eps):
-        ctx.save_for_backward(x, w, gate)
-        ctx.eps = eps
-        return _launch(x, w, eps, gate)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        x, w, gate = (None if t is None else t.detach().requires_grad_()
-                      for t in ctx.saved_tensors)
-        inputs = (x, w) if gate is None else (x, w, gate)
-        with torch.enable_grad():
-            out = ref.rmsnorm_ref(x, w, eps=ctx.eps, gate=gate)
-        grads = torch.autograd.grad(out, inputs, grad_out)
-        return grads[0], grads[1], (grads[2] if gate is not None else None), None
+def plain(x, w, gate, *, eps: float):
+    """``ref.rmsnorm_ref``, gated where ``gate`` is not None."""
+    return ref.rmsnorm_ref(x, w, eps=eps, gate=gate)
 
 
-def _launch(x, w, eps, gate):
+def _launch(x, w, gate, *, eps):
     """Launch the CUDA kernel; a new output, outside autograd."""
     global launches
     dtype = _DTYPES.get(x.dtype)

@@ -18,13 +18,10 @@ in keeping its within-chunk prefix sums in f64) and a CUDA tensor launches
 the kernel or raises. Like ``ssd_pallas``, the kernel path starts from a zero
 state: ``h0`` raises there. ``launches`` counts kernel launches.
 
-Gradients: where grad mode is on and an input requires grad, the kernel path
-on a CUDA tensor goes through ``SSD``, an ``autograd.Function`` whose forward
-launches the kernel and whose backward is the vector-Jacobian product of the
-plain version that dtype takes on the CPU (``ref.ssd_chunked_tc`` in bf16,
-``ref.ssd_chunked`` in f32), recomputed from the saved inputs. The reference
-kernel has no backward. Only y is differentiated: the training path
-discards the final state, and a gradient asked of it raises.
+Under grad the kernel path's gradient is the vector-Jacobian product of the
+plain version that dtype takes on the CPU (``kernels._grad``). Only y is
+differentiated: the training path discards the final state, and a gradient
+asked of it raises.
 """
 from __future__ import annotations
 
@@ -33,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, _grad
 from . import ref
 
 launches = 0
@@ -90,17 +87,10 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, use_pallas: bool = False,
     if h0 is not None:
         raise ValueError("the SSD kernel starts from a zero state: h0 is not "
                          "supported (use use_pallas=False)")
-    if x.device.type == "cpu":
-        return plain(x, dt, A, Bm, Cm, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd runs on cpu or cuda, not {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, Bm, Cm)):
-        return SSD.apply(x, dt, A, Bm, Cm, chunk)
-    return _launch(x, dt, A, Bm, Cm, chunk)
+    return _grad.call(_launch, plain, x, dt, A, Bm, Cm, chunk=chunk)
 
 
-def plain(x, dt, A, Bm, Cm, chunk: int):
+def plain(x, dt, A, Bm, Cm, *, chunk: int):
     """The kernel's plain version: ``ref.ssd_chunked_tc`` (the bf16
     tensor-core kernel's roundings) in bf16, ``ref.ssd_chunked`` in f32."""
     if x.dtype == torch.bfloat16:
@@ -108,31 +98,7 @@ def plain(x, dt, A, Bm, Cm, chunk: int):
     return ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
 
 
-class SSD(torch.autograd.Function):
-    """The kernel forward; the backward is the vjp of the plain version's y."""
-
-    @staticmethod
-    def forward(ctx, x, dt, A, Bm, Cm, chunk):
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, dt, A, Bm, Cm)
-        ctx.chunk = chunk
-        return _launch(x, dt, A, Bm, Cm, chunk)
-
-    @staticmethod
-    def backward(ctx, grad_y, grad_h):
-        if grad_h is not None:
-            raise NotImplementedError(
-                "the SSD kernel's final state has no gradient: the training "
-                "path discards it (use_pallas=False differentiates it)")
-        if grad_y is None:
-            return (None,) * 6
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            y, _ = plain(*inputs, ctx.chunk)
-        return (*torch.autograd.grad(y, inputs, grad_y), None)
-
-
-def _launch(x, dt, A, Bm, Cm, chunk):
+def _launch(x, dt, A, Bm, Cm, *, chunk):
     """Launch the CUDA kernel; new outputs (y, final state), outside
     autograd."""
     global launches

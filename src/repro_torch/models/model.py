@@ -13,11 +13,10 @@ them.
 Layers are stacked (leading L dim; the hybrid's groups carry two leading
 dims, (n_groups, attn_every)) as in the JAX package, so weights cross the
 bridge unchanged. JAX's ``lax.scan`` becomes a Python loop over leading-dim
-slices (views, no copies); ``cfg.scan_layers`` is read and ignored. Where a
-backward pass will run (grad mode on and a parameter requiring grad), the
-slices come from ``torch.unbind``, whose backward stacks the layers'
-gradients into the stacked leaf in one tensor (indexing would add a
-full-size zero gradient per layer).
+slices (views, no copies); ``cfg.scan_layers`` is read and ignored. The
+forward takes the slices from ``torch.unbind``, whose backward stacks the
+layers' gradients into the stacked leaf in one tensor (indexing would add a
+full-size zero gradient per layer); ``decode`` indexes.
 
 ``cfg.remat`` is JAX's activation-checkpoint policy (``model._remat`` there),
 applied to each layer body (the dense block, each Mamba2 block, the
@@ -89,11 +88,6 @@ def _unbind(tree) -> List[Any]:
         n = len(next(iter(parts.values())))
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
     return list(torch.unbind(tree))
-
-
-def _slices(tree, n: int, grad: bool) -> List[Any]:
-    """The n layers of a stack: views by index, or under grad by unbind."""
-    return _unbind(tree) if grad else [_layer(tree, i) for i in range(n)]
 
 
 def _needs_grad(params) -> bool:
@@ -178,13 +172,12 @@ def ssm_block_decode(p, x, cfg: ModelConfig, cache):
     return x + h, cache
 
 
-def _ssm_stack_full(stacked, n: int, x, cfg: ModelConfig, prefill: bool,
-                    grad: bool):
-    """The n mamba2 blocks of a stack in order; their prefill caches stacked
+def _ssm_stack_full(stacked, x, cfg: ModelConfig, prefill: bool, grad: bool):
+    """The mamba2 blocks of a stack in order; their prefill caches stacked
     (or None)."""
     block = _remat(cfg, ssm_block_full, grad)
     caches = []
-    for lp in _slices(stacked, n, grad):
+    for lp in _unbind(stacked):
         x, c = block(lp, x, cfg, return_cache=prefill)
         caches.append(c)
     return x, (_stack(caches) if prefill else None)
@@ -300,23 +293,23 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     caches: Dict[str, Any] = {}
 
     if cfg.family == "ssm":
-        x, caches["layers"] = _ssm_stack_full(params["layers"], cfg.num_layers,
-                                              x, cfg, prefill, grad)
+        x, caches["layers"] = _ssm_stack_full(params["layers"], x, cfg,
+                                              prefill, grad)
     elif cfg.family == "hybrid":
-        n_groups, tail = _hybrid_layout(cfg)
+        tail = _hybrid_layout(cfg)[1]
         shared = params["shared_attn"]
         shared_block = _remat(cfg, dense_block_full, grad)
         ssm_caches, ks, vs = [], [], []
-        for grp in _slices(params["ssm_groups"], n_groups, grad):
-            x, c = _ssm_stack_full(grp, cfg.attn_every, x, cfg, prefill, grad)
+        for grp in _unbind(params["ssm_groups"]):
+            x, c = _ssm_stack_full(grp, x, cfg, prefill, grad)
             x, kv = shared_block(shared, x, cfg, positions, return_kv=prefill)
             if prefill:
                 ssm_caches.append(c)
                 ks.append(kv[0])
                 vs.append(kv[1])
         if tail:
-            x, tail_c = _ssm_stack_full(params["ssm_tail"], tail, x, cfg,
-                                        prefill, grad)
+            x, tail_c = _ssm_stack_full(params["ssm_tail"], x, cfg, prefill,
+                                        grad)
         if prefill:
             caches["ssm_groups"] = _stack(ssm_caches)
             if tail:
@@ -325,7 +318,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     else:
         block = _remat(cfg, dense_block_full, grad)
         ks, vs = [], []
-        for lp in _slices(params["layers"], cfg.num_layers, grad):
+        for lp in _unbind(params["layers"]):
             x, kv = block(lp, x, cfg, positions, return_kv=prefill)
             if prefill:
                 ks.append(kv[0])

@@ -496,23 +496,6 @@ def test_serve_batch_runs_every_kernel_hybrid(cuda):
 
 
 # ------------------------------------------------------------------ training
-def train_step_launches(cfg):
-    """Kernel launches of one train step under remat='full': each layer's
-    forward runs twice (the forward and its recompute in the backward), the
-    final norm once; the backward itself launches nothing."""
-    L = cfg.num_layers
-    if cfg.family == "ssm":
-        return {"flash_attention": 0, "fused_rmsnorm": 2 * 2 * L + 1,
-                "ssd": 2 * L, "decode_attention": 0}
-    if cfg.family == "hybrid":
-        shared = L // cfg.attn_every
-        return {"flash_attention": 2 * shared,
-                "fused_rmsnorm": 2 * (2 * L + 2 * shared) + 1,
-                "ssd": 2 * L, "decode_attention": 0}
-    return {"flash_attention": 2 * L, "fused_rmsnorm": 2 * 2 * L + 1,
-            "ssd": 0, "decode_attention": 0}
-
-
 def _launches():
     return {"flash_attention": fa_ops.launches,
             "fused_rmsnorm": rn_ops.launches, "ssd": ssd_ops.launches,
@@ -528,7 +511,7 @@ def test_kernel_path_gradients_match_plain_path(cuda, arch):
     the loss within 1e-6 relative (chip_smoke.py's limits at full width);
     every kernel of the path launches, as counted."""
     from repro_torch import tree as T
-    from repro_torch.distributed.train_step import make_grad_fn
+    from repro_torch.distributed.train_step import kernel_launches, make_grad_fn
     cfg = get_smoke_config(arch, dtype="float32")
     params = M.init_params(cfg, seed=0, device=cuda)
     B, S = 2, 40
@@ -541,7 +524,7 @@ def test_kernel_path_gradients_match_plain_path(cuda, arch):
     gk, mk = make_grad_fn(cfg)(params, batch)
     torch.cuda.synchronize()
     after = _launches()
-    assert {k: after[k] - before[k] for k in after} == train_step_launches(cfg)
+    assert {k: after[k] - before[k] for k in after} == kernel_launches(cfg)
     gp, mp = make_grad_fn(dataclasses.replace(cfg, use_pallas=False))(
         params, batch)
     assert _launches() == after
@@ -580,7 +563,7 @@ def test_kernel_functions_backward_is_the_plain_vjp(cuda, dtype):
          lambda x, w, z: rn_ref.rmsnorm_ref(x, w, eps=1e-5, gate=z),
          (x, w, z)),
         (ssd_ops, lambda *a: ssd_ops.ssd(*a, chunk=128, use_pallas=True)[0],
-         lambda *a: ssd_ops.plain(*a, 128)[0], (xs, dts, A, Bm, Cm))]
+         lambda *a: ssd_ops.plain(*a, chunk=128)[0], (xs, dts, A, Bm, Cm))]
     for mod, kernel, plain, inputs in cases:
         n0 = mod.launches
         out = kernel(*inputs)
