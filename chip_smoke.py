@@ -9,13 +9,15 @@ Phases, each printing its lines; any failed check exits non-zero:
   2. build: the four CUDA kernels from the checkout's sources (one nvcc per
      source, in parallel), with ptxas' registers and spills, and the tensor
      core instructions in the SASS (cuobjdump): HGMMA (wgmma) in every bf16
-     flash-attention instantiation, HMMA (mma.sync) in every bf16
-     decode-attention and SSD-scan one;
+     flash-attention instantiation (MLA's (192, 128) one named), HMMA
+     (mma.sync) in every bf16 decode-attention and SSD-scan one;
   3. kernel vs plain: each kernel's wrapper on CUDA tensors at the main
      paths' shapes against its plain PyTorch version, tolerance stated
      (RMSNorm gated and ungated at every main-path width, 8 and 8,192 rows,
-     and at d = 77; flash attention also at the training path's head_dim 80,
-     B 8, S 1,024, 32 heads over 32 KV heads);
+     and at d = 77, deepseek's 2,048 and MLA's kv_norm at 512; flash
+     attention also at the training path's head_dim 80, B 8, S 1,024, 32
+     heads over 32 KV heads, and at deepseek-v2-lite-16b's MLA prefill, q/k
+     192 wide and v 128, 16 heads over 16);
   4. kernel times (CUDA events, L2 flushed before each launch) beside the
      least time the card could take, the plain version and a library call;
      the 8-row RMSNorm's from the profiler's device time; the gated RMSNorm
@@ -28,18 +30,25 @@ Phases, each printing its lines; any failed check exits non-zero:
      attention at stablelm-3b's, RMSNorm at 8,192 x 2,560) each kernel's
      forward beside its backward (its autograd.Function's: the plain version
      recomputed and its vjp, checked equal to the plain vjp), the plain vjp
-     alone, and the library's forward and backward;
+     alone, and the library's forward and backward; flash attention at the
+     MLA shape beside SDPA on the same 128-wide V;
   5. main paths, each served with ``serve_batch`` at full width with random
      bf16 weights from a seed: 8 requests of 1,024 prompt tokens, 32 greedy
      new tokens, with the kernels' launch counts set to 0 just before and
      read just after. chatglm3-6b (28 layers, d_model 4,096), zamba2-7b (81
-     Mamba2 layers and one shared attention block every 6, d_model 3,584)
-     and mamba2-130m (24 Mamba2 layers, d_model 768). Each is then held by
-     the kernel and plain paths teacher-forced on the kernel path's tokens,
-     the logits of every step compared in f32 and in bf16, and its prefill
-     and decode times;
+     Mamba2 layers and one shared attention block every 6, d_model 3,584),
+     mamba2-130m (24 Mamba2 layers, d_model 768), deepseek-v2-lite-16b at
+     full size (27 layers: 1 dense, 26 MoE of 64 routed experts top-6 and 2
+     shared; MLA; d_model 2,048) and phi3.5-moe-42b-a6.6b at full width
+     with 16 of its 32 layers (d_model 4,096, 16 experts top-2; the 32
+     would not fit the card). Each is then held by the kernel and plain
+     paths teacher-forced on the kernel path's tokens, the logits of every
+     step compared in f32 and in bf16, and its prefill and decode times.
+     The MoE paths run that comparison at full width and 4 layers and
+     count the routing decisions that flip between the two f32 paths; the
+     f32 logits are held where none did;
   6. where the time of one prefill and one decode step goes
-     (torch.profiler), for each of the three, and the per-launch device
+     (torch.profiler), for each of the five, and the per-launch device
      time of the kernels there;
   7. training through ``make_train_step`` (AdamW, remat "full", the kernels
      in every forward and recompute, the plain versions' vjps in the
@@ -60,6 +69,7 @@ The line before the last is the ``{"kernels": [...]}`` summary (with each
 kernel's launches per serve_batch and per train step); the last is
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -90,10 +100,19 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SPIN_CYCLES = 400_000       # ~0.2 ms at 1.98 GHz: above any wrapper's host time
 
-PATHS = ("chatglm3-6b", "zamba2-7b", "mamba2-130m")
+PATHS = ("chatglm3-6b", "zamba2-7b", "mamba2-130m", "deepseek-v2-lite-16b",
+         "phi3.5-moe-42b-a6.6b")
 PROFILED = PATHS
 FULL_WIDTH = {"chatglm3-6b": (28, 4096), "zamba2-7b": (81, 3584),
-              "mamba2-130m": (24, 768)}
+              "mamba2-130m": (24, 768), "deepseek-v2-lite-16b": (27, 2048),
+              "phi3.5-moe-42b-a6.6b": (16, 4096)}
+# phi3.5-moe's 32 layers take 83.8 GB in bf16, more than the card's 80 GB:
+# it is served at full width with 16 of them (~42 GB)
+SERVE_LAYERS = {"phi3.5-moe-42b-a6.6b": 16}
+# The MoE paths' kernel-vs-plain comparisons run at full width and this
+# depth (deepseek's dense layer and 3 MoE layers; phi's first 4): the f32
+# weights of either at full depth would not fit beside the bf16 ones.
+MOE_HOLD_DEPTH = 4
 N_REQUESTS, PROMPT_LEN, NEW_TOKENS, SEED = 8, 1024, 32, 0
 # bf16 kernel-vs-plain tolerances as in the JAX package's kernel tests;
 # f32 differs only by the order of sums. SSD: relative to max|want|, as the
@@ -125,6 +144,13 @@ BF16_ERR_RATIO = 1.5
 # (H100 80GB HBM3, 700 W)
 ATEN_CALLS_BEFORE = {"chatglm3-6b": 5197, "zamba2-7b": 26652,
                      "mamba2-130m": 6452}
+# Routing is discontinuous: where the two f32 paths' hidden states differ in
+# the last bits, a token whose k-th and (k+1)-th router weights nearly tie
+# may go to another expert. The f32 check holds the logits at positions
+# whose routing (every token of the row, in every layer and step so far)
+# took the same decisions on both paths, and needs at least this share of
+# the positions to be such.
+MIN_CLEAN_SHARE = 0.5
 
 
 def check(ok, msg):
@@ -244,24 +270,6 @@ def sass_counts(lib_path, opcode):
     return counts
 
 
-def want_launches(cfg):
-    """Kernel launches of one serve_batch: prefill + NEW_TOKENS - 1 decode
-    steps, RMSNorm in every step (2 per block, 1 final), flash attention in
-    prefill and decode attention in every decode step per attention block,
-    the SSD scan once per Mamba2 layer in prefill."""
-    L, T = cfg.num_layers, NEW_TOKENS
-    if cfg.family == "ssm":
-        attn, norms_per_step = 0, 2 * L + 1
-    elif cfg.family == "hybrid":
-        attn = cfg.num_layers // cfg.attn_every          # shared-block calls
-        norms_per_step = 2 * L + 2 * attn + 1
-    else:
-        attn, norms_per_step = L, 2 * L + 1
-    return {"flash_attention": attn, "decode_attention": attn * (T - 1),
-            "fused_rmsnorm": norms_per_step * T,
-            "ssd": L if cfg.family in ("ssm", "hybrid") else 0}
-
-
 def main():
     import torch
     import torch.nn.functional as F
@@ -278,6 +286,7 @@ def main():
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from repro_torch.configs import get_config
+    from repro_torch.distributed.serve_step import kernel_launches
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
@@ -319,6 +328,13 @@ def main():
               f"{sum(counts.values()) - sum(tc.values())} elsewhere", flush=True)
         check(tc and min(tc.values()) > 0,
               f"a bf16 {kernel} instantiation has no {opcode}: {tc}")
+        if name == "flash_attention":
+            # MLA's prefill: q/k 192 wide, v 128 (the template's mangling)
+            mla = [n for fn, n in tc.items() if "ILi192ELi128E" in fn]
+            print(f"[build] flash_attention (192, 128) instantiation for "
+                  f"MLA: {mla[0] if mla else 0} HGMMA", flush=True)
+            check(mla and mla[0] > 0, f"no (192, 128) flash instantiation "
+                  f"with HGMMA: {sorted(tc)}")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -327,18 +343,25 @@ def main():
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).to(dtype)
 
-    cfgs = {arch: get_config(arch) for arch in PATHS}
+    cfgs = {arch: get_config(arch, **({"num_layers": SERVE_LAYERS[arch]}
+                                      if arch in SERVE_LAYERS else {}))
+            for arch in PATHS}
     glm = cfgs["chatglm3-6b"]
     zam = cfgs["zamba2-7b"]
+    dsk = cfgs["deepseek-v2-lite-16b"]
+    phi = cfgs["phi3.5-moe-42b-a6.6b"]
+    # MLA's prefill widths: q/k nope + rope, v its own
+    dsk_hd = dsk.qk_nope_head_dim + dsk.qk_rope_head_dim
     sl3 = get_config("stablelm-3b")
     B, S = N_REQUESTS, PROMPT_LEN
     S_cache = PROMPT_LEN + NEW_TOKENS
     results = {}
 
     # --------------------------------------------------- 3. kernel vs plain
-    def flash_case(b, s, h, kv, dh, dtype):
+    def flash_case(b, s, h, kv, dh, dtype, dh_v=None):
+        dh_v = dh_v or dh
         q, k, v = (randn(b, s, h, dh, dtype=dtype), randn(b, s, kv, dh, dtype=dtype),
-                   randn(b, s, kv, dh, dtype=dtype))
+                   randn(b, s, kv, dh_v, dtype=dtype))
         scale = dh ** -0.5
         got = fa_ops.flash_attention(q, k, v, scale=scale)
         torch.cuda.synchronize()
@@ -426,8 +449,15 @@ def main():
                                        zam.head_dim)),
                 ("stablelm-3b hd80 ragged", (2, 200, 32, 32, 80)),
                 ("stablelm-3b train", (B, S, sl3.num_heads, sl3.num_kv_heads,
-                                       sl3.head_dim))):
-            err, args = flash_case(*shape, dtype)
+                                       sl3.head_dim)),
+                ("deepseek-v2-lite-16b prefill",
+                 (B, S, dsk.num_heads, dsk.num_kv_heads, dsk_hd,
+                  dsk.v_head_dim)),
+                ("deepseek-v2-lite-16b ragged, G 4", (2, 200, 16, 4, dsk_hd,
+                                                      dsk.v_head_dim)),
+                ("phi3.5-moe-42b-a6.6b prefill",
+                 (B, S, phi.num_heads, phi.num_kv_heads, phi.head_dim))):
+            err, args = flash_case(*shape[:5], dtype, *shape[5:])
             tol = ATTN_TOL[dtype_name]
             print(f"[check] flash_attention {label} {shape} {dtype_name}: "
                   f"max|err| {err:.3e} (tol {tol})", flush=True)
@@ -443,7 +473,9 @@ def main():
                 ("chatglm3-6b", (glm.num_heads, glm.num_kv_heads, glm.head_dim),
                  17),
                 ("zamba2-7b", (zam.num_heads, zam.num_kv_heads, zam.head_dim),
-                 PROMPT_LEN + 1)):
+                 PROMPT_LEN + 1),
+                ("phi3.5-moe-42b-a6.6b", (phi.num_heads, phi.num_kv_heads,
+                                          phi.head_dim), PROMPT_LEN + 1)):
             shape = (B, S_cache, h, kv, dh)
             err, args = decode_case(*shape, valid, dtype)
             tol = ATTN_TOL[dtype_name]
@@ -458,7 +490,8 @@ def main():
         # y * silu(z) normalized) and not; d = 77 takes the scalar kernel
         for rows in (B * S, B):
             for dim in (glm.d_model, zam.d_model, zam.ssm_d_inner, mam.d_model,
-                        mam.ssm_d_inner, sl3.d_model, 77):
+                        mam.ssm_d_inner, sl3.d_model, dsk.d_model,
+                        dsk.kv_lora_rank, 77):
                 for gated in (False, True):
                     err, share, args = norm_case(rows, dim, dtype, gated)
                     label = "gated " if gated else ""
@@ -563,6 +596,38 @@ def main():
                       f"{r['bound_ms'] / r['ms']:.1%} of it), plain "
                       f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms"
                       f"  [{card}]", flush=True)
+
+    # flash attention at deepseek-v2-lite-16b's MLA prefill shape: q/k 192
+    # wide, v and the output 128, 16 heads over 16 KV heads; beside SDPA on
+    # the same 128-wide V
+    q, k, v, scale = inputs["flash_attention/deepseek-v2-lite-16b"]
+    pairs = B * q.shape[2] * S * (S + 1) // 2
+    mla = dict(
+        ms=timer(lambda: fa_ops.flash_attention(q, k, v, scale=scale)),
+        plain_ms=timer(lambda: fa_ref.attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            scale=scale), iters=5),
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, scale=scale)),
+        # Q K^T over 192 and P V over 128 for each causal (q, k) pair; q, k,
+        # v read and o written once
+        flops=2 * (q.shape[3] + v.shape[3]) * pairs,
+        bytes=2 * (q.numel() + k.numel() + v.numel() + q.numel()
+                   // q.shape[3] * v.shape[3]),
+        dtype="bfloat16")
+    add_bound(mla)
+    results["flash_attention"]["deepseek_v2_lite_16b_mla_shape"] = mla
+    print(f"[time] flash_attention at deepseek-v2-lite-16b's MLA prefill shape "
+          f"{tuple(q.shape)} q/k, {tuple(v.shape)} v: kernel {mla['ms']:.4f} "
+          f"ms, bound {mla['bound_ms']:.4f} ms ({mla['bound_by']}; "
+          f"{mla['bytes'] / 1e6:.1f} MB -> "
+          f"{mla['bytes'] / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes, "
+          f"{mla['flops'] / 1e9:.1f} GFLOP -> "
+          f"{mla['flops'] / PEAK_FLOPS['bfloat16'] * 1e3:.4f} ms by "
+          f"operations; {mla['bound_ms'] / mla['ms']:.1%} of it), plain "
+          f"{mla['plain_ms']:.4f} ms, SDPA {mla['library_ms']:.4f} ms  "
+          f"[{card}]", flush=True)
 
     # RMSNorm. Rows of a prefill by CUDA events; a decode step's rows (8 x d)
     # take less device time than the host's launch of them, so events would
@@ -881,12 +946,14 @@ def serve_and_hold(torch, cfg, ops_of, card, dev):
     it teacher-forced against the plain path, free its weights. Returns the
     launch counts."""
     from repro_torch import tree as T
+    from repro_torch.distributed.serve_step import kernel_launches
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import model as M
 
     arch = cfg.name
     B, S = N_REQUESTS, PROMPT_LEN
     S_cache = PROMPT_LEN + NEW_TOKENS
+    moe = cfg.family == "moe"
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
@@ -905,12 +972,22 @@ def serve_and_hold(torch, cfg, ops_of, card, dev):
                       quiet=True, device=dev)
     launches = {name: ops.launches for name, ops in ops_of.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = want_launches(cfg)
+    want = kernel_launches(cfg, NEW_TOKENS)
     print(f"[main] {arch} serve_batch: {N_REQUESTS} x {PROMPT_LEN} prompt "
           f"tokens, {NEW_TOKENS} new tokens each, {res['wall_s']:.3f} s, "
           f"{res['tokens_per_s']:.1f} new tokens/s, peak memory "
           f"{peak_gb:.2f} GB; launches {launches}  [{card}]", flush=True)
     check(launches == want, f"{arch} launch counts {launches} != {want}")
+    if moe:
+        # every decode step reads all experts' weights (the reference's
+        # dense capacity buffers): the step's floor by bytes
+        expert_bytes = sum(params["layers"]["moe"][w].numel()
+                           * params["layers"]["moe"][w].element_size()
+                           for w in ("w_in", "w_gate", "w_out"))
+        print(f"[main] {arch} decode step floor: the routed experts' "
+              f"{expert_bytes / 1e9:.2f} GB read each step -> "
+              f"{expert_bytes / PEAK_BYTES_PER_S * 1e3:.2f} ms at "
+              f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s  [{card}]", flush=True)
     tokens = res["tokens"]
     check(tuple(tokens.shape) == (N_REQUESTS, PROMPT_LEN + NEW_TOKENS),
           f"{arch} output shape {tuple(tokens.shape)}")
@@ -921,21 +998,15 @@ def serve_and_hold(torch, cfg, ops_of, card, dev):
     # check: the kernels take f32, so the two paths differ only by the order
     # of sums. In bf16 both paths round at other places; there the kernel
     # path must stay as close to the f32 plain path as the bf16 plain path is.
+    # The MoE paths take their times and the replay at full depth and their
+    # comparisons at MOE_HOLD_DEPTH layers, with the router's decisions of
+    # the two f32 paths recorded.
     plain_cfg = dataclasses.replace(cfg, use_pallas=False)
     prefill_s, decode_ms, logits = {}, {}, {}
     for label, c in (("kernels", cfg), ("plain", plain_cfg)):
         prefill_s[label], decode_ms[label], logits[label] = teacher_forced(
             torch, c, params, tokens, S, S_cache, dev)
-    params32 = T.tree_map(lambda t: t.float(), params)
-    for label, c in (("kernels", cfg), ("plain", plain_cfg)):
-        c32 = dataclasses.replace(c, dtype="float32")
-        _, _, logits[label + " f32"] = teacher_forced(
-            torch, c32, params32, tokens, S, S_cache, dev)
-    del params32
-    torch.cuda.empty_cache()
     V = cfg.vocab_size
-    for label, lg in logits.items():
-        check(bool(torch.isfinite(lg).all()), f"{arch} {label} logits not finite")
 
     def rel(a, b):                    # per step: max|a - b| / max|b|
         a, b = a[..., :V], b[..., :V]
@@ -944,17 +1015,63 @@ def serve_and_hold(torch, cfg, ops_of, card, dev):
     def agree(a, b):
         return (a[..., :V].argmax(-1) == b[..., :V].argmax(-1)).float().mean()
 
+    replay = (logits["kernels"][..., :V].argmax(-1).t()
+              == tokens[:, S:].to(torch.int64)).float().mean().item()
+    for label in ("kernels", "plain"):
+        print(f"[main] {arch} {label} path: prefill {prefill_s[label]:.4f} s "
+              f"({B * S / prefill_s[label]:.0f} prompt tokens/s), decode "
+              f"{decode_ms[label]:.3f} ms/step ({B * 1e3 / decode_ms[label]:.1f} "
+              f"tokens/s at batch {B})  [{card}]", flush=True)
+    if moe:
+        full16 = rel(logits["kernels"], logits["plain"])
+        print(f"[main] {arch} at all {cfg.num_layers} layers, bf16 kernels vs "
+              f"bf16 plain: max|diff|/max|logit| {full16.max().item():.3e} "
+              f"(prefill {full16[0].item():.3e}), argmax agrees in "
+              f"{agree(logits['kernels'], logits['plain']).item():.1%}",
+              flush=True)
+        if arch in PROFILED:
+            profile_steps(torch, cfg, params, tokens, prefill_s["kernels"],
+                          decode_ms["kernels"], card, dev)
+        params, cfg = first_layers(params, cfg, MOE_HOLD_DEPTH)
+        plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+        torch.cuda.empty_cache()
+        for label, c in (("kernels", cfg), ("plain", plain_cfg)):
+            _, _, logits[label] = teacher_forced(torch, c, params, tokens, S,
+                                                 S_cache, dev)
+    params32 = T.tree_map(lambda t: t.float(), params)
+    routes = {}
+    for label, c in (("kernels", cfg), ("plain", plain_cfg)):
+        c32 = dataclasses.replace(c, dtype="float32")
+        with recorded_routes() as routes[label]:
+            _, _, logits[label + " f32"] = teacher_forced(
+                torch, c32, params32, tokens, S, S_cache, dev)
+    del params32
+    torch.cuda.empty_cache()
+    for label, lg in logits.items():
+        check(bool(torch.isfinite(lg).all()), f"{arch} {label} logits not finite")
+
     tol = F32_LOGIT_TOL
     truth = logits["plain f32"]
-    err32 = rel(logits["kernels f32"], truth)
+    # per (step, row): max|diff| / max|logit| of the step
+    err32_rows = ((logits["kernels f32"] - truth)[..., :V].abs().amax(dim=2)
+                  / truth[..., :V].abs().amax(dim=(1, 2))[:, None])
+    flips, decisions, clean = routing_flips(
+        torch, routes["kernels"], routes["plain"], cfg, B, NEW_TOKENS, dev)
+    err32 = torch.where(clean, err32_rows, 0.0).amax(dim=1)
     control = rel(logits["kernels"], truth)
     err16_k, err16_p = control, rel(logits["plain"], truth)
     err16 = rel(logits["kernels"], logits["plain"])
-    replay = (logits["kernels"][..., :V].argmax(-1).t()
-              == tokens[:, S:].to(torch.int64)).float().mean().item()
-    print(f"[main] {arch} teacher-forced logits over {NEW_TOKENS} steps "
+    where = (f" ({cfg.num_layers} layers at full width)" if moe else "")
+    print(f"[main] {arch} teacher-forced logits{where} over {NEW_TOKENS} steps "
           f"(prefill + {NEW_TOKENS - 1} decode steps), max|diff|/max|logit| "
           f"per step, max over steps:", flush=True)
+    if moe:
+        print(f"[main]   routing, f32 kernels vs f32 plain: {flips} of "
+              f"{decisions} (token, layer) decisions flipped; positions (step, row) "
+              f"whose routing agreed throughout: {int(clean.sum())} of "
+              f"{clean.numel()} (required share {MIN_CLEAN_SHARE}); f32 "
+              f"max over all positions {err32_rows.max().item():.3e}",
+              flush=True)
     print(f"[main]   f32 kernels vs f32 plain: {err32.max().item():.3e} "
           f"(prefill {err32[0].item():.3e}, decode steps "
           f"{err32[1:].min().item():.3e}-{err32[1:].max().item():.3e}; "
@@ -972,11 +1089,9 @@ def serve_and_hold(torch, cfg, ops_of, card, dev):
           flush=True)
     print(f"[main]   the kernel path's replay reproduces serve_batch's greedy "
           f"tokens in {replay:.1%} of {N_REQUESTS * NEW_TOKENS}", flush=True)
-    for label in ("kernels", "plain"):
-        print(f"[main] {arch} {label} path: prefill {prefill_s[label]:.4f} s "
-              f"({B * S / prefill_s[label]:.0f} prompt tokens/s), decode "
-              f"{decode_ms[label]:.3f} ms/step ({B * 1e3 / decode_ms[label]:.1f} "
-              f"tokens/s at batch {B})  [{card}]", flush=True)
+    check(clean.float().mean().item() >= MIN_CLEAN_SHARE,
+          f"{arch} routing flipped in too many rows: {flips} decisions, "
+          f"{clean.tolist()}")
     check(err32.max().item() < tol,
           f"{arch} f32 kernel path logits differ: {err32.tolist()}")
     check(control.min().item() > tol,
@@ -988,11 +1103,71 @@ def serve_and_hold(torch, cfg, ops_of, card, dev):
     check(replay == 1.0, f"{arch} replay of the kernel path gives other "
           f"tokens ({replay:.1%})")
     del logits, truth
-    if arch in PROFILED:
+    if arch in PROFILED and not moe:
         profile_steps(torch, cfg, params, tokens, prefill_s["kernels"],
                       decode_ms["kernels"], card, dev)
     del params
     return launches
+
+
+def first_layers(params, cfg, depth):
+    """The model cut to its first ``depth`` layers (the MoE family's leading
+    dense layers first): the stacked leaves' slices copied, so the full
+    tree's can be freed; the rest shared. Returns (params, cfg)."""
+    from repro_torch import tree as T
+    fd = cfg.first_dense_layers
+    cut = dict(params)
+    cut["layers"] = T.tree_map(lambda t: t[:depth - fd].clone(),
+                               params["layers"])
+    return cut, dataclasses.replace(cfg, num_layers=depth)
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Within: every MoE layer's routing decisions, (top-k experts, kept)
+    each (groups, tokens, K), appended to the yielded list in call order."""
+    from repro_torch.models import moe
+    record, assign = [], moe._assign
+
+    def recording(top_i, E, C):
+        pos, keep = assign(top_i, E, C)
+        record.append((top_i, keep))
+        return pos, keep
+    moe._assign = recording
+    try:
+        yield record
+    finally:
+        moe._assign = assign
+
+
+def routing_flips(torch, got, want, cfg, B, steps, dev):
+    """Routing decisions that differ between two teacher-forced runs
+    (``teacher_forced``: a warm-up prefill, the prefill, steps - 1 decode
+    steps), as recorded by ``recorded_routes``. A (token, layer) decision is
+    its top-k experts in order and whether each was kept. Returns (the count
+    of differing decisions, the count of decisions, clean (steps, B) bool):
+    the logits of step t in row b are clean where no decision of row b
+    differed in the prefill or in decode steps 1..t. A path without routing
+    is clean throughout."""
+    clean = torch.ones((steps, B), dtype=torch.bool, device=dev)
+    if not got and not want:
+        return 0, 0, clean
+    n = cfg.num_layers - cfg.first_dense_layers          # MoE layers a call
+    check(len(got) == len(want) == n * (steps + 1),
+          f"{cfg.name}: {len(got)} and {len(want)} routing records, not "
+          f"{n * (steps + 1)}")
+    flips = decisions = 0
+    dirty = torch.zeros(B, dtype=torch.bool, device=dev)
+    for t in range(steps):
+        for c in range(n * (t + 1), n * (t + 2)):        # after the warm-up
+            (ia, ka), (ib, kb) = got[c], want[c]
+            differ = ((ia != ib) | (ka != kb)).any(dim=-1)   # (G, tokens)
+            # prefill: a group per row; decode: one group of the batch rows
+            dirty |= differ.any(dim=1) if t == 0 else differ[0]
+            flips += int(differ.sum())
+            decisions += differ.numel()
+        clean[t] = ~dirty
+    return flips, decisions, clean
 
 
 def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
@@ -1029,7 +1204,8 @@ def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
             ops.sort(key=lambda e: -e.self_cpu_time_total)
             counts = {e.key: e.count for e in ops}
             print(f"[profile] {arch} {label}, host: {sum(e.count for e in ops)} "
-                  f"aten op calls (before: {ATEN_CALLS_BEFORE[arch]}; of them "
+                  f"aten op calls (before: "
+                  f"{ATEN_CALLS_BEFORE.get(arch, 'not measured')}; of them "
                   f"aten::silu {counts.get('aten::silu', 0)}, aten::mul "
                   f"{counts.get('aten::mul', 0)}, aten::view "
                   f"{counts.get('aten::view', 0)}), "

@@ -13,6 +13,29 @@ from repro_torch.models import model as M
 _SEQ_CACHE_LEAVES = ("k", "v", "c_kv", "k_rope")
 
 
+def kernel_launches(cfg: ModelConfig, new_tokens: int) -> Dict[str, int]:
+    """The CUDA kernel launches of one ``launch.serve.generate`` (a prefill
+    and ``new_tokens - 1`` decode steps) with ``cfg.use_pallas``, by kernel.
+    Every step runs RMSNorm twice per attention block (three times with
+    MLA, whose ``kv_norm`` is one more) and per Mamba2 layer (its input and
+    gated norms), and once at the end; the prefill runs flash attention per
+    attention block and the SSD scan per Mamba2 layer; every decode step
+    runs decode attention per GQA block (MLA decodes through einsums, as
+    the reference does). The hybrid's shared block runs once per group."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        attn, norms = 0, 2 * L
+    elif cfg.family == "hybrid":
+        attn = L // cfg.attn_every                  # shared-block calls
+        norms = 2 * L + 2 * attn
+    else:
+        attn, norms = L, (3 if cfg.use_mla else 2) * L
+    return {"flash_attention": attn,
+            "decode_attention": 0 if cfg.use_mla else attn * (new_tokens - 1),
+            "fused_rmsnorm": (norms + 1) * new_tokens,
+            "ssd": L if cfg.family in ("ssm", "hybrid") else 0}
+
+
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch) -> Tuple[torch.Tensor, Any]:
         logits, _, cache = M.forward(params, cfg, batch, mode="prefill")
@@ -45,7 +68,9 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
 def pad_cache(cache: Dict[str, Any], cfg: ModelConfig, max_len: int
               ) -> Dict[str, Any]:
     """Grow prefill-sized caches (seq dim == prompt len) to ``max_len`` so
-    decode can append. Seq dim is axis 2 of k/v/c_kv/k_rope leaves."""
+    decode can append. Seq dim is axis 2 of k/v/c_kv/k_rope leaves (stacked
+    over layers: (L, B, S, ...)), in every subtree (``layers``,
+    ``dense_layers``, the hybrid's ``attn``)."""
     def grow(name, leaf):
         if isinstance(leaf, dict):
             return {k: grow(k, v) for k, v in leaf.items()}

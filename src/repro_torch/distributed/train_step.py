@@ -107,9 +107,10 @@ def kernel_launches(cfg: ModelConfig) -> Dict[str, int]:
     forward launches its kernels once, and once more in its recompute under
     remat 'full' or 'dots' (which keeps only matrix products); the final
     norm launches once; the backward (the plain versions' vjps) launches
-    none. A dense block runs flash attention and 2 RMSNorms, a Mamba2 block
-    the SSD scan, its input norm and its gated norm; the hybrid's shared
-    block runs once per group."""
+    none. An attention block (dense, MoE, the MoE family's leading dense
+    layers) runs flash attention and 2 RMSNorms, 3 with MLA (its
+    ``kv_norm``); a Mamba2 block the SSD scan, its input norm and its gated
+    norm; the hybrid's shared block runs once per group."""
     L, runs = cfg.num_layers, 1 if cfg.remat == "none" else 2
     if cfg.family == "ssm":
         flash, norms, scans = 0, 2 * L, L
@@ -117,7 +118,7 @@ def kernel_launches(cfg: ModelConfig) -> Dict[str, int]:
         flash = L // cfg.attn_every
         norms, scans = 2 * L + 2 * flash, L
     else:
-        flash, norms, scans = L, 2 * L, 0
+        flash, norms, scans = L, (3 if cfg.use_mla else 2) * L, 0
     return {"flash_attention": runs * flash, "decode_attention": 0,
             "fused_rmsnorm": runs * norms + 1, "ssd": runs * scans}
 

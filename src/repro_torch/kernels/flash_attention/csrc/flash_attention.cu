@@ -11,8 +11,10 @@
 // kernels read the model layout (B, S, H, hd) in place: no transposed or
 // padded copy is made.
 //
-// Bound on the H100: at the prefill shapes of the main path it is bound by
-// operations (4 FLOP per (q, k) pair per head dim, causal half), not bytes.
+// Bound on the H100: at the GQA prefill shapes of the main path it is bound
+// by operations (4 FLOP per (q, k) pair per head dim, causal half), not
+// bytes; at MLA's (16 heads over 16 KV heads, q/k 192, v 128) narrowly by
+// bytes, since every head has its own K and V.
 //
 // bfloat16: flash_fwd_wgmma, for the tensor cores. A block owns a 128-row q
 // tile of one (batch, head); blocks are numbered so that the G heads of a kv
@@ -41,8 +43,12 @@
 // each holding a quarter of the head dims, so a score is a 4-lane dot product
 // closed by two warp shuffles.
 //
-// Head widths: REPRO_HEAD_DIMS below, those of the ported configs (64, 80,
-// 112, 128, 160, 256) and of the smoke configs and tests (16, 32).
+// Head widths: REPRO_HEAD_DIMS below, pairs (query/key width, value width).
+// Equal widths for the ported configs' GQA (64, 80, 112, 128, 160, 256) and
+// the smoke configs and tests (16, 32); (192, 128) for DeepSeek MLA's
+// prefill (nope 128 + rope 64 against a value head of 128). Q.K^T runs over
+// the first width, the O accumulator, P.V and V's tiles over the second: V
+// is not padded to q's width.
 #include <math.h>
 #include <stdint.h>
 
@@ -67,13 +73,17 @@ constexpr int STAGES = 2;
 constexpr int MAX_SMEM = 232448;            // opt-in shared memory per block
 constexpr int SLAB_ROW = 128;               // bytes of one 64-column slab row
 
-template <int HD>
+// HD: the query/key width; HDV: the value (and output) width
+template <int HD, int HDV>
 struct Tile {
-  static constexpr int SLABS = (HD + 63) / 64;
+  static constexpr int SLABS = (HD + 63) / 64;      // of Q and K
+  static constexpr int V_SLABS = (HDV + 63) / 64;
   static constexpr int BK = HD <= 128 ? 128 : 64;   // kv rows per tile
   static constexpr int Q_WG = SLABS * WG_ROWS * SLAB_ROW;  // one warpgroup's Q
-  static constexpr int KV = SLABS * BK * SLAB_ROW;         // one K or V tile
-  static constexpr int SMEM = 1024 + 2 * Q_WG + STAGES * 2 * KV + 128;
+  static constexpr int K_TILE = SLABS * BK * SLAB_ROW;
+  static constexpr int V_TILE = V_SLABS * BK * SLAB_ROW;
+  static constexpr int SMEM = 1024 + 2 * Q_WG + STAGES * (K_TILE + V_TILE)
+                              + 128;
 };
 
 // The work of one block: a 128-row q tile of one (batch, head). Blocks are
@@ -166,22 +176,22 @@ __device__ __forceinline__ void p_fragments(const float (&s)[BK / 2],
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(NT_TC, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, long long o_b, long long o_s,
                 long long o_h, int S, int KV, int G, float scale_log2) {
-  using T = Tile<HD>;
+  using T = Tile<HD, HDV>;
   constexpr int BK = T::BK;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1,024 bytes: align every tile to it
   uint8_t* qs = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* ks = qs + 2 * T::Q_WG;                 // [STAGES][SLABS][BK][128 B]
-  uint8_t* vs = ks + STAGES * T::KV;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * T::KV);
+  uint8_t* vs = ks + STAGES * T::K_TILE;          // [STAGES][V_SLABS][BK][128 B]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * T::V_TILE);
   uint64_t* k_full = q_full + 1;                  // [STAGES] each
   uint64_t* v_full = k_full + STAGES;
   uint64_t* k_empty = v_full + STAGES;
@@ -219,15 +229,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         const int st = t % STAGES;
         const int parity = (t / STAGES - 1) & 1;
         if (t >= STAGES) mbar_wait(&k_empty[st], parity);
-        mbar_expect_tx(&k_full[st], T::KV);
+        mbar_expect_tx(&k_full[st], T::K_TILE);
         for (int s = 0; s < T::SLABS; ++s)
-          tma_load_4d(ks + st * T::KV + s * BK * SLAB_ROW, &tk, &k_full[st],
-                      64 * s, it.kvh, t * BK, it.b);
+          tma_load_4d(ks + st * T::K_TILE + s * BK * SLAB_ROW, &tk,
+                      &k_full[st], 64 * s, it.kvh, t * BK, it.b);
         if (t >= STAGES) mbar_wait(&v_empty[st], parity);
-        mbar_expect_tx(&v_full[st], T::KV);
-        for (int s = 0; s < T::SLABS; ++s)
-          tma_load_4d(vs + st * T::KV + s * BK * SLAB_ROW, &tv, &v_full[st],
-                      64 * s, it.kvh, t * BK, it.b);
+        mbar_expect_tx(&v_full[st], T::V_TILE);
+        for (int s = 0; s < T::V_SLABS; ++s)
+          tma_load_4d(vs + st * T::V_TILE + s * BK * SLAB_ROW, &tv,
+                      &v_full[st], 64 * s, it.kvh, t * BK, it.b);
       }
     }
   } else {
@@ -240,9 +250,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     const int col0 = 2 * (lane % 4);
     const uint8_t* qw = qs + wg * T::Q_WG;
 
-    float o_acc[HD / 2];
+    float o_acc[HDV / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o_acc[i] = 0.f;
+    for (int i = 0; i < HDV / 2; ++i) o_acc[i] = 0.f;
     float s[BK / 2];
     uint32_t pa[BK / 16][4];
     float m[2] = {-1e30f, -1e30f};
@@ -251,7 +261,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 
     // S = Q K^T for the tile in stage st, issued and committed
     auto issue_qk = [&](int st) {
-      const uint8_t* kt = ks + st * T::KV;
+      const uint8_t* kt = ks + st * T::K_TILE;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
@@ -266,12 +276,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     };
     // O += P V for the tile in stage st, issued and committed
     auto issue_pv = [&](int st) {
-      const uint8_t* vt = vs + st * T::KV;
+      const uint8_t* vt = vs + st * T::V_TILE;
       wgmma_fence();
       fence_regs(o_acc);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<HD>(o_acc, pa[kk],
+        wgmma_rs<HDV>(o_acc, pa[kk],
                      desc_sw128(vt + kk * 16 * SLAB_ROW, BK * SLAB_ROW, 1024));
       wgmma_commit();
     };
@@ -310,7 +320,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       fence_regs(o_acc);
       release(&v_empty[sp]);
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < HDV / 8; ++j) {
         o_acc[4 * j] *= alpha[0];
         o_acc[4 * j + 1] *= alpha[0];
         o_acc[4 * j + 2] *= alpha[1];
@@ -335,7 +345,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         __nv_bfloat16* orow = o + it.b * o_b + (long long)row * o_s
                               + it.h * o_h + col0;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
+        for (int j = 0; j < HDV / 8; ++j)
           *reinterpret_cast<uint32_t*>(orow + 8 * j) = pack_bf16(
               o_acc[4 * j + 2 * i] * l[i], o_acc[4 * j + 2 * i + 1] * l[i]);
       }
@@ -386,31 +396,34 @@ int make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int S,
   return r == CUDA_SUCCESS ? 0 : REPRO_ERR_TENSOR_MAP;
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int S, int H, int KV, const Strides& st, float scale,
                  cudaStream_t stream) {
-  using T = Tile<HD>;
+  using T = Tile<HD, HDV>;
   // the opt-in to more than 48 KB of shared memory, once per instantiation
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_wgmma<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       T::SMEM);
   if (attr != cudaSuccess) return attr;
   CUtensorMap tq, tk, tv;
   int err;
   if ((err = make_map(&tq, q, HD, H, S, B, st.q_h, st.q_s, st.q_b, WG_ROWS)) ||
       (err = make_map(&tk, k, HD, KV, S, B, st.k_h, st.k_s, st.k_b, T::BK)) ||
-      (err = make_map(&tv, v, HD, KV, S, B, st.v_h, st.v_s, st.v_b, T::BK)))
+      (err = make_map(&tv, v, HDV, KV, S, B, st.v_h, st.v_s, st.v_b, T::BK)))
     return err;
   const int n_items = B * H * ((S + BQ_TC - 1) / BQ_TC);
-  flash_fwd_wgmma<HD><<<n_items, NT_TC, T::SMEM, stream>>>(
+  flash_fwd_wgmma<HD, HDV><<<n_items, NT_TC, T::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), st.o_b, st.o_s, st.o_h, S,
       KV, H / KV, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-static_assert(Tile<256>::SMEM <= MAX_SMEM && Tile<160>::SMEM <= MAX_SMEM &&
-              Tile<128>::SMEM <= MAX_SMEM, "the tiles must fit in shared memory");
+static_assert(Tile<256, 256>::SMEM <= MAX_SMEM &&
+              Tile<192, 128>::SMEM <= MAX_SMEM &&
+              Tile<160, 160>::SMEM <= MAX_SMEM &&
+              Tile<128, 128>::SMEM <= MAX_SMEM,
+              "the tiles must fit in shared memory");
 
 // ================================================================= float32
 constexpr int BQ = 64;          // q rows per block
@@ -418,19 +431,22 @@ constexpr int BK = 32;          // kv rows per shared-memory tile
 constexpr int TPR = 4;          // threads per q row
 constexpr int NT = BQ * TPR;    // threads per block
 
-// NC = head_dim / 16: each of a row's 4 threads holds NC float4 chunks of it,
-// chunk c = i * TPR + t covering dims [4c, 4c + 4).
-template <int NC>
+// NC = head_dim / 16 (NCV = the value width / 16): each of a row's 4
+// threads holds NC float4 chunks of q and NCV of the output, chunk
+// c = i * TPR + t covering dims [4c, 4c + 4).
+template <int NC, int NCV>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o,
           int S, int G, Strides st, float scale) {
   constexpr int HD = 16 * NC;
+  constexpr int HDV = 16 * NCV;
   constexpr int VEC = 4;                // floats per 16-byte load
-  constexpr int CPR = HD / VEC;         // 16-byte chunks per kv row
+  constexpr int CPR = HD / VEC;         // 16-byte chunks per k row
+  constexpr int CPRV = HDV / VEC;       // and per v row
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                     // [BK][HD]
-  float* vs = smem + BK * HD;           // [BK][HD]
+  float* vs = smem + BK * HD;           // [BK][HDV]
 
   const int tid = threadIdx.x;
   const int r = tid / TPR;
@@ -443,7 +459,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const bool row_ok = qpos < S;
 
   float qr[NC][4];
-  float acc[NC][4];
+  float acc[NCV][4];
   {
     const float* qrow = q + b * st.q_b
                         + (long long)(row_ok ? qpos : S - 1) * st.q_s
@@ -452,10 +468,12 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < NC; ++i) {
       const int d0 = 4 * (i * TPR + t);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        qr[i][e] = qrow[d0 + e];
-        acc[i][e] = 0.f;
-      }
+      for (int e = 0; e < 4; ++e) qr[i][e] = qrow[d0 + e];
+    }
+#pragma unroll
+    for (int i = 0; i < NCV; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
     }
   }
 
@@ -470,19 +488,18 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     for (int idx = tid; idx < BK * CPR; idx += NT) {
       const int j = idx / CPR;
       const int c = idx % CPR;
-      float kf[VEC], vf[VEC];
-      if (kb + j < S) {
-        load16(kbase + (long long)(kb + j) * st.k_s + c * VEC, kf);
-        load16(vbase + (long long)(kb + j) * st.v_s + c * VEC, vf);
-      } else {
+      float kf[VEC] = {0.f, 0.f, 0.f, 0.f};
+      if (kb + j < S) load16(kbase + (long long)(kb + j) * st.k_s + c * VEC, kf);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) { kf[e] = 0.f; vf[e] = 0.f; }
-      }
+      for (int e = 0; e < VEC; ++e) ks[j * HD + c * VEC + e] = kf[e];
+    }
+    for (int idx = tid; idx < BK * CPRV; idx += NT) {
+      const int j = idx / CPRV;
+      const int c = idx % CPRV;
+      float vf[VEC] = {0.f, 0.f, 0.f, 0.f};
+      if (kb + j < S) load16(vbase + (long long)(kb + j) * st.v_s + c * VEC, vf);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        ks[j * HD + c * VEC + e] = kf[e];
-        vs[j * HD + c * VEC + e] = vf[e];
-      }
+      for (int e = 0; e < VEC; ++e) vs[j * HDV + c * VEC + e] = vf[e];
     }
     __syncthreads();
 
@@ -517,15 +534,15 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     l = l * alpha + psum;
     m = mt;
 #pragma unroll
-    for (int i = 0; i < NC; ++i) {
+    for (int i = 0; i < NCV; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
     }
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      const float4* vr = reinterpret_cast<const float4*>(vs + j * HD);
+      const float4* vr = reinterpret_cast<const float4*>(vs + j * HDV);
 #pragma unroll
-      for (int i = 0; i < NC; ++i) {
+      for (int i = 0; i < NCV; ++i) {
         const float4 vv = vr[i * TPR + t];
         acc[i][0] = fmaf(s[j], vv.x, acc[i][0]);
         acc[i][1] = fmaf(s[j], vv.y, acc[i][1]);
@@ -539,7 +556,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l, 1e-30f);
     float* orow = o + b * st.o_b + (long long)qpos * st.o_s + h * st.o_h;
 #pragma unroll
-    for (int i = 0; i < NC; ++i) {
+    for (int i = 0; i < NCV; ++i) {
       const int d0 = 4 * (i * TPR + t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) orow[d0 + e] = acc[i][e] / denom;
@@ -547,49 +564,50 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int S, int H, int KV, const Strides& st, float scale,
                cudaStream_t stream) {
-  constexpr int SMEM = 2 * BK * HD * (int)sizeof(float);
+  constexpr int SMEM = BK * (HD + HDV) * (int)sizeof(float);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd<HD / 16>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      flash_fwd<HD / 16, HDV / 16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd<HD / 16><<<grid, NT, SMEM, stream>>>(
+  flash_fwd<HD / 16, HDV / 16><<<grid, NT, SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H / KV, st,
       scale);
   return cudaGetLastError();
 }
 
-#define REPRO_HEAD_DIMS(X) X(16) X(32) X(64) X(80) X(112) X(128) X(160) X(256)
+#define REPRO_HEAD_DIMS(X)                                                 \
+  X(16, 16) X(32, 32) X(64, 64) X(80, 80) X(112, 112) X(128, 128)         \
+  X(160, 160) X(256, 256) X(192, 128)
 
-int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
-             void* o, int B, int S, int H, int KV, const Strides& st,
-             float scale, cudaStream_t stream) {
-#define REPRO_FLASH_CASE(HD)                                                \
-  case HD:                                                                  \
-    return dtype == 0                                                       \
-        ? launch_f32<HD>(q, k, v, o, B, S, H, KV, st, scale, stream)        \
-        : launch_wgmma<HD>(q, k, v, o, B, S, H, KV, st, scale, stream);
-  switch (hd) {
-    REPRO_HEAD_DIMS(REPRO_FLASH_CASE)
-    default: return cudaErrorInvalidValue;
-  }
+int dispatch(int dtype, int hd, int hdv, const void* q, const void* k,
+             const void* v, void* o, int B, int S, int H, int KV,
+             const Strides& st, float scale, cudaStream_t stream) {
+#define REPRO_FLASH_CASE(HD, HDV)                                             \
+  if (hd == HD && hdv == HDV)                                                 \
+    return dtype == 0                                                         \
+        ? launch_f32<HD, HDV>(q, k, v, o, B, S, H, KV, st, scale, stream)     \
+        : launch_wgmma<HD, HDV>(q, k, v, o, B, S, H, KV, st, scale, stream);
+  REPRO_HEAD_DIMS(REPRO_FLASH_CASE)
 #undef REPRO_FLASH_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q (B,S,H,hd), k/v (B,S,KV,hd),
-// o (B,S,H,hd), each addressed through its (batch, seq, head) strides in
-// elements with a contiguous head dim; in bf16 every pointer and stride is a
-// multiple of 16 bytes (TMA). hd is one of REPRO_HEAD_DIMS. Returns a
-// cudaError_t, or REPRO_ERR_TENSOR_MAP.
+// dtype: 0 = float32, 1 = bfloat16. q (B,S,H,hd), k (B,S,KV,hd),
+// v (B,S,KV,hd_v), o (B,S,H,hd_v), each addressed through its (batch, seq,
+// head) strides in elements with a contiguous head dim; in bf16 every
+// pointer and stride is a multiple of 16 bytes (TMA). (hd, hd_v) is one of
+// REPRO_HEAD_DIMS. Returns a cudaError_t, or REPRO_ERR_TENSOR_MAP.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype,
-    int B, int S, int H, int KV, int hd,
+    int B, int S, int H, int KV, int hd, int hd_v,
     long long q_b, long long q_s, long long q_h,
     long long k_b, long long k_s, long long k_h,
     long long v_b, long long v_s, long long v_h,
@@ -598,6 +616,6 @@ extern "C" int flash_attention_fwd(
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const Strides st{q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h};
-  return dispatch(dtype, hd, q, k, v, o, B, S, H, KV, st, scale,
+  return dispatch(dtype, hd, hd_v, q, k, v, o, B, S, H, KV, st, scale,
                   static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,11 @@
-"""Causal GQA flash attention in the model layout (B, S, H, hd).
+"""Causal GQA flash attention in the model layout (B, S, H, hd), with a value
+width of its own (MLA: q/k 192, v 128).
 
 Replaces the TPU kernel ``repro/kernels/flash_attention/flash_attention.py``
 (``_flash_kernel`` / ``flash_attention_bhsd``) and its shim ``ops.py``. On the
-H100 the prefill call is bound by operations (the two products of attention,
-causal half), not bytes. The CUDA kernels (``csrc/flash_attention.cu``) read
+H100 the GQA prefill call is bound by operations (the two products of
+attention, causal half), not bytes; MLA's, whose every head has its own K
+and V, narrowly by bytes. The CUDA kernels (``csrc/flash_attention.cu``) read
 q/k/v in place (kv head ``h // G``, no repeat-KV, no transposed or padded
 copies), keep the online-softmax state in f32 registers and mask the ragged
 edge themselves. bf16 runs on the tensor cores (``wgmma``, operands brought
@@ -28,17 +30,21 @@ launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"flash_attention_fwd":
-               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12
-               + [ctypes.c_float, _P]}
+               [_P, _P, _P, _P] + [_I] * 7 + [_L] * 12 + [ctypes.c_float, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the head widths the kernels are instantiated for: the ported configs'
-# (64, 80, 112, 128, 160, 256) and the smoke configs' and tests' (16, 32)
+# the head widths the kernels are instantiated for where q/k and v have one
+# width: the ported configs' (64, 80, 112, 128, 160, 256) and the smoke
+# configs' and tests' (16, 32)
 HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160, 256)
+# every (q/k width, v width) pair instantiated: the above, and DeepSeek
+# MLA's prefill (nope 128 + rope 64 against v 128)
+HEAD_DIM_PAIRS = tuple((hd, hd) for hd in HEAD_DIMS) + ((192, 128),)
 
 
 def _check(q, k, v):
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError("flash_attention takes q (B,S,H,hd), k/v (B,S,KV,hd)")
+        raise ValueError("flash_attention takes q (B,S,H,hd), k (B,S,KV,hd), "
+                         "v (B,S,KV,hd_v)")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
@@ -49,15 +55,14 @@ def _check(q, k, v):
     if k.shape != (B, S, KV, hd):
         raise ValueError(f"k shape {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
-    if v.shape[-1] != hd:
-        raise NotImplementedError("the kernel takes hd_v == hd_qk only "
-                                  f"(got {v.shape[-1]} != {hd})")
-    if v.shape != k.shape:
-        raise ValueError(f"v shape {tuple(v.shape)} != k {tuple(k.shape)}")
+    if v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"v shape {tuple(v.shape)} does not match k "
+                         f"{tuple(k.shape)}")
     if H % KV:
         raise ValueError(f"num heads {H} is not a multiple of kv heads {KV}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} is not one of {HEAD_DIMS}")
+    if (hd, v.shape[-1]) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head widths (q/k {hd}, v {v.shape[-1]}) are not "
+                         f"one of the pairs built, {HEAD_DIM_PAIRS}")
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
@@ -76,7 +81,8 @@ def plain(q, k, v, *, scale: float):
 
 
 def flash_attention(q, k, v, *, scale: float):
-    """Causal attention: q (B, S, H, hd), k/v (B, S, KV, hd) -> (B, S, H, hd)."""
+    """Causal attention: q (B, S, H, hd), k (B, S, KV, hd), v (B, S, KV, hd_v)
+    -> (B, S, H, hd_v)."""
     return _grad.call(_launch, plain, q, k, v, scale=scale)
 
 
@@ -85,11 +91,12 @@ def _launch(q, k, v, *, scale):
     global launches
     _check(q, k, v)
     B, S, H, hd = q.shape
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    hd_v = v.shape[-1]
+    o = q.new_empty((B, S, H, hd_v))
     lib = _build.load("flash_attention", _SIGNATURES)
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        _DTYPES[q.dtype], B, S, H, k.shape[2], hd,
+        _DTYPES[q.dtype], B, S, H, k.shape[2], hd, hd_v,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_attention", err)

@@ -6,7 +6,7 @@ import torch
 
 
 def attention_ref(q, k, v, *, scale: float):
-    """q (B, H, S, hd), k/v (B, KV, S, hd) -> (B, H, S, hd)."""
+    """q (B, H, S, hd), k (B, KV, S, hd), v (B, KV, S, hd_v) -> (B, H, S, hd_v)."""
     B, H, S, hd = q.shape
     KV = k.shape[1]
     G = H // KV

@@ -1,9 +1,15 @@
-"""Attention: GQA/MQA/MHA with RoPE flavors (DeepSeek MLA joins with its slice).
+"""Attention variants: GQA/MQA/MHA with RoPE flavors, and DeepSeek MLA.
 
-Two entry modes, as in the JAX package:
-  * full-sequence causal (train / prefill): ``gqa_full``
+Entry modes, as in the JAX package:
+  * full-sequence causal (train / prefill): ``gqa_full``, ``mla_full``
+    (K/V decompressed from the latent; the flash kernel takes MLA's
+    query/key width 192 with its value width 128 as they are);
   * single-token decode against a KV cache: ``gqa_decode``, which writes the
-    new K/V row into the cache in place (JAX returns an updated copy).
+    new K/V row into the cache in place (JAX returns an updated copy);
+  * MLA decode in the absorbed-weight form (``mla_decode``): scores in the
+    512-dim latent space, only (c_kv, k_rope) cached, written in place. Its
+    f32 einsums are the reference's: attention through no kernel there
+    either.
 """
 from __future__ import annotations
 
@@ -12,8 +18,9 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (apply_rope, init_linear, linear,
-                                       rope_cos_sin, rot_dim_for)
+from repro_torch.models.layers import (apply_rope, init_linear, init_rmsnorm,
+                                       linear, rmsnorm, rope_cos_sin,
+                                       rot_dim_for)
 
 NEG_INF = -2.0e38
 
@@ -120,9 +127,95 @@ def gqa_decode(p, x, cfg: ModelConfig, positions, k_cache, v_cache, index):
 
 
 # ================================================================== MLA layer
-def _mla_not_ported(*_args, **_kwargs):
-    raise NotImplementedError("MLA attention is not ported yet; it joins with "
-                              "the MoE/MLA slice")
+def init_mla(gen, cfg: ModelConfig, dtype, device, lead=()):
+    d, H = cfg.d_model, cfg.num_heads
+    nope, rope_d, vdim, r = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                             cfg.v_head_dim, cfg.kv_lora_rank)
+    return {
+        "wq": init_linear(gen, d, H * (nope + rope_d), dtype, device,
+                          lead=lead),
+        "w_dkv": init_linear(gen, d, r, dtype, device, lead=lead),
+        "w_krope": init_linear(gen, d, rope_d, dtype, device, lead=lead),
+        "kv_norm": init_rmsnorm(r, dtype, device, lead),
+        "w_uk": init_linear(gen, r, H * nope, dtype, device, lead=lead),
+        "w_uv": init_linear(gen, r, H * vdim, dtype, device, lead=lead),
+        "wo": init_linear(gen, H * vdim, d, dtype, device, lead=lead,
+                          stddev=1.0 / math.sqrt(H * vdim * 2 * cfg.num_layers)),
+    }
 
 
-init_mla = mla_latents = mla_full = mla_decode = _mla_not_ported
+def _mla_dims(cfg):
+    return (cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+            cfg.v_head_dim, cfg.kv_lora_rank)
+
+
+def mla_latents(p, x, cfg: ModelConfig, positions):
+    """Compute (c_kv, k_rope) — the quantities MLA caches."""
+    B, S, _ = x.shape
+    H, nope, rope_d, vdim, r = _mla_dims(cfg)
+    c_kv = rmsnorm(p["kv_norm"], linear(p["w_dkv"], x), cfg.norm_eps,
+                   cfg.use_pallas)                                  # (B,S,r)
+    k_rope = linear(p["w_krope"], x).reshape(B, S, 1, rope_d)
+    cos, sin = rope_cos_sin(cfg, positions, rope_d)
+    k_rope = apply_rope(k_rope, cos, sin)
+    return c_kv, k_rope, (cos, sin)
+
+
+def mla_full(p, x, cfg: ModelConfig, positions, *, return_kv: bool = False):
+    """Full-sequence MLA (train / prefill). Decompresses K/V explicitly; q
+    and k are (B, S, H, nope + rope_d), v (B, S, H, vdim), all contiguous
+    (k_rope broadcast to every head by the concatenation)."""
+    B, S, _ = x.shape
+    H, nope, rope_d, vdim, r = _mla_dims(cfg)
+    c_kv, k_rope, (cos, sin) = mla_latents(p, x, cfg, positions)
+    q = linear(p["wq"], x).reshape(B, S, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_nope = linear(p["w_uk"], c_kv).reshape(B, S, H, nope)
+    v = linear(p["w_uv"], c_kv).reshape(B, S, H, vdim)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, rope_d)], -1)
+    qf = torch.cat([q_nope, q_rope], -1)
+    o = attn_core(qf, k, v, scale=1.0 / math.sqrt(nope + rope_d),
+                  use_pallas=cfg.use_pallas)
+    out = linear(p["wo"], o.reshape(B, S, H * vdim))
+    return out, ((c_kv, k_rope[:, :, 0, :]) if return_kv else None)
+
+
+def mla_decode(p, x, cfg: ModelConfig, positions, ckv_cache, krope_cache,
+               index):
+    """Absorbed-weight MLA decode.
+
+    scores[h, s] = q_nope[h] @ W_uk[h]^T @ c_kv[s]  +  q_rope[h] @ k_rope[s]
+    out[h]       = (sum_s w[h,s] c_kv[s]) @ W_uv[h]
+    Caches: ckv_cache (B,Smax,r), krope_cache (B,Smax,rope_d); the new rows
+    are written in place at ``index`` (a 0-dim int32 tensor on the device).
+    Returns (out, ckv_cache, krope_cache).
+    """
+    B = x.shape[0]
+    H, nope, rope_d, vdim, r = _mla_dims(cfg)
+    c_kv, k_rope, (cos, sin) = mla_latents(p, x, cfg, positions)
+    row = index.reshape(1).long()
+    ckv_cache.index_copy_(1, row, c_kv.to(ckv_cache.dtype))
+    krope_cache.index_copy_(1, row, k_rope[:, :, 0, :].to(krope_cache.dtype))
+
+    q = linear(p["wq"], x).reshape(B, 1, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, cos, sin)
+    w_uk = p["w_uk"]["w"].reshape(r, H, nope)
+    ckv = ckv_cache.float()
+    # absorb: q_lat (B,1,H,r)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk.float())
+    scale = 1.0 / math.sqrt(nope + rope_d)
+    s_lat = torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
+    s_rope = torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
+                          krope_cache.float())
+    scores = (s_lat + s_rope) * scale
+    Sk = ckv_cache.shape[1]
+    mask = torch.arange(Sk, device=x.device)[None, None, None, :] < index + 1
+    scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    ctx_lat = torch.einsum("bhqs,bsr->bqhr", w, ckv)
+    w_uv = p["w_uv"]["w"].reshape(r, H, vdim)
+    o = torch.einsum("bqhr,rhv->bqhv", ctx_lat, w_uv.float())
+    out = linear(p["wo"], o.reshape(B, 1, H * vdim).to(x.dtype))
+    return out, ckv_cache, krope_cache

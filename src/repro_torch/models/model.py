@@ -1,14 +1,14 @@
-"""The decoder-LM trunk of the port: three families of layer stack.
+"""The decoder-LM trunk of the port, covering all ten architectures of the
+JAX package: four families of layer stack.
 
   * dense / audio / vlm : [norm -> attn, norm -> mlp] x L over stacked params
+  * moe                 : optional leading dense layers (``dense_layers``),
+                          then [norm -> attn, norm -> moe] x L; attention is
+                          GQA or DeepSeek's MLA (``cfg.use_mla``)
   * ssm (mamba2)        : [norm -> mamba2] x L
   * hybrid (zamba2)     : groups of ``attn_every`` mamba2 layers, each group
                           followed by ONE weight-shared attention+MLP block,
                           then the tail of leftover mamba2 layers
-
-The MoE family and MLA join with their slice; until then ``init_params``,
-``init_cache``, ``forward`` and ``decode`` raise ``NotImplementedError`` for
-them.
 
 Layers are stacked (leading L dim; the hybrid's groups carry two leading
 dims, (n_groups, attn_every)) as in the JAX package, so weights cross the
@@ -53,20 +53,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
 
 Params = Dict[str, Any]
 
-_PORTED_FAMILIES = ("dense", "audio", "vlm", "ssm", "hybrid")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in _PORTED_FAMILIES or cfg.use_mla:
-        what = "MLA attention" if cfg.use_mla else f"family {cfg.family!r}"
-        raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet (the port runs the "
-            f"dense/audio/vlm, ssm and hybrid paths)")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -123,6 +115,11 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def _first_dense(cfg: ModelConfig) -> int:
+    """The MoE family's leading dense layers (``dense_layers``), else 0."""
+    return cfg.first_dense_layers if cfg.family == "moe" else 0
+
+
 def _hybrid_layout(cfg: ModelConfig) -> Tuple[int, int]:
     """(#full groups of ``attn_every`` ssm layers, #tail ssm layers)."""
     g = cfg.num_layers // cfg.attn_every
@@ -130,28 +127,68 @@ def _hybrid_layout(cfg: ModelConfig) -> Tuple[int, int]:
 
 
 # ================================================================ block: dense
-def init_dense_block(gen, cfg: ModelConfig, dtype, device, lead=()):
-    return {"norm1": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
-            "norm2": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
-            "attn": attn.init_gqa(gen, cfg, dtype, device, lead),
-            "mlp": L.init_mlp(gen, cfg, cfg.d_ff, dtype, device, lead)}
+def init_dense_block(gen, cfg: ModelConfig, dtype, device, lead=(), *,
+                     use_moe: bool = False):
+    p = {"norm1": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
+         "norm2": L.init_rmsnorm(cfg.d_model, dtype, device, lead)}
+    p["attn"] = (attn.init_mla(gen, cfg, dtype, device, lead) if cfg.use_mla
+                 else attn.init_gqa(gen, cfg, dtype, device, lead))
+    if use_moe:
+        p["moe"] = moe_lib.init_moe(gen, cfg, dtype, device, lead)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, cfg.d_ff, dtype, device, lead)
+    return p
 
 
 def dense_block_full(p, x, cfg: ModelConfig, positions, *, return_kv: bool):
+    """Returns (out, kv or None, the MoE aux loss or None)."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, cfg.use_pallas)
-    h, kv = attn.gqa_full(p["attn"], h, cfg, positions, return_kv=return_kv)
+    if cfg.use_mla:
+        h, kv = attn.mla_full(p["attn"], h, cfg, positions, return_kv=return_kv)
+    else:
+        h, kv = attn.gqa_full(p["attn"], h, cfg, positions, return_kv=return_kv)
     x = x + h
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, cfg.use_pallas)
-    return x + L.mlp(p["mlp"], h, cfg), kv
+    if "moe" in p:
+        h, aux = moe_lib.moe_apply(p["moe"], h, cfg)
+    else:
+        h, aux = L.mlp(p["mlp"], h, cfg), None
+    return x + h, kv, aux
 
 
 def dense_block_decode(p, x, cfg: ModelConfig, positions, cache, index):
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, cfg.use_pallas)
-    h, ck, cv = attn.gqa_decode(p["attn"], h, cfg, positions,
-                                cache["k"], cache["v"], index)
+    if cfg.use_mla:
+        h, c1, c2 = attn.mla_decode(p["attn"], h, cfg, positions,
+                                    cache["c_kv"], cache["k_rope"], index)
+        new_cache = {"c_kv": c1, "k_rope": c2}
+    else:
+        h, ck, cv = attn.gqa_decode(p["attn"], h, cfg, positions,
+                                    cache["k"], cache["v"], index)
+        new_cache = {"k": ck, "v": cv}
     x = x + h
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, cfg.use_pallas)
-    return x + L.mlp(p["mlp"], h, cfg), {"k": ck, "v": cv}
+    if "moe" in p:
+        h, _ = moe_lib.moe_apply(p["moe"], h, cfg)
+    else:
+        h = L.mlp(p["mlp"], h, cfg)
+    return x + h, new_cache
+
+
+def _dense_stack_full(stacked, x, aux, cfg: ModelConfig, positions,
+                      prefill: bool, grad: bool):
+    """The attention blocks of a stack in order: (x, aux plus the blocks'
+    MoE aux losses, their prefill caches stacked or None)."""
+    block = _remat(cfg, dense_block_full, grad)
+    kvs = []
+    for lp in _unbind(stacked):
+        x, kv, a = block(lp, x, cfg, positions, return_kv=prefill)
+        if a is not None:
+            aux = aux + a
+        kvs.append(kv)
+    if not prefill:
+        return x, aux, None
+    return x, aux, _kv_dict(cfg, [torch.stack(t) for t in zip(*kvs)])
 
 
 # ================================================================== block: ssm
@@ -188,7 +225,6 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random weights with the JAX package's distributions, drawn from one
     ``torch.Generator`` seeded with ``seed`` and created on ``device``.
     (The bits differ from JAX's: tests carry JAX's weights over the bridge.)"""
-    _require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = torch_dtype(cfg)
@@ -211,6 +247,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
             params["ssm_tail"] = init_ssm_block(gen, cfg, dtype, dev,
                                                 lead=(tail,))
         params["shared_attn"] = init_dense_block(gen, cfg, dtype, dev)
+    elif cfg.family == "moe":
+        fd = _first_dense(cfg)
+        if fd:
+            params["dense_layers"] = init_dense_block(gen, cfg, dtype, dev,
+                                                      lead=(fd,))
+        params["layers"] = init_dense_block(gen, cfg, dtype, dev,
+                                            lead=(cfg.num_layers - fd,),
+                                            use_moe=True)
     else:
         params["layers"] = init_dense_block(gen, cfg, dtype, dev,
                                             lead=(cfg.num_layers,))
@@ -222,8 +266,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> Dict[str, Any]:
     """Preallocated decoding caches (stacked over layers), plus ``index``
     (a 0-dim int32 tensor on the device, as in JAX). Mamba2 layers keep
-    their last K-1 conv inputs and an f32 state; attention keeps K/V."""
-    _require_ported(cfg)
+    their last K-1 conv inputs and an f32 state; attention keeps K/V, MLA
+    its latent ``c_kv`` and ``k_rope``."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
 
@@ -231,6 +275,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         return torch.zeros(shape, dtype=dt, device=dev)
 
     def gqa_cache(n_layers):
+        if cfg.use_mla:
+            return {"c_kv": zeros((n_layers, batch, max_len,
+                                   cfg.kv_lora_rank)),
+                    "k_rope": zeros((n_layers, batch, max_len,
+                                     cfg.qk_rope_head_dim))}
         shape = (n_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
         return {"k": zeros(shape), "v": zeros(shape)}
 
@@ -252,6 +301,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         if tail:
             cache["ssm_tail"] = ssm_cache((tail,))
         cache["attn"] = gqa_cache(n_groups)
+    elif _first_dense(cfg):
+        cache["dense_layers"] = gqa_cache(_first_dense(cfg))
+        cache["layers"] = gqa_cache(cfg.num_layers - _first_dense(cfg))
     else:
         cache["layers"] = gqa_cache(cfg.num_layers)
     return cache
@@ -284,7 +336,6 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill', got {mode!r}")
-    _require_ported(cfg)
     prefill = mode == "prefill"
     grad = _needs_grad(params)
     positions = batch["positions"]
@@ -302,7 +353,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         ssm_caches, ks, vs = [], [], []
         for grp in _unbind(params["ssm_groups"]):
             x, c = _ssm_stack_full(grp, x, cfg, prefill, grad)
-            x, kv = shared_block(shared, x, cfg, positions, return_kv=prefill)
+            x, kv, _ = shared_block(shared, x, cfg, positions,
+                                    return_kv=prefill)
             if prefill:
                 ssm_caches.append(c)
                 ks.append(kv[0])
@@ -315,16 +367,13 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             if tail:
                 caches["ssm_tail"] = tail_c
             caches["attn"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
-    else:
-        block = _remat(cfg, dense_block_full, grad)
-        ks, vs = [], []
-        for lp in _unbind(params["layers"]):
-            x, kv = block(lp, x, cfg, positions, return_kv=prefill)
-            if prefill:
-                ks.append(kv[0])
-                vs.append(kv[1])
-        if prefill:
-            caches["layers"] = _kv_dict(cfg, (torch.stack(ks), torch.stack(vs)))
+    else:                                   # dense / moe / audio / vlm
+        if _first_dense(cfg):
+            x, aux_total, caches["dense_layers"] = _dense_stack_full(
+                params["dense_layers"], x, aux_total, cfg, positions, prefill,
+                grad)
+        x, aux_total, caches["layers"] = _dense_stack_full(
+            params["layers"], x, aux_total, cfg, positions, prefill, grad)
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, cfg.use_pallas)
     if prefill:
@@ -336,6 +385,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def _kv_dict(cfg, kvs):
+    if cfg.use_mla:
+        return {"c_kv": kvs[0], "k_rope": kvs[1]}
     return {"k": kvs[0], "v": kvs[1]}
 
 
@@ -348,7 +399,6 @@ def decode(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     tensors in place and returns (logits (B,1,V), new_cache), where new_cache
     shares those tensors and carries ``index + 1``. Nothing here waits on the
     device."""
-    _require_ported(cfg)
     index = cache["index"]
     positions = batch["positions"]
     x = _inputs_to_h(params, cfg, batch)
@@ -371,9 +421,11 @@ def decode(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             x, _ = ssm_block_decode(_layer(params["ssm_tail"], i), x, cfg,
                                     _layer(cache["ssm_tail"], i))
     else:
-        for i in range(cfg.num_layers):
-            x, _ = dense_block_decode(_layer(params["layers"], i), x, cfg,
-                                      positions, _layer(cache["layers"], i),
-                                      index)
+        fd = _first_dense(cfg)
+        for stack, n in (("dense_layers", fd), ("layers", cfg.num_layers - fd)):
+            for i in range(n):
+                x, _ = dense_block_decode(_layer(params[stack], i), x, cfg,
+                                          positions, _layer(cache[stack], i),
+                                          index)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, cfg.use_pallas)
     return _logits(params, cfg, x), new_cache

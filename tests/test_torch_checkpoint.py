@@ -173,3 +173,30 @@ def test_restored_state_continues_training_bit_for_bit(tmp_path):
     assert float(a[2]["loss"]) == float(b[2]["loss"])
     for x, y in zip(T.leaves((a[0], a[1])), T.leaves((b[0], b[1]))):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_moe_tree_round_trips_bit_for_bit(tmp_path, async_save):
+    """deepseek's smoke tree (MLA, a leading dense layer, the MoE stack with
+    bare (E, d, ff) expert weights and an f32 router inside the bf16 tree):
+    through the port's checkpoint and back, into JAX's manager, and through
+    ``bridge.to_numpy``, every leaf equal bit for bit in its own dtype."""
+    jstate, state = _states("deepseek-v2-lite-16b")
+    router = state["params"]["layers"]["moe"]["router"]["w"]
+    assert router.dtype == torch.float32
+    assert state["params"]["layers"]["moe"]["w_in"].dtype == torch.bfloat16
+    mgr = CheckpointManager(str(tmp_path), async_save=async_save)
+    mgr.save(5, state)
+    back = mgr.restore(template=_zeros_like(state))["tree"]
+    _assert_same_bits(back, jstate)
+    assert back["params"]["layers"]["moe"]["router"]["w"].dtype == \
+        torch.float32
+    out = JManager(str(tmp_path)).restore(template=jstate)["tree"]
+    assert out["params"]["layers"]["moe"]["router"]["w"].dtype == jnp.float32
+    _assert_same_bits(state, out)
+    host = bridge.to_numpy(back["params"])
+    want = jax.tree.map(np.asarray, jstate["params"])
+    assert jax.tree.structure(host) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(host), jax.tree.leaves(want)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert host["layers"]["moe"]["router"]["w"].dtype == np.float32

@@ -30,6 +30,11 @@ from repro_torch.models import model as M
 pytestmark = pytest.mark.gpu
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# deepseek's smoke config at its published MLA head widths (q/k 128 + 64,
+# v 128): the flash kernel is built for that pair, not the smoke's (24, 16)
+MLA_WIDTHS = {"qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+              "v_head_dim": 128}
+SMOKE_OVERRIDES = {"deepseek-v2-lite-16b": MLA_WIDTHS}
 # f32: the kernel sums in another order than cuBLAS; bf16: one rounding of
 # the output plus bf16 inputs, as in the JAX package's kernel tests
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -116,6 +121,42 @@ def test_flash_kernel_head_widths(cuda, hd, S, G, dtype):
                                 ).transpose(1, 2)
     err = (got.float() - want.float()).abs().max().item()
     assert err < TOL[dtype], f"hd {hd} S {S} G {G} {dtype}: {err}"
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("S", [200, 1000])
+def test_flash_kernel_mla_widths(cuda, S, G, dtype):
+    """MLA's prefill: q/k 192 wide (3 TMA slabs, 64-row kv tiles), v and the
+    output 128 wide; ragged S."""
+    B, KV = 2, 2
+    H = G * KV
+    rng = np.random.default_rng(S + G)
+    dt = DTYPES[dtype]
+    q = _randn(rng, (B, S, H, 192), dt, cuda)
+    k = _randn(rng, (B, S, KV, 192), dt, cuda)
+    v = _randn(rng, (B, S, KV, 128), dt, cuda)
+    n0 = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == n0 + 1 and got.shape == (B, S, H, 128)
+    want = fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), scale=192 ** -0.5
+                                ).transpose(1, 2)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < TOL[dtype], f"MLA S {S} G {G} {dtype}: {err}"
+
+
+@pytest.mark.parametrize("widths", [(192, 192), (128, 192), (24, 16),
+                                    (128, 64)])
+def test_flash_kernel_refuses_width_pairs_it_was_not_built_for(cuda, widths):
+    hd, hd_v = widths
+    q = torch.zeros(1, 8, 2, hd, device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros(1, 8, 2, hd_v, device=cuda, dtype=torch.bfloat16)
+    n0 = fa_ops.launches
+    with pytest.raises(ValueError, match="pairs built"):
+        fa_ops.flash_attention(q, q, v, scale=1.0)
+    assert fa_ops.launches == n0
 
 
 def _split_edge(B, KV, S, device):
@@ -441,7 +482,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("arch,over", [
     ("chatglm3-6b", {}), ("stablelm-3b", {}), ("qwen2-vl-7b", {}),
     ("mamba2-130m", {}), ("zamba2-7b", {}),
-    ("zamba2-7b", {"num_layers": 5, "attn_every": 2})])
+    ("zamba2-7b", {"num_layers": 5, "attn_every": 2}),
+    ("deepseek-v2-lite-16b", MLA_WIDTHS), ("phi3.5-moe-42b-a6.6b", {})])
 def test_model_kernel_path_matches_plain_path(cuda, arch, over):
     cfg = get_smoke_config(arch, dtype="float32", **over)
     params = M.init_params(cfg, seed=0, device=cuda)
@@ -495,6 +537,28 @@ def test_serve_batch_runs_every_kernel_hybrid(cuda):
     assert res["tokens"].shape == (n, 40 + new)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_serve_batch_runs_every_kernel_moe(cuda, arch):
+    """The MoE family: deepseek's MLA blocks (a leading dense layer, then
+    MoE) run flash attention in prefill and three norms a step each, and no
+    decode attention; phi's GQA blocks as the dense path's."""
+    from repro_torch.distributed.serve_step import kernel_launches
+    cfg = get_smoke_config(arch, **SMOKE_OVERRIDES.get(arch, {}))
+    for ops in (fa_ops, da_ops, rn_ops, ssd_ops):
+        ops.launches = 0
+    n, new = 3, 5
+    res = serve_batch(cfg, n_requests=n, prompt_len=24, max_new_tokens=new,
+                      quiet=True, device=cuda)
+    got = {"flash_attention": fa_ops.launches,
+           "decode_attention": da_ops.launches,
+           "fused_rmsnorm": rn_ops.launches, "ssd": ssd_ops.launches}
+    assert got == kernel_launches(cfg, new)
+    assert got["fused_rmsnorm"] == ((3 if cfg.use_mla else 2)
+                                    * cfg.num_layers + 1) * new
+    assert res["tokens"].shape == (n, 24 + new)
+
+
 # ------------------------------------------------------------------ training
 def _launches():
     return {"flash_attention": fa_ops.launches,
@@ -503,7 +567,8 @@ def _launches():
 
 
 @pytest.mark.parametrize("arch", ["stablelm-3b", "mamba2-130m", "zamba2-7b",
-                                  "chatglm3-6b"])
+                                  "chatglm3-6b", "deepseek-v2-lite-16b",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_kernel_path_gradients_match_plain_path(cuda, arch):
     """A train step's f32 gradients with use_pallas=True (the kernels in the
     forward and its recompute, the plain versions' vjps in the backward)
@@ -512,7 +577,8 @@ def test_kernel_path_gradients_match_plain_path(cuda, arch):
     every kernel of the path launches, as counted."""
     from repro_torch import tree as T
     from repro_torch.distributed.train_step import kernel_launches, make_grad_fn
-    cfg = get_smoke_config(arch, dtype="float32")
+    cfg = get_smoke_config(arch, dtype="float32",
+                           **SMOKE_OVERRIDES.get(arch, {}))
     params = M.init_params(cfg, seed=0, device=cuda)
     B, S = 2, 40
     gen = torch.Generator(device=cuda).manual_seed(0)

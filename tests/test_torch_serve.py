@@ -1,6 +1,9 @@
 """The port's serving path against the JAX package: greedy ``generate`` gives
 the same tokens on the same (bridged) weights, plus twins of ``pad_cache`` and
-the ``sample`` mask, and the entry points refuse to fall back to the CPU."""
+the ``sample`` mask, and the entry points refuse to fall back to the CPU.
+Also the kernel launches of one ``generate`` that ``serve_step.kernel_launches``
+predicts (``chip_smoke.py`` holds the card to it), counted on the CPU with each
+launch played by its kernel's plain version."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +22,9 @@ from repro_torch.models import model as M
 
 
 @pytest.mark.parametrize("use_pallas", [True, False])
-@pytest.mark.parametrize("arch", ["chatglm3-6b", "stablelm-3b"])
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "stablelm-3b",
+                                  "deepseek-v2-lite-16b",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_greedy_generate_matches_jax_tokens(arch, use_pallas):
     jcfg = jget_smoke(arch, dtype="float32")
     cfg = get_smoke_config(arch, dtype="float32", use_pallas=use_pallas)
@@ -55,6 +60,96 @@ def test_pad_cache_matches_jax():
     assert same["layers"]["k"] is got["layers"]["k"]
 
 
+def test_pad_cache_on_a_moe_mla_cache_matches_jax():
+    """deepseek's cache: MLA's latent leaves (L, B, S, r) and (L, B, S,
+    rope_d), in the leading dense layer's subtree and the MoE stack's."""
+    jcfg = jget_smoke("deepseek-v2-lite-16b")
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    rng = np.random.default_rng(1)
+    cache = {"index": np.asarray(5, np.int32)}
+    for stack, n in (("dense_layers", 1), ("layers", 1)):
+        cache[stack] = {
+            "c_kv": rng.standard_normal((n, 2, 5, 32)).astype(np.float32),
+            "k_rope": rng.standard_normal((n, 2, 5, 8)).astype(np.float32)}
+    want = jss.pad_cache(jax.tree.map(jnp.asarray, cache), jcfg, 9)
+    got = ss.pad_cache(bridge.to_torch(cache, device="cpu"), cfg, 9)
+    for stack in ("dense_layers", "layers"):
+        assert got[stack]["c_kv"].shape == (1, 2, 9, 32)
+        assert got[stack]["k_rope"].shape == (1, 2, 9, 8)
+        for n in ("c_kv", "k_rope"):
+            np.testing.assert_array_equal(got[stack][n].numpy(),
+                                          np.asarray(want[stack][n]))
+    # the prefill's own cache, grown for decode, has the reference's layout
+    jparams = jM.init_params(jax.random.PRNGKey(0), jcfg)
+    B, S = 2, 6
+    tokens = np.zeros((B, S), np.int32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    _, _, jc = jM.forward(jparams, jcfg, {"tokens": tokens, "positions": pos},
+                          mode="prefill")
+    params = bridge.to_torch(jax.tree.map(np.asarray, jparams), device="cpu")
+    _, _, tc = M.forward(params, cfg, {"tokens": torch.from_numpy(tokens),
+                                       "positions": torch.from_numpy(pos)},
+                         mode="prefill")
+    jc, tc = jss.pad_cache(jc, jcfg, S + 4), ss.pad_cache(tc, cfg, S + 4)
+    assert jax.tree.map(lambda a: a.shape, jc) == {
+        k: ({n: tuple(t.shape) for n, t in v.items()} if isinstance(v, dict)
+            else tuple(v.shape)) for k, v in tc.items()}
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("deepseek-v2-lite-16b", {}), ("phi3.5-moe-42b-a6.6b", {}),
+    ("chatglm3-6b", {}), ("zamba2-7b", {"num_layers": 5, "attn_every": 2}),
+    ("mamba2-130m", {})])
+def test_kernel_launches_of_generate(monkeypatch, arch, over):
+    """Each launch played by its kernel's plain version (CPU tensors routed
+    as CUDA tensors are): the counts of one generate are what
+    ``serve_step.kernel_launches`` says. An MLA block runs three norms a step
+    (norm1, norm2, kv_norm) and no decode attention; deepseek's leading
+    dense layer counts as the MoE layers do."""
+    from repro_torch.kernels import _grad
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    def played(mod, fn):
+        def run(*args, **kw):
+            mod.launches += 1
+            return fn(*args, **kw)
+        return run
+    monkeypatch.setattr(_grad, "KERNEL_DEVICE", "cpu")
+    for mod in (fa_ops, rn_ops, ssd_ops):
+        monkeypatch.setattr(mod, "_launch", played(mod, mod.plain))
+        monkeypatch.setattr(mod, "launches", 0)
+    monkeypatch.setattr(da_ops, "launches", 0)
+    monkeypatch.setattr(da_ops, "decode_attention",
+                        played(da_ops, da_ops.decode_attention))
+    cfg = get_smoke_config(arch, **over)
+    new = 4
+    serve.serve_batch(cfg, n_requests=2, prompt_len=7, max_new_tokens=new,
+                      quiet=True, device="cpu")
+    got = {"flash_attention": fa_ops.launches,
+           "decode_attention": da_ops.launches,
+           "fused_rmsnorm": rn_ops.launches, "ssd": ssd_ops.launches}
+    assert got == ss.kernel_launches(cfg, new)
+
+
+def test_kernel_launches_at_the_main_path_sizes():
+    """The counts chip_smoke.py requires of one serve_batch of 32 new tokens
+    at the MoE configurations' full widths (phi3.5-moe at 16 layers)."""
+    from repro_torch.configs import get_config
+    ds = ss.kernel_launches(get_config("deepseek-v2-lite-16b"), 32)
+    assert ds == {"flash_attention": 27, "decode_attention": 0,
+                  "fused_rmsnorm": 82 * 32, "ssd": 0}
+    phi = ss.kernel_launches(get_config("phi3.5-moe-42b-a6.6b",
+                                        num_layers=16), 32)
+    assert phi == {"flash_attention": 16, "decode_attention": 16 * 31,
+                   "fused_rmsnorm": 33 * 32, "ssd": 0}
+    glm = ss.kernel_launches(get_config("chatglm3-6b"), 32)
+    assert glm == {"flash_attention": 28, "decode_attention": 868,
+                   "fused_rmsnorm": 1824, "ssd": 0}
+
+
 def test_sample_masks_padded_vocab_like_jax():
     rng = np.random.default_rng(0)
     logits = rng.standard_normal((4, 1, 64)).astype(np.float32)
@@ -78,6 +173,14 @@ def test_serve_batch_on_cpu_and_cli():
     assert res["tokens"].shape == (2, 12) and res["tokens_per_s"] > 0
     serve.main(["--arch", "chatglm3-6b", "--smoke", "--device", "cpu",
                 "--requests", "2", "--prompt-len", "6", "--max-new-tokens", "3"])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_cli_serves_the_moe_family(arch, capsys):
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests",
+                "2", "--prompt-len", "6", "--max-new-tokens", "3"])
+    assert "2 requests x 3 new tokens" in capsys.readouterr().out
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

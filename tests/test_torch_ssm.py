@@ -9,7 +9,6 @@ against JAX's shapes, types and distributions.
 Tolerance: 1e-4 absolute and relative for logits and caches, as the dense
 model tests (the same f32 math through a few layers, sums in another order);
 1e-5 for single functions."""
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -294,14 +293,3 @@ def test_serve_batch_and_cli_on_cpu(arch):
     serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests",
                 "2", "--prompt-len", "6", "--max-new-tokens", "3"])
 
-
-def test_model_refuses_moe_and_mla():
-    from repro_torch.configs.base import ModelConfig
-    jcfg = jget_smoke("zamba2-7b")
-    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
-    with pytest.raises(NotImplementedError, match="MLA"):
-        M.init_params(ModelConfig(**{**fields, "use_mla": True}),
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="moe"):
-        M.init_cache(ModelConfig(**{**fields, "family": "moe"}), 1, 4,
-                     device="cpu")

@@ -49,7 +49,8 @@ from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 
-ARCHS = ["stablelm-3b", "mamba2-130m", "zamba2-7b"]
+ARCHS = ["stablelm-3b", "mamba2-130m", "zamba2-7b", "deepseek-v2-lite-16b",
+         "phi3.5-moe-42b-a6.6b"]
 TOL = 1e-4
 OPT = dict(total_steps=10, warmup_steps=1)
 
