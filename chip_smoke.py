@@ -62,11 +62,25 @@ Phases, each printing its lines; any failed check exits non-zero:
      f32 gradients against the plain path's (stablelm-3b at full width and 4
      layers, mamba2-130m at full size), and a checkpoint round trip
      (mamba2-130m: saved after step 2, restored into a fresh tree, step 3
-     from both equal bit for bit).
+     from both equal bit for bit);
+  8. the training driver, ``launch/train.py``'s ``train()``, on one rank
+     (synthetic stream, pinned host batches, the loss read every step),
+     with random bf16 weights from the script's seed and each step's kernel
+     launches counted: stablelm-3b at full width and depth, five steps of
+     8 x 1,024 tokens, its step time and tokens/s beside phase 7's direct
+     step and its peak memory; mamba2-130m at full size at
+     examples/train_lm.py's shape (8 x 512): 12 steps, then 8 with a
+     checkpoint every 4 and a resume to 12, whose steps 8-11 must equal the
+     uninterrupted run's bit for bit (the cursor at 8, the first batch the
+     stream's eighth), the loss finite and falling, the save and restore
+     seconds and bytes and the step after an async save; and int8 gradient
+     compression on one rank (each leaf within |g|_inf/127 of the
+     uncompressed gradient, the compressed step's time beside the plain).
 No serving path is cut to fit the time limit: the whole script takes a few
 minutes on an H100.
 The line before the last is the ``{"kernels": [...]}`` summary (with each
-kernel's launches per serve_batch and per train step); the last is
+kernel's launches per serve_batch, per train step and per driver step); the
+last is
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -94,6 +108,13 @@ PARITY_DEPTH = {"stablelm-3b": 4, "mamba2-130m": 24}
 # at most 6.6e-06 (stablelm-3b) and 1.9e-05 (mamba2-130m), the loss equal in
 # every bit on both (first set at 1e-3 and 1e-5)
 GRAD_LEAF_TOL, GRAD_LOSS_TOL = 1e-4, 1e-6
+
+# phase 8: the training driver. stablelm-3b at phase 7's shape; mamba2-130m
+# at examples/train_lm.py's (batch 8, seq_len 512): an uninterrupted run,
+# then a run cut at DRIVER_CUT with a checkpoint every DRIVER_EVERY steps
+# and a resume to DRIVER_STEPS
+DRIVER_LM_BATCH, DRIVER_LM_SEQ = 8, 512
+DRIVER_STEPS, DRIVER_CUT, DRIVER_EVERY = 12, 8, 4
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
@@ -891,14 +912,22 @@ def main():
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ 7. training
-    train_launches = {arch: train_and_hold(torch, get_config(arch), ops_of,
-                                           card, dev)
-                      for arch in TRAIN_PATHS}
+    trained = {arch: train_and_hold(torch, get_config(arch), ops_of, card,
+                                    dev)
+               for arch in TRAIN_PATHS}
+    train_launches = {arch: trained[arch][0] for arch in TRAIN_PATHS}
     torch.cuda.empty_cache()
     for arch, depth in PARITY_DEPTH.items():
         grad_parity(torch, arch, depth, ops_of, card, dev)
         torch.cuda.empty_cache()
     checkpoint_round_trip(torch, get_config("mamba2-130m"), card, dev)
+
+    # ---------------------------------------------------- 8. training driver
+    driver_launches = {
+        "stablelm-3b": drive_stablelm(torch, ops_of, trained["stablelm-3b"][1],
+                                      card),
+        "mamba2-130m": drive_mamba(torch, ops_of, card, dev)}
+    torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- result
     print(f"[device] {card}")
@@ -923,6 +952,9 @@ def main():
                         "launches_by_path": by_path,
                         "launches_per_train_step": {
                             arch: train_launches[arch][name]
+                            for arch in TRAIN_PATHS},
+                        "launches_per_driver_step": {
+                            arch: driver_launches[arch][name]
                             for arch in TRAIN_PATHS},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1291,7 +1323,8 @@ def train_and_hold(torch, cfg, ops_of, card, dev):
     AdamW steps through make_train_step on one fixed batch, each step's
     launch counts read around it; then one more step taken as its two parts
     (forward and backward, then the update), with every leaf's gradient
-    checked. Returns the launch counts of one step."""
+    checked. Returns the launch counts of one step and the median step
+    time in seconds."""
     from repro_torch import tree as T
     from repro_torch.distributed.train_step import (kernel_launches,
                                                     make_grad_fn,
@@ -1378,7 +1411,7 @@ def train_and_hold(torch, cfg, ops_of, card, dev):
           f"and nonzero; launches per step {step_launches}  [{card}]",
           flush=True)
     del params, opt
-    return step_launches
+    return step_launches, med
 
 
 def profile_train_step(torch, arch, grad_fn, opt_cfg, params, opt, batch,
@@ -1513,6 +1546,223 @@ def checkpoint_round_trip(torch, cfg, card, dev):
           f"{cfg.name} step 3 after the restore differs")
     shutil.rmtree(directory)
     del params, opt, back, fresh, a, b
+
+
+@contextlib.contextmanager
+def counted_steps(train_mod, ops_of, record):
+    """Inside, each train step that ``train_mod.train`` makes has its kernel
+    launches counted from 0 and appended to ``record`` with its batch."""
+    real = train_mod.make_train_step
+
+    def make(*args, **kw):
+        step = real(*args, **kw)
+
+        def counted(params, opt, batch):
+            for ops in ops_of.values():
+                ops.launches = 0
+            out = step(params, opt, batch)
+            record.append(({n: ops.launches for n, ops in ops_of.items()},
+                           batch))
+            return out
+        return counted
+
+    train_mod.make_train_step = make
+    try:
+        yield
+    finally:
+        train_mod.make_train_step = real
+
+
+def driver_run(torch, train_mod, cfg, ops_of, **kw):
+    """``train_mod.train(cfg, **kw)`` on the card with each step's launches
+    checked against ``kernel_launches(cfg)`` and every loss finite. Returns
+    train's dict, the launches counted in its first step (as in every other)
+    and the batches the steps got."""
+    from repro_torch.distributed.train_step import kernel_launches
+    record = []
+    with counted_steps(train_mod, ops_of, record):
+        out = train_mod.train(cfg, seed=SEED, log_every=1, device="cuda", **kw)
+    want = kernel_launches(cfg)
+    check(len(record) == len(out["losses"]) > 0,
+          f"{cfg.name}: {len(record)} steps counted, {len(out['losses'])} run")
+    for i, (launches, _) in enumerate(record):
+        check(launches == want, f"{cfg.name} driver step {i}: launches "
+              f"{launches} != {want}")
+    check(all(math.isfinite(x) for x in out["losses"]),
+          f"{cfg.name} driver losses not finite: {out['losses']}")
+    return out, record[0][0], [b for _, b in record]
+
+
+def drive_stablelm(torch, ops_of, direct_step_s, card):
+    """Phase 8 (a): stablelm-3b at full width and depth through ``train()``,
+    TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens from the stream,
+    beside phase 7's direct ``make_train_step`` step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+    cfg = get_config("stablelm-3b")
+    check((cfg.num_layers, cfg.d_model) == TRAIN_WIDTH[cfg.name]
+          and cfg.remat == "full" and cfg.dtype == "bfloat16",
+          "stablelm-3b is not at full width and depth, bf16, remat full")
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, _ = driver_run(
+        torch, train_mod, cfg, ops_of, steps=TRAIN_STEPS,
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        opt_cfg=adamw.OptimizerConfig(warmup_steps=1, total_steps=10))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(out["step_s"][1:])
+    print(f"[driver] stablelm-3b through train(): step {med:.4f} s (median "
+          f"of steps 2-{TRAIN_STEPS}: batch from the stream, copy, step, "
+          f"loss read), {TRAIN_BATCH * TRAIN_SEQ / med:.0f} tokens/s; phase "
+          f"7's direct make_train_step step {direct_step_s:.4f} s in this run"
+          f" (driver/direct {med / direct_step_s:.4f}); first step "
+          f"{out['step_s'][0]:.4f} s; losses "
+          f"{[round(x, 4) for x in out['losses']]}; peak memory "
+          f"{peak_gb:.2f} GB; launches per step {launches}  [{card}]",
+          flush=True)
+    del out
+    return launches
+
+
+def timed_manager(torch, log):
+    """A ``CheckpointManager`` class whose save calls, write threads and
+    restores append (what, step, seconds) to ``log``."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+
+    class Timed(CheckpointManager):
+        def save(self, step, state, extra_meta=None):
+            t0 = time.perf_counter()
+            super().save(step, state, extra_meta)
+            log.append(("save call", step, time.perf_counter() - t0))
+
+        def _write(self, step, host, extra_meta):
+            t0 = time.perf_counter()
+            super()._write(step, host, extra_meta)
+            log.append(("write", step, time.perf_counter() - t0))
+
+        def restore(self, step=None, template=None):
+            t0 = time.perf_counter()
+            out = super().restore(step, template)
+            torch.cuda.synchronize()
+            log.append(("restore", out["step"], time.perf_counter() - t0))
+            return out
+    return Timed
+
+
+def drive_mamba(torch, ops_of, card, dev):
+    """Phase 8 (b) and (c): mamba2-130m at full size at examples/train_lm.py's
+    shape: an uninterrupted run, a run cut with checkpoints and its resume
+    (bit for bit), then int8 gradient compression on one rank."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.distributed.compression import make_local_grad_fn
+    from repro_torch.distributed.train_step import make_grad_fn
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg = get_config("mamba2-130m")
+    check((cfg.num_layers, cfg.d_model) == TRAIN_WIDTH[cfg.name],
+          "mamba2-130m is not at full size")
+    B, S = DRIVER_LM_BATCH, DRIVER_LM_SEQ
+    opt_cfg = adamw.OptimizerConfig(warmup_steps=2, total_steps=DRIVER_STEPS)
+    run = dict(global_batch=B, seq_len=S, opt_cfg=opt_cfg)
+    full, launches, _ = driver_run(torch, train_mod, cfg, ops_of,
+                                   steps=DRIVER_STEPS, **run)
+    losses = full["losses"]
+    check(statistics.mean(losses[-3:]) < losses[0],
+          f"mamba2-130m driver loss did not fall: {losses}")
+    plain_med = statistics.median(full["step_s"][1:])
+    del full
+
+    directory = os.path.join(ROOT, "build", "chip_smoke_driver")
+    shutil.rmtree(directory, ignore_errors=True)
+    log = []
+    real_manager = train_mod.CheckpointManager
+    train_mod.CheckpointManager = timed_manager(torch, log)
+    try:
+        cut, _, _ = driver_run(torch, train_mod, cfg, ops_of, steps=DRIVER_CUT,
+                               ckpt_dir=directory, ckpt_every=DRIVER_EVERY,
+                               **run)
+        step_dir = os.path.join(directory, f"step_{DRIVER_CUT:08d}")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+        with open(os.path.join(step_dir, "manifest.json")) as f:
+            cursor = json.load(f)["meta"]["data"]
+        rest, _, batches = driver_run(torch, train_mod, cfg, ops_of,
+                                      steps=DRIVER_STEPS, ckpt_dir=directory,
+                                      resume=True, **run)
+    finally:
+        train_mod.CheckpointManager = real_manager
+    n_params = sum(t.numel() for t in T.leaves(rest["params"]))
+    del rest["params"], rest["opt_state"]
+    shutil.rmtree(directory)
+    want_first = make_loader(cfg, DataConfig(seq_len=S, global_batch=B,
+                                             seed=SEED))._batch_at(DRIVER_CUT)
+    first_ok = bool(torch.equal(batches[0]["tokens"].cpu(), torch.from_numpy(
+        want_first["tokens"])))
+    resumed = cut["losses"] + rest["losses"]
+    same = sum(a == b for a, b in zip(resumed, losses))
+    after_save = cut["step_s"][DRIVER_EVERY]
+    others = statistics.median(cut["step_s"][1:DRIVER_EVERY]
+                               + cut["step_s"][DRIVER_EVERY + 1:])
+    print(f"[driver] mamba2-130m through train(), batch {B} x {S}: "
+          f"{DRIVER_STEPS} steps uninterrupted, step {plain_med:.4f} s "
+          f"(median of steps 2-{DRIVER_STEPS}), {B * S / plain_med:.0f} "
+          f"tokens/s; losses {[round(x, 4) for x in losses]}; then "
+          f"{DRIVER_CUT} steps with a checkpoint every {DRIVER_EVERY} and a "
+          f"resume to {DRIVER_STEPS}: started at step "
+          f"{DRIVER_STEPS - len(rest['losses'])}, "
+          f"cursor {cursor}, first batch the stream's step {DRIVER_CUT}: "
+          f"{first_ok}; {same} of {DRIVER_STEPS} losses equal bit for bit "
+          f"to the uninterrupted run's  [{card}]", flush=True)
+    print(f"[driver] mamba2-130m checkpoints ({n_params / 1e6:.1f} M bf16 "
+          f"params and two f32 moments): {nbytes / 1e9:.3f} GB on disk a "
+          f"step; " + ", ".join(f"{w} at {st} {sec:.3f} s" for w, st, sec
+                                in log)
+          + f"; the step after the async save at step {DRIVER_EVERY} took "
+          f"{after_save:.4f} s against {others:.4f} s for the run's other "
+          f"steps (median of steps 2-{DRIVER_CUT} without it)  [{card}]",
+          flush=True)
+    check(len(rest["losses"]) == DRIVER_STEPS - DRIVER_CUT
+          and cursor == {"step": DRIVER_CUT, "seed": SEED} and first_ok,
+          f"the resume did not start at step {DRIVER_CUT} with the cursor "
+          f"there: {len(rest['losses'])} steps, cursor {cursor}, first batch "
+          f"{first_ok}")
+    check(same == DRIVER_STEPS, f"resumed losses {resumed} differ from the "
+          f"uninterrupted run's {losses}")
+
+    # (c) int8 gradient compression on one rank: the n == 1 branch
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    nb = make_loader(cfg, DataConfig(seq_len=S, global_batch=B,
+                                     seed=SEED))._batch_at(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+    plain, _ = make_grad_fn(cfg)(params, batch)
+    mesh = make_host_mesh(device=dev)
+    comp, _ = make_local_grad_fn(make_grad_fn(cfg), mesh, ("data",), {},
+                                 compress=True)(params, batch)
+    worst, worst_path = 0.0, ""
+    for (path, g), c in zip(T.flatten(plain), T.leaves(comp)):
+        scale = g.float().abs().max().item() / 127
+        ratio = max_err(c, g) / scale if scale else max_err(c, g)
+        if ratio > worst:
+            worst, worst_path = ratio, path
+    del params, plain, comp, batch
+    check(worst <= 1.0, f"int8 gradients beyond |g|/127: {worst_path} at "
+          f"{worst:.3f} steps")
+    comp_run, comp_launches, _ = driver_run(
+        torch, train_mod, cfg, ops_of, steps=5, compress_grads=True, **run)
+    comp_med = statistics.median(comp_run["step_s"][1:])
+    print(f"[driver] mamba2-130m int8 gradients on one rank: every leaf "
+          f"within |g|_inf/127 of the uncompressed gradient (largest "
+          f"{worst:.3f} of it, {worst_path}); train(compress_grads=True): "
+          f"losses {[round(x, 4) for x in comp_run['losses']]}, step "
+          f"{comp_med:.4f} s (median of steps 2-5) against {plain_med:.4f} "
+          f"s uncompressed; launches per step {comp_launches}  [{card}]",
+          flush=True)
+    del comp_run
+    return launches
 
 
 def teacher_forced(torch, c, params, tokens, S, S_cache, dev):

@@ -1,0 +1,121 @@
+"""Data-parallel gradient mean with an optional int8 wire format, as the JAX
+package's ``repro/distributed/compression.py``.
+
+Each data-parallel rank computes the gradients of its own rows of the
+batch; the mean across the ranks is then explicit: an fp32 all-reduce, or
+the two-phase int8 mean below (4x less traffic than f32 gradients, 2x less
+than bf16). Per-leaf symmetric scaling with a max-shared scale keeps the
+f32 accumulation of int8 values exact; the quantization error is bounded by
+|g|_inf/127 (cf. 8-bit collective literature, Dettmers et al. 2022).
+
+JAX runs this inside a ``shard_map`` manual over the DP mesh axes; here each
+rank is a process and the collectives are ``torch.distributed``'s over the
+mesh's group of those axes (NCCL on the card, gloo on the CPU).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from repro_torch import tree as T
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch.mesh import Mesh
+
+# all_gather into one tensor: ``all_gather_single`` where torch has it (the
+# older name is deprecated there)
+_all_gather = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
+
+def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x.float() / scale), -127, 127
+                       ).to(torch.int8)
+
+
+def _scale(x: torch.Tensor, group) -> torch.Tensor:
+    """max|x| / 127 (at least 1e-12 / 127), the max over ``group``'s ranks."""
+    s = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    if group is not None:
+        dist.all_reduce(s, op=dist.ReduceOp.MAX, group=group)
+    return s
+
+
+def int8_psum_mean(g: torch.Tensor, group, n_shards: int) -> torch.Tensor:
+    """Mean of per-rank tensors across ``group`` (``n_shards`` ranks) with an
+    int8 *wire* format, in f32.
+
+    A plain all-reduce of int8 widened to int32 moves int32 on the wire (no
+    win). The bandwidth-correct schedule is reduce-scatter + all-gather with
+    both phases in int8:
+        all_to_all(int8 chunks) -> local f32 sum -> requantize ->
+        all_gather(int8)
+    = 2 bytes/element on the wire vs 8 (f32 all-reduce) or 4 (bf16)."""
+    if n_shards == 1:
+        scale = _scale(g.float(), None)
+        return quantize_int8(g, scale).float() * scale
+    shape = g.shape
+    flat = g.float().reshape(-1)
+    pad = (-flat.numel()) % n_shards
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    m = flat.numel() // n_shards
+    scale = _scale(flat, group)
+    q = quantize_int8(flat, scale)
+    # phase 1 (int8 wire): rank i receives chunk i from every peer
+    chunks = torch.empty_like(q)
+    dist.all_to_all_single(chunks, q, group=group)
+    part = torch.sum(chunks.view(n_shards, m).float(), dim=0) * scale \
+        / n_shards
+    # phase 2 (int8 wire): share the reduced chunk back to all ranks
+    scale2 = _scale(part, group)
+    q2 = quantize_int8(part, scale2)
+    full = torch.empty(n_shards * m, dtype=torch.int8, device=g.device)
+    _all_gather(full, q2, group=group)
+    out = full.float() * scale2
+    if pad:
+        out = out[:-pad]
+    return out.reshape(shape)
+
+
+def fp32_mean(g: torch.Tensor, group, n_shards: int) -> torch.Tensor:
+    """Mean of per-rank tensors across ``group``: an f32 all-reduce."""
+    x = g.to(torch.float32, copy=True)
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x / n_shards
+
+
+def make_local_grad_fn(grad_fn: Callable, mesh: Mesh,
+                       dp_axes: Tuple[str, ...],
+                       batch_dim_map: Dict[str, int],
+                       compress: bool = True) -> Callable:
+    """grads(params, batch) with an explicit (optionally int8) DP reduction.
+
+    ``batch`` is the global batch, the same on every rank; the rank keeps
+    its rows (``batch_dim_map`` gives the batch dim per key, 0 where absent:
+    1 for mrope positions), takes ``grad_fn(params, rows) -> (grads,
+    metrics)`` on them (the mean over its rows: ``train_step.make_grad_fn``,
+    whose accumulation composes with this; JAX's version takes the loss and
+    applies ``jax.grad``), then the mean of the gradients over ``dp_axes``,
+    in f32, and of the metrics."""
+    n = mesh.axes_size(dp_axes)
+    group = mesh.group(dp_axes)
+    mean = int8_psum_mean if compress else fp32_mean
+
+    def local_grads(params, batch):
+        rows = {}
+        for k, v in batch.items():
+            spec = [None] * v.ndim
+            spec[batch_dim_map.get(k, 0)] = tuple(dp_axes)
+            rows[k] = v[SH.local_slices(tuple(spec), v.shape, mesh)]
+        grads, metrics = grad_fn(params, rows)
+        grads = T.tree_map(lambda x: mean(x, group, n), grads)
+        keys = sorted(metrics)
+        packed = torch.stack([metrics[k].float() for k in keys])
+        packed = fp32_mean(packed, group, n)
+        return grads, dict(zip(keys, packed.unbind()))
+
+    return local_grads

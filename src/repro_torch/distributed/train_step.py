@@ -1,5 +1,7 @@
-"""Train-step factory: CE loss (+ MoE aux), gradient accumulation and the
-AdamW update, as the JAX package's ``repro/distributed/train_step.py``.
+"""Train-step factory: CE loss (+ MoE aux), gradient accumulation, the
+data-parallel gradient mean (fp32 or int8, ``distributed/compression.py``)
+and the AdamW update, as the JAX package's
+``repro/distributed/train_step.py``.
 
 Gradients come from ``torch.autograd.grad`` over aliases of the parameter
 leaves (``detach().requires_grad_()``: the same storage, made to require
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.compression import make_local_grad_fn
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 
@@ -125,20 +128,28 @@ def kernel_launches(cfg: ModelConfig) -> Dict[str, int]:
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig, *,
                     accum_steps: int = 1,
-                    grad_compression: Optional[str] = None):
+                    grad_compression: Optional[str] = None,
+                    mesh=None, dp_axes: Tuple[str, ...] = ()):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), metrics holding ``loss``, ``ce``, ``aux_loss``, ``grad_norm``
     and ``lr`` as 0-dim tensors on the parameters' device.
 
     accum_steps > 1: the batch is split into microbatches along dim 0 and
-    gradients accumulate in f32. grad_compression='int8' (the data-parallel
-    int8 reduction) comes with the port's distributed slice."""
-    if grad_compression == "int8":
-        raise NotImplementedError("int8 gradient compression needs the "
-                                  "data-parallel path, not ported yet")
-    if grad_compression is not None:
+    gradients accumulate in f32. With a ``mesh`` whose ``dp_axes`` span more
+    than one rank, each rank takes the gradients of its rows of the (global)
+    batch and the ranks' mean is explicit (``compression.make_local_grad_fn``,
+    in f32); grad_compression='int8' makes that mean the two-phase int8 one,
+    on any number of ranks (one rank: the gradients quantized once)."""
+    if grad_compression not in (None, "int8"):
         raise ValueError(f"unknown grad_compression {grad_compression!r}")
     grad_fn = make_grad_fn(cfg, accum_steps=accum_steps)
+    compress = grad_compression == "int8"
+    if compress or (mesh is not None and mesh.axes_size(dp_axes) > 1):
+        if mesh is None or not dp_axes:
+            raise ValueError("int8 compression needs mesh and dp_axes")
+        batch_dim_map = {"positions": 1} if cfg.rope_kind == "mrope" else {}
+        grad_fn = make_local_grad_fn(grad_fn, mesh, dp_axes, batch_dim_map,
+                                     compress=compress)
 
     def train_step(params, opt_state, batch):
         grads, metrics = grad_fn(params, batch)

@@ -1,0 +1,139 @@
+"""Meshes of the port: named axes over the ranks of ``torch.distributed``,
+the counterpart of the JAX package's ``repro/launch/mesh.py``.
+
+A ``Mesh`` is what the sharding rules (``distributed/sharding.py``) and the
+data-parallel reduction (``distributed/compression.py``) read: axis names
+and sizes (``shape``, a dict in axis order, as ``jax.sharding.Mesh.shape``),
+this rank's coordinate, and the process group of a set of axes. Three kinds:
+
+  * over the ranks of a process group: ``torch.distributed``'s
+    ``DeviceMesh`` underneath (``make_mesh``, ``make_host_mesh`` under a
+    launcher such as ``torchrun``);
+  * one process, no process group: every axis of size 1, no collective ever
+    runs (``make_host_mesh`` without a launcher);
+  * abstract: axis names and sizes with no ranks, for computing the specs of
+    the production meshes (``abstract_mesh``, as JAX's ``AbstractMesh``).
+
+The backend is the caller's: NCCL for a mesh on the card, gloo on the CPU.
+Nothing switches between them on its own.
+"""
+from __future__ import annotations
+
+import math
+import os
+from typing import Dict, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+
+
+class Mesh:
+    """Named axes (``shape``: name -> size, in axis order) over the ranks of
+    ``device_mesh``, or over no ranks when it is None (see the module
+    docstring)."""
+
+    def __init__(self, shape: Dict[str, int], device_mesh=None):
+        self.shape = dict(shape)
+        self.axis_names: Tuple[str, ...] = tuple(shape)
+        self.device_mesh = device_mesh
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self):
+        kind = ("abstract" if self.device_mesh is None and self.size > 1
+                else "ranks")
+        return f"Mesh({self.shape}, {kind})"
+
+    def coordinate(self) -> Dict[str, int]:
+        """This rank's index along every axis."""
+        if self.device_mesh is None:
+            if self.size > 1:
+                raise RuntimeError(f"{self!r} has no ranks")
+            return {a: 0 for a in self.axis_names}
+        coord = self.device_mesh.get_coordinate()
+        if coord is None:
+            raise RuntimeError(f"rank {dist.get_rank()} is not in {self!r}")
+        return dict(zip(self.axis_names, coord))
+
+    def axes_size(self, axes: Sequence[str]) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    def axes_index(self, axes: Sequence[str]) -> int:
+        """This rank's index over ``axes`` flattened in the order given
+        (row-major, the first axis the slowest), as a PartitionSpec entry
+        naming several axes lays out its shards."""
+        coord, idx = self.coordinate(), 0
+        for a in axes:
+            idx = idx * self.shape[a] + coord[a]
+        return idx
+
+    def group(self, axes: Sequence[str]):
+        """The process group over ``axes`` (the ranks that share every other
+        coordinate), or None when ``axes`` span one rank."""
+        live = tuple(a for a in axes if self.shape[a] > 1)
+        if not live:
+            return None
+        if self.device_mesh is None:
+            raise RuntimeError(f"{self!r} has no process groups")
+        if len(live) == 1:
+            return self.device_mesh.get_group(live[0])
+        if (set(live) == {a for a, n in self.shape.items() if n > 1}
+                and self.size == dist.get_world_size()):
+            return dist.group.WORLD
+        raise NotImplementedError(f"a process group over {live} of {self!r}")
+
+
+def abstract_mesh(**axes: int) -> Mesh:
+    """Axis names and sizes with no ranks: ``abstract_mesh(data=16,
+    model=16)``."""
+    return Mesh(axes)
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
+              device="cuda") -> Mesh:
+    """A mesh of ``shape`` over the first prod(shape) ranks of the process
+    group; raises when the world is smaller. A one-rank mesh needs no
+    process group."""
+    n = math.prod(shape)
+    world = _world()
+    if world < n:
+        raise RuntimeError(f"mesh {shape} needs {n} ranks, have {world}")
+    if not dist.is_initialized():
+        return Mesh(dict(zip(axes, shape)))
+    from torch.distributed.device_mesh import DeviceMesh
+    dev = resolve_device(device)
+    ranks = torch.arange(n).reshape(shape)
+    return Mesh(dict(zip(axes, shape)),
+                DeviceMesh(dev.type, ranks, mesh_dim_names=tuple(axes)))
+
+
+def _join_launcher(device):
+    """Join the process group a launcher describes (``torchrun`` sets
+    ``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``), unless
+    one is joined already: NCCL for the card, each rank on card
+    ``LOCAL_RANK``; gloo on the CPU."""
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+
+
+def make_host_mesh(model_parallel: int = 1, *, device="cuda") -> Mesh:
+    """A (world / mp, mp) mesh of axes ("data", "model") over the ranks that
+    exist, joining a launcher's process group first: (1, 1) in one process
+    without a launcher."""
+    _join_launcher(device)
+    n = _world()
+    mp = min(model_parallel, n)
+    return make_mesh((n // mp, mp), ("data", "model"), device=device)
+

@@ -224,9 +224,12 @@ def _ssm_stack_full(stacked, x, cfg: ModelConfig, prefill: bool, grad: bool):
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random weights with the JAX package's distributions, drawn from one
     ``torch.Generator`` seeded with ``seed`` and created on ``device``.
-    (The bits differ from JAX's: tests carry JAX's weights over the bridge.)"""
+    (The bits differ from JAX's: tests carry JAX's weights over the bridge.)
+    On the ``meta`` device it allocates nothing and gives the shapes and
+    dtypes alone (``launch.specs.params_struct``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev
+                          ).manual_seed(seed)
     dtype = torch_dtype(cfg)
     params: Params = {
         "embed": L.init_embedding(gen, cfg.padded_vocab, cfg.d_model, dtype,

@@ -654,3 +654,32 @@ def test_decode_attention_raises_under_grad(cuda):
     with torch.no_grad():
         da_ops.decode_attention(q, k, k, vl, scale=0.125)
     assert da_ops.launches == n0 + 1
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "mamba2-130m"])
+def test_driver_on_the_card(cuda, arch, tmp_path):
+    """``launch.train.train`` on the card at smoke size: every step launches
+    ``kernel_launches(cfg)``; 4 steps with a checkpoint every 2, then a
+    resume to 6, equal bit for bit to 6 uninterrupted steps; with int8
+    gradients the first loss equal (taken before any update) and every loss
+    finite."""
+    from repro_torch.distributed.train_step import kernel_launches
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+    cfg = get_smoke_config(arch)
+    kw = dict(global_batch=4, seq_len=64, quiet=True, device="cuda",
+              opt_cfg=adamw.OptimizerConfig(total_steps=6, warmup_steps=2))
+    before = _launches()
+    full = train_mod.train(cfg, steps=6, **kw)
+    after = _launches()
+    want = kernel_launches(cfg)
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: 6 * n for k, n in want.items()}
+    first = train_mod.train(cfg, steps=4, ckpt_dir=str(tmp_path),
+                            ckpt_every=2, **kw)
+    rest = train_mod.train(cfg, steps=6, ckpt_dir=str(tmp_path), resume=True,
+                           **kw)
+    assert first["losses"] + rest["losses"] == full["losses"]
+    int8 = train_mod.train(cfg, steps=6, compress_grads=True, **kw)
+    assert int8["losses"][0] == full["losses"][0]
+    assert all(np.isfinite(int8["losses"]))
