@@ -75,7 +75,14 @@ Phases, each printing its lines; any failed check exits non-zero:
      stream's eighth), the loss finite and falling, the save and restore
      seconds and bytes and the step after an async save; and int8 gradient
      compression on one rank (each leaf within |g|_inf/127 of the
-     uncompressed gradient, the compressed step's time beside the plain).
+     uncompressed gradient, the compressed step's time beside the plain);
+  9. the dry-run (``launch/dryrun.py``) held against the card, on a one-card
+     mesh: stablelm-3b's and mamba2-130m's train steps at 8 x 1,024 and
+     chatglm3-6b's prefill at 8 x 1,024 and decode step at cache 1,056, each
+     run once on fake tensors on the CPU and once on the card on the plain
+     path under the same ``OpProfile``: their matmul FLOPs equal; the kernel
+     path's time of phases 5 and 7 not below the floor the counts give; the
+     dry-run's peak memory against ``max_memory_allocated``.
 No serving path is cut to fit the time limit: the whole script takes a few
 minutes on an H100.
 The line before the last is the ``{"kernels": [...]}`` summary (with each
@@ -98,6 +105,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+# H100 SXM peaks (NVIDIA data sheet, dense) and the bound of each kernel:
+# one set of terms for the card, the roofline's
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as PEAK_BYTES_PER_S, PEAK_FLOPS_BY_DTYPE as PEAK_FLOPS, add_bound,
+    ssd_work)
+
 # phase 7: training at full width and depth, five steps on one batch
 TRAIN_PATHS = ("stablelm-3b", "mamba2-130m")
 TRAIN_WIDTH = {"stablelm-3b": (32, 2560), "mamba2-130m": (24, 768)}
@@ -116,10 +129,19 @@ GRAD_LEAF_TOL, GRAD_LOSS_TOL = 1e-4, 1e-6
 DRIVER_LM_BATCH, DRIVER_LM_SEQ = 8, 512
 DRIVER_STEPS, DRIVER_CUT, DRIVER_EVERY = 12, 8, 4
 
-# H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SPIN_CYCLES = 400_000       # ~0.2 ms at 1.98 GHz: above any wrapper's host time
+
+# phase 9: the dry-run (launch/dryrun.py) of cells this script runs at full
+# width, on a one-card mesh: (arch, step, seq_len or cache length, batch)
+DRYRUN_CELLS = (("stablelm-3b", "train", TRAIN_SEQ, TRAIN_BATCH),
+                ("mamba2-130m", "train", TRAIN_SEQ, TRAIN_BATCH),
+                ("chatglm3-6b", "prefill", 1024, 8),
+                ("chatglm3-6b", "decode", 1024 + 32, 8))
+# max_memory_allocated of the plain path's step over the dry-run's
+# arguments plus temporaries. The first runs (H100 80GB HBM3, 700.00 W) read
+# 1.0000 to 1.0017 over the four cells: the allocator rounds blocks up, and
+# a fresh process allocates the cuBLAS workspace in its first product
+MEM_RATIO_BAND = (0.999, 1.01)
 
 PATHS = ("chatglm3-6b", "zamba2-7b", "mamba2-130m", "deepseek-v2-lite-16b",
          "phi3.5-moe-42b-a6.6b")
@@ -245,32 +267,6 @@ def device_ms_per_call(torch, fn, n=50):
             fn()
         torch.cuda.synchronize()
     return sum(ms for _, ms, _ in device_rows(prof)) / n
-
-
-def ssd_work(B, S, H, G, P, N, chunk, itemsize):
-    """Operations and bytes one SSD scan needs: the causal (C B^T) and
-    (att x) products over the rows each chunk holds, the carried state's
-    product and update; x read and y written once, dt, A, B/C and the final
-    f32 state."""
-    L = min(chunk, S)
-    flops = 0
-    for t0 in range(0, S, L):
-        n = min(L, S - t0)
-        flops += n * (n + 1) * (N + P) + 4 * n * P * N
-    flops *= B * H
-    nbytes = (2 * B * S * H * P * itemsize + 4 * B * S * H + 4 * H
-              + 2 * B * S * G * N * itemsize + 4 * B * H * P * N)
-    return flops, nbytes
-
-
-def add_bound(r):
-    """The least time the card could take for a kernel's work: its bytes
-    over the memory rate or its operations over the peak rate of their
-    type, whichever is larger."""
-    t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
-    t_ops = r["flops"] / PEAK_FLOPS[r["dtype"]] * 1e3
-    r["bound_ms"] = max(t_bytes, t_ops)
-    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
 
 def sass_counts(lib_path, opcode):
@@ -906,9 +902,10 @@ def main():
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 5. and 6. main paths
-    launches = {}
+    launches, served = {}, {}
     for arch in PATHS:
-        launches[arch] = serve_and_hold(torch, cfgs[arch], ops_of, card, dev)
+        launches[arch], served[arch] = serve_and_hold(torch, cfgs[arch],
+                                                      ops_of, card, dev)
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ 7. training
@@ -928,6 +925,17 @@ def main():
                                       card),
         "mamba2-130m": drive_mamba(torch, ops_of, card, dev)}
     torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 9. dry-run vs the card
+    measured_s = {("stablelm-3b", "train"): trained["stablelm-3b"][1],
+                  ("mamba2-130m", "train"): trained["mamba2-130m"][1],
+                  ("chatglm3-6b", "prefill"): served["chatglm3-6b"]["prefill_s"],
+                  ("chatglm3-6b", "decode"):
+                      served["chatglm3-6b"]["decode_ms"] / 1e3}
+    for arch, step_kind, seq, batch in DRYRUN_CELLS:
+        dryrun_vs_card(torch, arch, step_kind, seq, batch,
+                       measured_s[(arch, step_kind)], card)
+        torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- result
     print(f"[device] {card}")
@@ -972,11 +980,78 @@ def main():
                                              "count": count}}))
 
 
+def dryrun_vs_card(torch, arch, kind, seq, batch, measured_s, card):
+    """Phase 9 for one cell: the dry-run's step on fake tensors on the CPU,
+    then the same step (the plain path) on the card under the same dispatch
+    mode. Their matmul FLOPs must be equal; the kernel path's time measured
+    in phase 5 or 7 must not be below the least time the card could take
+    for the step (its FLOPs over the bf16 peak or its arguments read and
+    outputs written once over the HBM rate, the larger; the roofline's step
+    time, whose memory term sums every unfused op of the plain path, is
+    printed beside it); and the dry-run's arguments plus temporaries are
+    held against max_memory_allocated of the plain path's step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.mesh import abstract_mesh
+
+    shape = ShapeConfig(f"{kind}_{batch}x{seq}", seq, batch, kind)
+    cell, _ = dryrun.lower_cell(arch, shape.name, False, shape=shape,
+                                mesh=abstract_mesh(data=1, model=1))
+    t0 = time.perf_counter()
+    fake = cell.run()
+    fake_s = time.perf_counter() - t0
+    terms = RL.derive(arch, shape, cell.cfg, "one_card", 1,
+                      {"flops": fake.flops, "bytes accessed": fake.bytes},
+                      fake.collective_bytes())
+    floor_ms, floor_by = RL.kernel_bound(
+        fake.flops, fake.argument_bytes + fake.output_bytes, "bfloat16")
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    real = cell.run(device="cuda", fake=False)
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    predicted = fake.argument_bytes + fake.peak_bytes
+    ratio = peak / predicted
+    label = f"{arch} {kind} {batch} x {seq}"
+    print(f"[dryrun] {label}: fake step {fake_s:.1f} s on the CPU, "
+          f"{fake.n_ops} ops; plain path on the card {real_s:.1f} s (its "
+          f"inputs made included), {real.n_ops} ops; matmul FLOPs fake "
+          f"{fake.matmul_flops}, card {real.matmul_flops}; all FLOPs "
+          f"{fake.flops:.6e}, unfused bytes {fake.bytes:.6e}  [{card}]",
+          flush=True)
+    check(fake.matmul_flops == real.matmul_flops,
+          f"{label}: matmul FLOPs of the fake step {fake.matmul_flops} != the "
+          f"card's {real.matmul_flops}")
+    print(f"[dryrun] {label}: roofline compute {terms.compute_s * 1e3:.3f} ms,"
+          f" memory (unfused) {terms.memory_s * 1e3:.3f} ms -> step "
+          f"{terms.step_time_s * 1e3:.3f} ms ({terms.bottleneck}); floor "
+          f"{floor_ms:.3f} ms ({floor_by}; arguments read and outputs written "
+          f"once); kernel path measured {measured_s * 1e3:.3f} ms: the floor "
+          f"is {floor_ms / (measured_s * 1e3):.1%} of it, the roofline step "
+          f"{terms.step_time_s / measured_s:.1%}  [{card}]", flush=True)
+    check(measured_s * 1e3 >= floor_ms,
+          f"{label}: measured {measured_s * 1e3:.3f} ms is below the floor "
+          f"{floor_ms:.3f} ms: a count is wrong")
+    print(f"[dryrun] {label}: peak memory, dry-run arguments "
+          f"{fake.argument_bytes / 1e9:.3f} GB + temporaries "
+          f"{fake.peak_bytes / 1e9:.3f} GB = {predicted / 1e9:.3f} GB; the "
+          f"card's plain step max_memory_allocated {peak / 1e9:.3f} GB; ratio "
+          f"{ratio:.4f} (band {MEM_RATIO_BAND})  [{card}]", flush=True)
+    check(MEM_RATIO_BAND[0] <= ratio <= MEM_RATIO_BAND[1],
+          f"{label}: memory ratio {ratio:.4f} outside {MEM_RATIO_BAND}")
+
+
 def serve_and_hold(torch, cfg, ops_of, card, dev):
     """Phase 5 for one configuration (and phase 6 where it is profiled):
     serve it at full width with the launch counts read around the call, hold
     it teacher-forced against the plain path, free its weights. Returns the
-    launch counts."""
+    launch counts and the kernel path's prefill seconds and decode ms a
+    step."""
     from repro_torch import tree as T
     from repro_torch.distributed.serve_step import kernel_launches
     from repro_torch.launch.serve import serve_batch
@@ -1139,7 +1214,8 @@ def serve_and_hold(torch, cfg, ops_of, card, dev):
         profile_steps(torch, cfg, params, tokens, prefill_s["kernels"],
                       decode_ms["kernels"], card, dev)
     del params
-    return launches
+    return launches, {"prefill_s": prefill_s["kernels"],
+                      "decode_ms": decode_ms["kernels"]}
 
 
 def first_layers(params, cfg, depth):

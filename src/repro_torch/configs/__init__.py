@@ -4,15 +4,15 @@ All ten of the JAX package's architectures, in its order, each in its own
 module exposing ``CONFIG`` (the port's copy: it imports nothing of
 ``repro``). ``get_config(arch)`` returns the full config;
 ``get_smoke_config(arch)`` the reduced same-family variant used by CPU
-smoke tests.
+smoke tests; ``SHAPES`` the input-shape cells of the dry-run.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import List
+from typing import Dict, List
 
-from .base import ModelConfig  # noqa: F401
+from .base import ModelConfig, ShapeConfig, SHAPES, cell_is_runnable  # noqa: F401
 
 _ARCH_MODULES = {
     "mamba2-130m": "mamba2_130m",
@@ -42,3 +42,7 @@ def get_config(arch: str, **overrides) -> ModelConfig:
 
 def get_smoke_config(arch: str, **overrides) -> ModelConfig:
     return get_config(arch).reduced(**overrides)
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

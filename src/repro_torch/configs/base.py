@@ -194,3 +194,28 @@ class ModelConfig:
             base.update(num_layers=4, attn_every=2)
         base.update(overrides)
         return dataclasses.replace(self, **base)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k":   ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Spec rules: long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("skip: long_500k requires sub-quadratic attention; "
+                       f"{cfg.name} is pure full-attention ({cfg.family})")
+    return True, ""

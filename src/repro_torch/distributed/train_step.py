@@ -113,17 +113,19 @@ def kernel_launches(cfg: ModelConfig) -> Dict[str, int]:
     none. An attention block (dense, MoE, the MoE family's leading dense
     layers) runs flash attention and 2 RMSNorms, 3 with MLA (its
     ``kv_norm``); a Mamba2 block the SSD scan, its input norm and its gated
-    norm; the hybrid's shared block runs once per group."""
+    norm; the hybrid's shared block runs once per group, never under remat
+    (as in the reference)."""
     L, runs = cfg.num_layers, 1 if cfg.remat == "none" else 2
-    if cfg.family == "ssm":
+    shared = 0                          # the hybrid's shared-block calls
+    if cfg.family in ("ssm", "hybrid"):
         flash, norms, scans = 0, 2 * L, L
-    elif cfg.family == "hybrid":
-        flash = L // cfg.attn_every
-        norms, scans = 2 * L + 2 * flash, L
+        if cfg.family == "hybrid":
+            shared = L // cfg.attn_every
     else:
         flash, norms, scans = L, (3 if cfg.use_mla else 2) * L, 0
-    return {"flash_attention": runs * flash, "decode_attention": 0,
-            "fused_rmsnorm": runs * norms + 1, "ssd": runs * scans}
+    return {"flash_attention": runs * flash + shared, "decode_attention": 0,
+            "fused_rmsnorm": runs * norms + 2 * shared + 1,
+            "ssd": runs * scans}
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig, *,

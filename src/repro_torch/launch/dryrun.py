@@ -1,0 +1,378 @@
+"""Dry-run of every (architecture x input-shape x mesh) cell of the port on
+fake tensors: the counterpart of the JAX package's ``repro/launch/dryrun.py``,
+which lowers and compiles each cell on 512 placeholder CPU devices.
+
+PyTorch has no ahead-of-time compile. Each cell runs its train, prefill or
+decode step once under ``FakeTensorMode`` (shapes and dtypes, no memory, no
+arithmetic) and ``opprof.OpProfile`` (every aten op counted), with
+``use_pallas=False``: the CUDA kernels are ``ctypes`` calls and cannot run
+on fake tensors, and JAX's dry-run ran its plain path too. The step runs the
+rank's own batch, the global batch over the size of ``sharding.batch_axes``:
+
+  * train cells run ``make_train_step`` with the production mesh's data
+    axes on rank 0 of a fake process group of the mesh's size (c10d's
+    ``fake`` backend: every collective returns at once), on the global
+    batch, of which the rank keeps its rows: the exact per-rank program the
+    port runs, its gradient mean's all-reduces included;
+  * prefill and decode cells run their step on the rank's rows (the port's
+    serve steps run no collective).
+
+What the record holds, per device:
+  * ``memory.argument_size_in_bytes``: parameters, ZeRO-1 optimizer state,
+    batch and decode cache, each leaf's bytes over the mesh axes its spec in
+    ``distributed/sharding.py`` shards it over;
+  * ``memory.temp_size_in_bytes``: the peak of the live bytes the step
+    allocated above its arguments (``output_size_in_bytes``: what it
+    returned), of the program the port runs;
+  * ``cost``: the FLOPs (``matmul_flops``: mm, bmm, addmm, baddbmm) and
+    the bytes of every op's inputs and outputs (unfused: an upper bound on
+    XLA's post-fusion "bytes accessed");
+  * ``collectives``: what the step ran, by kind (``dp_all`` cells,
+    mamba2-130m: the gradient mean over all 256 ranks);
+  * ``roofline``: ``roofline.derive`` in H100 terms.
+
+``tp16`` cells: the port does not execute tensor parallelism (ROADMAP item
+12b), so each rank here runs the whole model on its rows. Their FLOPs, bytes
+and data-parallel collective bytes are divided by the ``model`` axis's size,
+and ``split`` marks that division as ideal; ``collectives`` holds the
+data-parallel part only and names item 12b for the tensor-parallel part.
+Sequence-parallel decode (the long_500k cell's cache sharded over ``data``)
+is not executed either, and is not divided.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch gemma-7b --shape train_4k --mesh single
+  python -m repro_torch.launch.dryrun --sweep --out results/dryrun_torch.json
+  python -m repro_torch.launch.dryrun --table --out results/dryrun_torch.json
+"""
+from __future__ import annotations
+
+import argparse
+import ast
+import contextlib
+import dataclasses
+import json
+import math
+import os
+import time
+import traceback
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch import tree as T
+from repro_torch.configs import ARCH_IDS, SHAPES, cell_is_runnable, get_config
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.serve_step import (make_decode_step,
+                                                make_prefill_step)
+from repro_torch.distributed.train_step import make_train_step
+from repro_torch.launch import opprof
+from repro_torch.launch import roofline as RL
+from repro_torch.launch import specs as SP
+from repro_torch.launch.mesh import Mesh, make_mesh, make_production_mesh
+from repro_torch.optim.adamw import OptimizerConfig
+
+TP_NOTE = "not executed: tensor parallelism is ROADMAP item 12b"
+
+
+def _sharded_bytes(tree, specs: Dict[str, Tuple], mesh: Mesh) -> int:
+    """Bytes per device of a tree of (meta) tensors under ``specs``."""
+    total = 0
+    for path, leaf in T.flatten(tree):
+        spec = specs[path]
+        split = math.prod(mesh.axes_size(SH._axes_of(e)) for e in spec)
+        total += leaf.numel() * leaf.element_size() // split
+    return total
+
+
+def _batch_spec(cfg: ModelConfig, mesh: Mesh, shape: ShapeConfig, batch):
+    bp = SH.batch_pspec(cfg, mesh, shape.global_batch)
+    if shape.kind != "decode":
+        return {k: bp[k] for k in batch}
+    bax = SH._entry(SH.batch_axes(mesh, cfg, shape.global_batch))
+    return {k: ((None, bax, None) if k == "positions" and
+                cfg.rope_kind == "mrope" else
+                (bax, None, None) if k == "embeds" else (bax, None))
+            for k in batch}
+
+
+def argument_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh) -> int:
+    """The step's argument bytes per device under the port's specs."""
+    params = SP.params_struct(cfg)
+    n = _sharded_bytes(params, SH.params_pspec(cfg, mesh, params), mesh)
+    if shape.kind == "train":
+        opt = SP.opt_state_struct(params)
+        n += _sharded_bytes(opt, SH.opt_state_pspec(cfg, mesh, opt), mesh)
+        batch = SP.train_input_specs(cfg, shape)
+    elif shape.kind == "prefill":
+        batch = SP.prefill_input_specs(cfg, shape)
+    else:
+        batch, cache = SP.decode_input_specs(cfg, shape)
+        n += _sharded_bytes(cache, SH.cache_pspec(cfg, mesh,
+                                                  shape.global_batch), mesh)
+    spec = _batch_spec(cfg, mesh, shape, batch)
+    return n + _sharded_bytes(batch, {k: spec[k] for k in batch}, mesh)
+
+
+@dataclasses.dataclass
+class Cell:
+    """One cell's step, ready to run: ``run`` gives its ``OpProfile``."""
+    cfg: ModelConfig
+    shape: ShapeConfig
+    mesh: Mesh
+    dp_axes: Tuple[str, ...]
+    rows: int                                  # the rank's batch rows
+
+    def inputs(self, make):
+        """The step's arguments, each leaf ``make(meta tensor)``."""
+        cfg, shape = self.cfg, self.shape
+        params = T.tree_map(make, SP.params_struct(cfg))
+        if shape.kind == "train":
+            # every rank draws the global batch and keeps its rows
+            return (params, SP.opt_state_struct(params),
+                    T.tree_map(make, SP.train_input_specs(cfg, shape)))
+        local = dataclasses.replace(shape, global_batch=self.rows)
+        if shape.kind == "prefill":
+            return params, T.tree_map(make, SP.prefill_input_specs(cfg, local))
+        batch, cache = SP.decode_input_specs(cfg, local)
+        return params, T.tree_map(make, batch), T.tree_map(make, cache)
+
+    def step(self, mesh: Mesh):
+        if self.shape.kind == "train":
+            return make_train_step(self.cfg, OptimizerConfig(), mesh=mesh,
+                                   dp_axes=self.dp_axes)
+        if self.shape.kind == "prefill":
+            return make_prefill_step(self.cfg)
+        return make_decode_step(self.cfg)
+
+    def run(self, *, device="cpu", fake: bool = True) -> opprof.OpProfile:
+        """Run the step once under ``OpProfile``: on fake tensors (the
+        dry-run), or on real ones on ``device`` (random values in each
+        leaf's dtype, zero integers). Returns the profile, with
+        ``argument_bytes`` (the arguments' storages) and ``output_bytes``
+        (what the step returned) set."""
+        world = (self.shape.kind == "train"
+                 and self.mesh.axes_size(self.dp_axes) > 1)
+        with _fake_world(self.mesh) if world else contextlib.nullcontext(
+                self.mesh) as mesh:
+            # every input is made under the fake mode: no real tensor in
+            mode = (FakeTensorMode(allow_non_fake_inputs=False) if fake
+                    else contextlib.nullcontext())
+            with mode:
+                args = self.inputs(lambda m: _make(m, device))
+            step = self.step(mesh)
+            prof = opprof.OpProfile()
+            prof.argument_bytes = prof.hold(args)
+            with mode, prof:
+                out = step(*args)
+            prof.output_bytes = prof.live_bytes
+            del out, args
+        return prof
+
+
+def _make(m: torch.Tensor, device) -> torch.Tensor:
+    """A tensor of ``m``'s shape and dtype on ``device``, drawn in its own
+    dtype (no wider copy raises the peak before the step)."""
+    if m.dtype.is_floating_point:
+        return torch.randn(m.shape, dtype=m.dtype, device=device).mul_(0.02)
+    return torch.zeros(m.shape, dtype=m.dtype, device=device)
+
+
+@contextlib.contextmanager
+def _fake_world(mesh: Mesh):
+    """Rank 0 of a fake process group of ``mesh.size`` ranks (c10d's
+    ``fake`` backend), with ``mesh``'s axes over it; torn down after."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("the dry-run needs a process without a process "
+                           "group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        yield make_mesh(tuple(mesh.shape.values()), mesh.axis_names,
+                        device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def lower_cell(arch: str, shape_name: str, multi_pod: bool,
+               cfg_overrides: Optional[Dict[str, Any]] = None, *,
+               shape: Optional[ShapeConfig] = None,
+               mesh: Optional[Mesh] = None):
+    """Build the cell's step on the plain path. Returns (cell, meta), or
+    (None, {"skipped": why}). ``shape`` and ``mesh`` replace the named
+    shape and the production mesh (a cell of another size, as chip_smoke.py
+    runs on one card)."""
+    cfg = dataclasses.replace(get_config(arch, **(cfg_overrides or {})),
+                              use_pallas=False)
+    shape = shape or SHAPES[shape_name]
+    ok, why = cell_is_runnable(cfg, shape)
+    if not ok:
+        return None, {"skipped": why}
+    mesh = mesh or make_production_mesh(multi_pod=multi_pod)
+    if shape.kind == "train":
+        dp_axes = SH.batch_axes(mesh, cfg)
+    else:
+        dp_axes = SH.batch_axes(mesh, cfg, shape.global_batch)
+    cell = Cell(cfg, shape, mesh, dp_axes,
+                shape.global_batch // mesh.axes_size(dp_axes))
+    meta = {"arch": arch, "shape": shape.name,
+            "mesh": "multi_pod" if multi_pod else "single_pod",
+            "n_devices": mesh.size, "cfg": cfg, "shape_cfg": shape}
+    return cell, meta
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool,
+             cfg_overrides: Optional[Dict[str, Any]] = None,
+             verbose: bool = True) -> Dict[str, Any]:
+    """Full cell record: the full-depth step on fake tensors -> memory,
+    cost, collectives and the roofline terms."""
+    mesh_name = "multi_pod" if multi_pod else "single_pod"
+    base = {"arch": arch, "shape": shape_name, "mesh": mesh_name}
+    t0 = time.time()
+    try:
+        cell, meta = lower_cell(arch, shape_name, multi_pod, cfg_overrides)
+        if cell is None:
+            return {**base, "status": "skipped", "why": meta["skipped"]}
+        prof = cell.run()
+        args = argument_bytes(cell.cfg, cell.shape, cell.mesh)
+    except Exception as e:                        # one cell's fault: recorded
+        return {**base, "status": "compile_error",
+                "error": f"{type(e).__name__}: {e}",
+                "traceback": traceback.format_exc()[-2000:]}
+    run_s = time.time() - t0
+    cfg, mesh = cell.cfg, cell.mesh
+    tp = mesh.shape.get(SH.MODEL_AXIS, 1) if SH.policy_for(cfg) == "tp16" else 1
+    coll = {k: v / tp if k != "count" else v
+            for k, v in prof.collective_bytes().items()}
+    cost = {"flops": prof.flops / tp, "bytes accessed": prof.bytes / tp,
+            "matmul_flops": prof.matmul_flops / tp}
+    terms = RL.derive(arch, cell.shape, cfg, mesh_name, mesh.size, cost, coll,
+                      peak_bytes_dev=prof.peak_bytes,
+                      link_bw=RL.link_bandwidth(mesh.shape, cell.dp_axes))
+    if tp > 1:
+        coll["tensor_parallel"] = TP_NOTE
+    rec = {**base, "status": "ok", "n_devices": mesh.size,
+           "compile_s": round(run_s, 1), "probe_compile_s": 0.0,
+           "memory": {"argument_size_in_bytes": args,
+                      "output_size_in_bytes": prof.output_bytes,
+                      "temp_size_in_bytes": prof.peak_bytes},
+           "cost": cost,
+           "collectives": {k: (round(v) if isinstance(v, float) else v)
+                           for k, v in coll.items()},
+           "roofline": terms.to_dict(),
+           "split": ({"model": tp, "ideal": True,
+                      "divided": ["flops", "bytes accessed", "collectives"],
+                      "why": TP_NOTE} if tp > 1 else None),
+           "rows_per_rank": cell.rows, "n_ops": prof.n_ops}
+    if verbose:
+        print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: "
+              f"run {run_s:.1f}s  "
+              f"compute {terms.compute_s*1e3:.2f}ms  "
+              f"memory {terms.memory_s*1e3:.2f}ms  "
+              f"coll {terms.collective_s*1e3:.2f}ms  "
+              f"-> {terms.bottleneck}  hw_frac={terms.hw_frac:.3f}  "
+              f"useful={terms.useful_ratio:.2f}"
+              f"{'  (tp16 split ideal)' if tp > 1 else ''}", flush=True)
+    return rec
+
+
+def table_rows(recs) -> list:
+    """The roofline table of ``benchmarks/roofline_table.py``, one row per
+    ok cell and a summary, from dry-run records."""
+    ok = [r for r in recs if r.get("status") == "ok"]
+    skipped = [r for r in recs if r.get("status") == "skipped"]
+    rows = []
+    for r in sorted(ok, key=lambda r: (r["mesh"], r["arch"], r["shape"])):
+        t = r["roofline"]
+        rows.append({
+            "name": f"roofline.{r['mesh']}.{r['arch']}.{r['shape']}",
+            "us_per_call": round(t["step_time_s"] * 1e6),
+            "derived": (f"compute={t['compute_s']*1e3:.1f}ms "
+                        f"memory={t['memory_s']*1e3:.1f}ms "
+                        f"coll={t['collective_s']*1e3:.1f}ms "
+                        f"bound={t['bottleneck']} "
+                        f"useful={t['useful_ratio']:.2f} "
+                        f"hw_frac={t['hw_frac']:.3f}"),
+        })
+    rows.append({
+        "name": "roofline.summary", "us_per_call": 0,
+        "derived": (f"{len(ok)} cells run, {len(skipped)} skipped "
+                    f"(long_500k on full-attention archs, per spec); H100 "
+                    f"data-sheet terms"),
+    })
+    return rows
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="single", choices=["single", "multi"])
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--table", action="store_true",
+                    help="print the roofline table of the records in --out")
+    ap.add_argument("--out", default="results/dryrun_torch.json")
+    ap.add_argument("--resume", action="store_true",
+                    help="skip cells already in --out")
+    ap.add_argument("--set", action="append", default=[],
+                    help="config override key=value (repeatable); "
+                         "values parsed as python literals where possible")
+    args = ap.parse_args()
+
+    if args.table:
+        with open(args.out) as f:
+            for row in table_rows(json.load(f)):
+                print(f"{row['name']},{row['us_per_call']},{row['derived']}")
+        return
+
+    overrides = {}
+    for kv in args.set:
+        k, v = kv.split("=", 1)
+        try:
+            overrides[k] = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            overrides[k] = v
+
+    if not args.sweep:
+        rec = run_cell(args.arch, args.shape, args.mesh == "multi",
+                       cfg_overrides=overrides or None)
+        print(json.dumps(rec, indent=2, default=str))
+        if rec["status"] == "compile_error":
+            raise SystemExit(1)
+        return
+
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    results = []
+    done = set()
+    if args.resume and os.path.exists(args.out):
+        with open(args.out) as f:
+            results = json.load(f)
+        done = {(r["arch"], r["shape"], r["mesh"]) for r in results
+                if r["status"] in ("ok", "skipped")}
+    n_err = 0
+    for mesh_name in ("single_pod", "multi_pod"):
+        for arch in ARCH_IDS:
+            for shape_name in SHAPES:
+                key = (arch, shape_name, mesh_name)
+                if key in done:
+                    continue
+                rec = run_cell(arch, shape_name, mesh_name == "multi_pod",
+                               cfg_overrides=overrides or None)
+                results = [r for r in results
+                           if (r["arch"], r["shape"], r["mesh"]) != key]
+                results.append(rec)
+                if rec["status"] == "compile_error":
+                    n_err += 1
+                    print(f"[dryrun] ERROR {key}: {rec['error']}", flush=True)
+                with open(args.out, "w") as f:
+                    json.dump(results, f, indent=1, default=str)
+    print(f"[dryrun] sweep done: {len(results)} cells, {n_err} errors",
+          flush=True)
+    raise SystemExit(1 if n_err else 0)
+
+
+if __name__ == "__main__":
+    main()

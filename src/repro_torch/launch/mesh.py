@@ -12,7 +12,8 @@ this rank's coordinate, and the process group of a set of axes. Three kinds:
   * one process, no process group: every axis of size 1, no collective ever
     runs (``make_host_mesh`` without a launcher);
   * abstract: axis names and sizes with no ranks, for computing the specs of
-    the production meshes (``abstract_mesh``, as JAX's ``AbstractMesh``).
+    the production meshes (``abstract_mesh``, as JAX's ``AbstractMesh``;
+    ``make_production_mesh``).
 
 The backend is the caller's: NCCL for a mesh on the card, gloo on the CPU.
 Nothing switches between them on its own.
@@ -38,6 +39,7 @@ class Mesh:
         self.shape = dict(shape)
         self.axis_names: Tuple[str, ...] = tuple(shape)
         self.device_mesh = device_mesh
+        self._groups: Dict[Tuple[str, ...], object] = {}
 
     @property
     def size(self) -> int:
@@ -84,13 +86,42 @@ class Mesh:
         if (set(live) == {a for a, n in self.shape.items() if n > 1}
                 and self.size == dist.get_world_size()):
             return dist.group.WORLD
-        raise NotImplementedError(f"a process group over {live} of {self!r}")
+        if live not in self._groups:
+            self._groups[live] = self._new_groups(live)
+        return self._groups[live]
+
+    def _new_groups(self, axes: Tuple[str, ...]):
+        """This rank's group over several ``axes`` (in axis order) of a
+        larger mesh. ``new_group`` is collective: every rank creates every
+        group over those axes, in one order."""
+        if list(axes) != sorted(axes, key=self.axis_names.index):
+            raise ValueError(f"axes {axes} are not in the order of "
+                             f"{self.axis_names}")
+        ranks = self.device_mesh.mesh
+        rest = [i for i, a in enumerate(self.axis_names) if a not in axes]
+        perm = rest + [self.axis_names.index(a) for a in axes]
+        mine, me = None, dist.get_rank()
+        for row in ranks.permute(perm).reshape(-1, self.axes_size(axes)
+                                               ).tolist():
+            group = dist.new_group(row)
+            if me in row:
+                mine = group
+        return mine
 
 
 def abstract_mesh(**axes: int) -> Mesh:
     """Axis names and sizes with no ranks: ``abstract_mesh(data=16,
     model=16)``."""
     return Mesh(axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16x16 (data, model) or 2x16x16 (pod, data, model), abstract: the
+    production meshes whose specs and costs the dry-run computes. No process
+    group is created."""
+    if multi_pod:
+        return abstract_mesh(pod=2, data=16, model=16)
+    return abstract_mesh(data=16, model=16)
 
 
 def _world() -> int:

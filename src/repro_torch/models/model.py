@@ -19,8 +19,9 @@ layers' gradients into the stacked leaf in one tensor (indexing would add a
 full-size zero gradient per layer); ``decode`` indexes.
 
 ``cfg.remat`` is JAX's activation-checkpoint policy (``model._remat`` there),
-applied to each layer body (the dense block, each Mamba2 block, the
-hybrid's shared block and its tail) and only where a backward will run:
+applied to each layer body (the dense block, each Mamba2 block) and only
+where a backward will run; the hybrid's shared block runs without it, as in
+the reference:
 
   * ``"none"``: the plain loop; every activation is kept.
   * ``"full"``: ``jax.checkpoint`` -> ``torch.utils.checkpoint.checkpoint(
@@ -352,12 +353,11 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     elif cfg.family == "hybrid":
         tail = _hybrid_layout(cfg)[1]
         shared = params["shared_attn"]
-        shared_block = _remat(cfg, dense_block_full, grad)
         ssm_caches, ks, vs = [], [], []
         for grp in _unbind(params["ssm_groups"]):
             x, c = _ssm_stack_full(grp, x, cfg, prefill, grad)
-            x, kv, _ = shared_block(shared, x, cfg, positions,
-                                    return_kv=prefill)
+            x, kv, _ = dense_block_full(shared, x, cfg, positions,
+                                        return_kv=prefill)
             if prefill:
                 ssm_caches.append(c)
                 ks.append(kv[0])

@@ -141,14 +141,17 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
         gate = (top_p[..., j] * keep[..., j])[..., None].to(picked.dtype)
         out = out + picked * gate
 
-    # --- shared experts --------------------------------------------------------
-    if "shared" in p:
-        out = out + mlp(p["shared"], xg, cfg)
-
     # --- load-balance aux loss (Switch-style) -----------------------------------
     frac = torch.mean(F.one_hot(top_i[..., 0], E).float(), dim=(0, 1))
     mean_prob = torch.mean(probs, dim=(0, 1))
     aux = cfg.router_aux_coef * E * torch.sum(frac * mean_prob)
+
+    # --- shared experts --------------------------------------------------------
+    # last: under remat the recompute replays a layer's forward up to the last
+    # tensor its backward saves, so after them the aux loss would rerun their
+    # down projection, which the reference's remat does not
+    if "shared" in p:
+        out = out + mlp(p["shared"], xg, cfg)
 
     return out.reshape(B, S, d), aux
 

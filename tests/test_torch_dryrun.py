@@ -1,0 +1,280 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``, ``launch.specs``,
+``launch.mesh.make_production_mesh``, ``launch.opprof``) on the CPU, held
+against the JAX package's where it has a counterpart.
+
+  * the input specs of all ten full configs x four shapes (the decode cache
+    included) equal JAX's ``jax.eval_shape`` structs, shape and dtype, leaf
+    for leaf; the production meshes equal JAX's (its mesh needs 512 forced
+    host devices, so it is read in a subprocess);
+  * per family, the full-depth fake count equals the affine fit from the two
+    probe depths (exact: each layer adds the same ops);
+  * the fake step's counts equal the same step's on real CPU tensors (what
+    chip_smoke.py phase 9 holds on the card);
+  * ``run_cell`` on one cell per family, at smoke widths and the real
+    shapes, returns ``ok`` with JAX's record keys; the CLI exits 0.
+"""
+import dataclasses
+import functools
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs.base import SHAPES as JSHAPES
+from repro.launch import specs as JSP
+from repro_torch import tree as T
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config, get_smoke_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import costmodel as CM
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import opprof
+from repro_torch.launch import specs as SP
+from repro_torch.launch.mesh import abstract_mesh, make_production_mesh
+
+ROOT = Path(__file__).resolve().parents[1]
+ONE_CARD = abstract_mesh(data=1, model=1)
+FAMILIES = {"dense": "stablelm-3b", "moe": "deepseek-v2-lite-16b",
+            "ssm": "mamba2-130m", "hybrid": "zamba2-7b"}
+# JAX's record keys (repro/launch/dryrun.py::run_cell) and roofline fields
+JAX_RECORD_KEYS = {"arch", "shape", "mesh", "status", "n_devices",
+                   "compile_s", "probe_compile_s", "memory", "cost",
+                   "collectives", "roofline"}
+
+
+def smoke(arch, **extra):
+    """Overrides that turn the full config into the smoke one."""
+    full, sm = get_config(arch), get_smoke_config(arch)
+    over = {f.name: getattr(sm, f.name) for f in dataclasses.fields(sm)
+            if f.name != "name" and getattr(sm, f.name) != getattr(full,
+                                                                   f.name)}
+    return {**over, **extra}
+
+
+def cell(arch, kind, overrides, B=2, S=16):
+    c, _ = D.lower_cell(arch, None, False, overrides,
+                        shape=ShapeConfig(f"{kind}_{B}x{S}", S, B, kind),
+                        mesh=ONE_CARD)
+    return c
+
+
+def _jax_leaves(tree):
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return {"/".join(str(getattr(p, "key", getattr(p, "name", p)))
+                     for p in path): (tuple(leaf.shape), str(leaf.dtype))
+            for path, leaf in flat}
+
+
+def _port_leaves(tree):
+    return {path: (tuple(t.shape), str(t.dtype).split(".")[-1])
+            for path, t in T.flatten(tree)}
+
+
+@functools.lru_cache(maxsize=None)
+def _params(arch):
+    return (_jax_leaves(JSP.params_struct(jget_config(arch))),
+            _port_leaves(SP.params_struct(get_config(arch))))
+
+
+@pytest.mark.parametrize("arch,shape", [(a, s) for a in ARCH_IDS
+                                        for s in SHAPES])
+def test_input_specs_equal_jax(arch, shape):
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    sh, jsh = SHAPES[shape], JSHAPES[shape]
+    want_params, got_params = _params(arch)
+    assert got_params == want_params
+    if sh.kind == "train":
+        assert _port_leaves(SP.train_input_specs(cfg, sh)) == \
+            _jax_leaves(JSP.train_input_specs(jcfg, jsh))
+        # the optimizer state over the same tree
+        opt = SP.opt_state_struct(SP.params_struct(cfg))
+        assert {p: s for p, s in _port_leaves(opt).items()
+                if p.startswith(".mu/")} == {
+            f".mu/{p}": (s[0], "float32") for p, s in want_params.items()}
+    elif sh.kind == "prefill":
+        assert _port_leaves(SP.prefill_input_specs(cfg, sh)) == \
+            _jax_leaves(JSP.prefill_input_specs(jcfg, jsh))
+    else:
+        batch, cache = SP.decode_input_specs(cfg, sh)
+        jbatch, jcache = JSP.decode_input_specs(jcfg, jsh)
+        assert _port_leaves(batch) == _jax_leaves(jbatch)
+        assert _port_leaves(cache) == _jax_leaves(jcache)
+    assert all(t.device.type == "meta"
+               for t in T.leaves(SP.input_specs(cfg, sh)))
+
+
+def test_production_meshes_equal_jax():
+    code = ("import os\n"
+            "os.environ['XLA_FLAGS'] = "
+            "'--xla_force_host_platform_device_count=512'\n"
+            "import json\n"
+            "from repro.launch.mesh import make_production_mesh as m\n"
+            "print(json.dumps([list(m(multi_pod=p).shape.items()) "
+            "for p in (False, True)]))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    want = json.loads(res.stdout.strip().splitlines()[-1])
+    for multi_pod, w in zip((False, True), want):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        assert [list(kv) for kv in mesh.shape.items()] == w
+        assert mesh.size == (512 if multi_pod else 256)
+        assert mesh.device_mesh is None           # no process group
+
+
+def _counts(prof):
+    return {"flops": prof.flops, "matmul_flops": prof.matmul_flops,
+            "bytes accessed": prof.bytes, "n_ops": prof.n_ops}
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("family,layers", [("dense", 7), ("moe", 6),
+                                           ("ssm", 7), ("hybrid", 6)])
+def test_full_depth_count_is_the_affine_fit(family, layers, kind):
+    """The port counts the full depth directly; two probe depths predict it
+    exactly (the hybrid at whole groups: a tail is counted as part of a
+    group, the JAX package's approximation)."""
+    arch = FAMILIES[family]
+    over = smoke(arch, num_layers=layers)
+    cfg = get_config(arch, **over)
+    ov_a, ov_b, n_a, n_b, n_t = CM.probe_depths(cfg)
+    a, b = (_counts(cell(arch, kind, {**over, **ov}).run())
+            for ov in (ov_a, ov_b))
+    full = _counts(cell(arch, kind, over).run())
+    fit = CM.extrapolate(a, b, n_a, n_b, n_t)
+    assert {k: pytest.approx(v, rel=1e-12) for k, v in fit.items()} == full
+    assert full["matmul_flops"] > a["matmul_flops"]
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("stablelm-3b", "train"), ("mamba2-130m", "train"),
+    ("chatglm3-6b", "prefill"), ("chatglm3-6b", "decode"),
+    ("zamba2-7b", "train"), ("deepseek-v2-lite-16b", "decode"),
+    ("phi3.5-moe-42b-a6.6b", "prefill"), ("qwen2-vl-7b", "decode")])
+def test_fake_step_counts_equal_the_real_step(arch, kind):
+    """What phase 9 holds on the card, here on CPU tensors: the same
+    matmul FLOPs, all FLOPs, argument bytes and peak above them."""
+    c = cell(arch, kind, smoke(arch), B=2, S=32)
+    fake, real = c.run(), c.run(fake=False)
+    for attr in ("matmul_flops", "flops", "argument_bytes", "peak_bytes",
+                 "output_bytes"):
+        assert getattr(fake, attr) == getattr(real, attr), attr
+    assert fake.matmul_flops > 0 and fake.collectives == []
+    # one card: every argument unsharded, so the specs' bytes are the
+    # storages' bytes
+    assert D.argument_bytes(c.cfg, c.shape, ONE_CARD) == fake.argument_bytes
+
+
+def test_op_profile_counts_and_storage_lifetimes():
+    x = torch.ones(256, 256)
+    prof = opprof.OpProfile()
+    assert prof.hold(x, [x]) == x.numel() * 4
+    with prof:
+        y = x @ x
+        z = y * 2
+        del y
+        w = z + 1
+        ref = torch.ones(1).untyped_storage()
+        del z, w
+    n = 256 * 256 * 4
+    assert prof.peak_bytes == 2 * n + 4
+    assert prof.live_bytes == 4                  # only ``ref``'s storage
+    del ref
+    assert prof.live_bytes == 0
+    assert prof.matmul_flops == prof.flops == 2 * 256 ** 3
+    assert opprof.top_dots(prof) == [{"out_shape": (256, 256), "contract_k": 256,
+                                "flops": 2 * 256 ** 3, "count": 1,
+                                "example": "mm"}]
+    assert opprof.collective_report(prof) == []
+    assert prof.collective_bytes() == {"count": 0, "total": 0}
+    assert prof.bytes >= 3 * n + 2 * n + 2 * n
+
+
+@pytest.mark.parametrize("family,shape,multi_pod", [
+    ("dense", "train_4k", False), ("moe", "prefill_32k", True),
+    ("ssm", "train_4k", True), ("hybrid", "long_500k", False)])
+def test_run_cell_per_family(family, shape, multi_pod):
+    arch = FAMILIES[family]
+    rec = D.run_cell(arch, shape, multi_pod, smoke(arch), verbose=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert JAX_RECORD_KEYS <= set(rec)
+    assert rec["n_devices"] == (512 if multi_pod else 256)
+    assert set(rec["memory"]) == {"argument_size_in_bytes",
+                                  "output_size_in_bytes",
+                                  "temp_size_in_bytes"}
+    assert rec["cost"]["flops"] > 0 and rec["cost"]["bytes accessed"] > 0
+    terms = rec["roofline"]
+    assert terms["step_time_s"] == max(terms["compute_s"], terms["memory_s"],
+                                       terms["collective_s"])
+    coll = rec["collectives"]
+    if family == "ssm":
+        # dp_all: the gradient mean over (data, model) as the port runs it,
+        # an f32 all-reduce of every gradient leaf and one of the 3 metrics
+        cfg = get_config(arch, **smoke(arch))
+        params = SP.params_struct(cfg)
+        n = sum(t.numel() for t in T.leaves(params))
+        assert coll == {"all-reduce": 4 * n + 12, "count":
+                        len(T.leaves(params)) + 1, "total": 4 * n + 12}
+        assert rec["split"] is None and rec["rows_per_rank"] == 1
+    else:
+        assert coll["tensor_parallel"].endswith("item 12b")
+        assert rec["split"]["ideal"] and rec["split"]["model"] == 16
+        if SHAPES[shape].kind != "train":
+            assert coll["total"] == 0              # serving runs none
+
+
+def test_run_cell_skips_long_context_on_full_attention():
+    rec = D.run_cell("gemma-7b", "long_500k", False, verbose=False)
+    assert rec["status"] == "skipped" and "long_500k" in rec["why"]
+
+
+def test_table_rows_from_records():
+    rec = D.run_cell("mamba2-130m", "decode_32k", False, smoke("mamba2-130m"),
+                     verbose=False)
+    rows = D.table_rows([rec, {"status": "skipped"}])
+    assert rows[0]["name"] == "roofline.single_pod.mamba2-130m.decode_32k"
+    assert rows[0]["us_per_call"] == round(rec["roofline"]["step_time_s"]
+                                           * 1e6)
+    assert rows[-1]["derived"].startswith("1 cells run, 1 skipped")
+
+
+def test_cli_one_cell(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    sets = [a for k, v in smoke("stablelm-3b").items()
+            for a in ("--set", f"{k}={v}")]
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "stablelm-3b", "--shape", "decode_32k", "--mesh", "multi", *sets],
+        env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = res.stdout
+    rec = json.loads(out[out.index("{"):])
+    assert rec["status"] == "ok" and rec["n_devices"] == 512
+
+
+def test_mesh_group_over_two_of_three_axes():
+    """A group over several axes of a larger mesh (the multi-pod cells'
+    batch axes): the ranks sharing the other coordinates, in the order
+    ``axes_index`` counts them; created once per mesh."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+        group = mesh.group(("pod", "data"))
+        assert dist.get_process_group_ranks(group) == [0, 2, 4, 6]
+        assert mesh.group(("pod", "data")) is group
+        assert dist.get_process_group_ranks(
+            mesh.group(("data", "model"))) == [0, 1, 2, 3]
+        with pytest.raises(ValueError, match="order"):
+            mesh.group(("data", "pod"))
+    finally:
+        dist.destroy_process_group()

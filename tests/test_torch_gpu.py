@@ -683,3 +683,27 @@ def test_driver_on_the_card(cuda, arch, tmp_path):
     int8 = train_mod.train(cfg, steps=6, compress_grads=True, **kw)
     assert int8["losses"][0] == full["losses"][0]
     assert all(np.isfinite(int8["losses"]))
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("stablelm-3b", "train"), ("zamba2-7b", "train"),
+    ("deepseek-v2-lite-16b", "prefill"), ("chatglm3-6b", "decode")])
+def test_dryrun_counts_equal_the_card(cuda, arch, kind):
+    """The dry-run's step on fake tensors and the same plain step on CUDA
+    tensors under the same OpProfile: the same ops, FLOPs, argument bytes
+    and storage peak (what chip_smoke.py phase 9 holds at full width)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+    full, sm = get_config(arch), get_smoke_config(arch)
+    over = {f.name: getattr(sm, f.name) for f in dataclasses.fields(sm)
+            if f.name != "name" and getattr(sm, f.name) != getattr(full,
+                                                                   f.name)}
+    cell, _ = dryrun.lower_cell(arch, None, False, over,
+                                shape=ShapeConfig("smoke", 32, 2, kind),
+                                mesh=abstract_mesh(data=1, model=1))
+    fake, real = cell.run(), cell.run(device=cuda, fake=False)
+    for attr in ("matmul_flops", "flops", "argument_bytes", "peak_bytes",
+                 "output_bytes"):
+        assert getattr(fake, attr) == getattr(real, attr), attr
