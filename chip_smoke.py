@@ -100,6 +100,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -107,6 +108,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense) and the bound of each kernel:
 # one set of terms for the card, the roofline's
+import numpy as np  # noqa: E402
+
 from repro_torch.launch.roofline import (  # noqa: E402
     HBM_BW as PEAK_BYTES_PER_S, PEAK_FLOPS_BY_DTYPE as PEAK_FLOPS, add_bound,
     ssd_work)
@@ -194,6 +197,26 @@ ATEN_CALLS_BEFORE = {"chatglm3-6b": 5197, "zamba2-7b": 26652,
 # took the same decisions on both paths, and needs at least this share of
 # the positions to be such.
 MIN_CLEAN_SHARE = 0.5
+
+# phase 10: the runtime (repro_torch.runtime) on the card. (a) the hybrid
+# campaign of launch/hybrid_campaign.py with full-width, full-depth
+# stablelm-3b as its surrogate: 2 rounds of 8 candidates, the SST batch
+# 8 x 1,024 (phase 7's shape), 3 steps a round; its losses against the same
+# steps called directly, bit for bit or within CAMPAIGN_LOSS_RTOL; (b) an
+# LM service of 2 replicas on dragon, 16 requests of one 1,024-token prompt
+# and 32 greedy new tokens each; (c) checkpoint-restart through the
+# runtime: mamba2-130m at 8 x 512, a checkpoint every 2 steps, a crash after
+# step 4, resumed to step 6; (d) function-task throughput, no-op tasks
+# through dragon and funcpool, alone and beside a flux task training
+# stablelm-3b on the card
+CAMPAIGN_ITERS, CAMPAIGN_DOCK, CAMPAIGN_STEPS = 2, 8, 3
+CAMPAIGN_SEQ = TRAIN_SEQ
+CAMPAIGN_LOSS_RTOL = 1e-6
+SERVICE_REPLICAS, SERVICE_REQUESTS = 2, 16
+RESTART_STEPS, RESTART_EVERY, RESTART_CRASH = 6, 2, 4
+THROUGHPUT_TASKS = 2000
+THROUGHPUT_WORKERS = 4
+TASK_TIMEOUT_S = 600
 
 
 def check(ok, msg):
@@ -285,6 +308,18 @@ def sass_counts(lib_path, opcode):
         elif fn is not None and re.search(rf"\b{opcode}\b", line):
             counts[fn] += 1
     return counts
+
+
+def _noop(i):
+    """A function task that does nothing (phase 10's throughput)."""
+    return i
+
+
+def _touch_cuda():
+    """A function task that asks for the card: in a worker forked after the
+    parent set up CUDA, torch refuses."""
+    import torch
+    return float(torch.ones(1, device="cuda").sum())
 
 
 def main():
@@ -937,6 +972,12 @@ def main():
                        measured_s[(arch, step_kind)], card)
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------- 10. the runtime
+    runtime_launches = runtime_on_card(
+        torch, ops_of, card, dev, get_config("stablelm-3b"),
+        get_config("mamba2-130m"), trained["stablelm-3b"][1])
+    torch.cuda.empty_cache()
+
     # ----------------------------------------------------------------- result
     print(f"[device] {card}")
     summary = []
@@ -954,10 +995,13 @@ def main():
              "src/repro/kernels/ssd/ssd.py:29")):
         r = results[name]
         by_path = {arch: launches[arch][name] for arch in PATHS}
+        by_part = {part: n[name] for part, n in runtime_launches.items()}
         summary.append({"name": name, "route": route, "source": source,
                         "replaces": replaces,
-                        "launches": sum(by_path.values()),
+                        "launches": (sum(by_path.values())
+                                     + sum(by_part.values())),
                         "launches_by_path": by_path,
+                        "launches_by_runtime_part": by_part,
                         "launches_per_train_step": {
                             arch: train_launches[arch][name]
                             for arch in TRAIN_PATHS},
@@ -1874,6 +1918,464 @@ def teacher_forced(torch, c, params, tokens, S, S_cache, dev):
     decode_ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
     return prefill_s, decode_ms, out
 
+
+def _reset(ops_of):
+    for ops in ops_of.values():
+        ops.launches = 0
+
+
+def _counts(ops_of):
+    return {name: ops.launches for name, ops in ops_of.items()}
+
+
+def _times(tasks, a="SCHEDULING", b="DONE"):
+    """Seconds from state a to state b of each task, from its timestamps."""
+    return [t.timestamps[b] - t.timestamps[a] for t in tasks]
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def runtime_on_card(torch, ops_of, card, dev, cfg, mamba, phase7_step_s):
+    """Phase 10: the port's runtime drives the kernels on the card. Returns
+    each part's launch counts by kernel."""
+    launches = {}
+    launches["campaign"], params = campaign_on_card(
+        torch, ops_of, card, dev, cfg, phase7_step_s)
+    launches["service"] = service_on_card(torch, ops_of, card, dev, cfg,
+                                          params)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    launches["restart"] = restart_on_card(torch, ops_of, card, dev, mamba)
+    launches["throughput"] = throughput_on_card(torch, ops_of, card, dev, cfg)
+    return launches
+
+
+def campaign_on_card(torch, ops_of, card, dev, cfg, phase7_step_s):
+    """Phase 10 (a): launch/hybrid_campaign.py on the card with ``cfg`` as
+    the surrogate; the numpy side against a CPU run of the twin at the
+    example's model size; the losses against the same steps called
+    directly from the same weights; the launches against the tasks'."""
+    from repro_torch import tree as T
+    from repro_torch.distributed import serve_step, train_step
+    from repro_torch.launch import hybrid_campaign as HC
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    shape = dict(iterations=CAMPAIGN_ITERS, docking_batch=CAMPAIGN_DOCK,
+                 train_steps=CAMPAIGN_STEPS, seq_len=CAMPAIGN_SEQ)
+    t0 = time.perf_counter()
+    cpu = HC.run_campaign(device="cpu", quiet=True, **shape)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    init = T.tree_map(torch.clone, params)
+    _sync(torch, dev)
+    print(f"[runtime] campaign surrogate {cfg.name}: {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.dtype}, remat {cfg.remat!r};"
+          f" random init and a copy in {time.perf_counter() - t0:.1f} s; the "
+          f"twin on the CPU at the example's size (d_model 96, 2 layers) "
+          f"took {cpu_s:.1f} s", flush=True)
+    _reset(ops_of)
+    t0 = time.perf_counter()
+    out = HC.run_campaign(cfg, params=params, device=dev, **shape)
+    _sync(torch, dev)
+    wall_s = time.perf_counter() - t0
+    launches = _counts(ops_of)
+    del params
+
+    tasks = [t for ts in out["tasks"].values() for t in ts]
+    check(len(tasks) == CAMPAIGN_ITERS * (CAMPAIGN_DOCK + 2)
+          and all(t.state.value == "DONE" for t in tasks),
+          f"campaign tasks not all DONE: "
+          f"{[(t.uid, t.state.value, t.error) for t in tasks]}")
+    check({t.backend for t in out["tasks"]["sst_train"]} == {"flux"}
+          and {t.backend for t in out["tasks"]["docking"]
+               + out["tasks"]["inference"]} == {"dragon"},
+          "campaign tasks on the wrong backends")
+    check(all(m is not None and m.size == 1 for m in out["meshes"]),
+          f"the train tasks did not get the one-card mesh: {out['meshes']}")
+    losses = out["losses"]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"campaign losses not finite and falling: {losses}")
+    # the numpy side (the SST tokens are taken modulo each model's vocab)
+    for key in ("scores", "selections"):
+        check(all(np.array_equal(a, b) for a, b in zip(out[key], cpu[key]))
+              and len(out[key]) == len(cpu[key]) == CAMPAIGN_ITERS,
+              f"campaign {key} on the card differ from the CPU twin's")
+    tl = train_step.kernel_launches(cfg)
+    fl = serve_step.kernel_launches(cfg, 1)          # one full forward
+    want = {k: CAMPAIGN_ITERS * (CAMPAIGN_STEPS * tl[k] + fl[k]) for k in tl}
+    check(launches == want, f"campaign launches {launches} != {want}")
+
+    # the same steps, called directly from the same weights
+    opt = adamw.init(init)
+    step = train_step.make_train_step(cfg, adamw.OptimizerConfig(
+        total_steps=64, warmup_steps=2))
+    direct, direct_s = [], []
+    for toks in out["tokens"]:
+        batch = HC.sst_batch(toks, dev)
+        for _ in range(CAMPAIGN_STEPS):
+            t0 = time.perf_counter()
+            init, opt, m = step(init, opt, batch)
+            loss = float(m["loss"])
+            _sync(torch, dev)
+            direct_s.append(time.perf_counter() - t0)
+        direct.append(loss)
+    del init, opt, batch
+    bitwise = direct == losses
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, direct))
+    check(bitwise or rel <= CAMPAIGN_LOSS_RTOL,
+          f"campaign losses {losses} != direct {direct} (rel {rel:.3e})")
+
+    for name in ("docking", "sst_train", "inference"):
+        print(f"[runtime] campaign stage {name}: wall "
+              f"{[round(x, 4) for x in out['stage_s'][name]]} s a round",
+              flush=True)
+    trains = out["tasks"]["sst_train"]
+    run_s = _times(trains, "RUNNING", "DONE")
+    inside = [sum(x) for x in out["step_s"]]
+    dispatch = _times(trains, "SCHEDULING", "RUNNING")
+    for i in range(CAMPAIGN_ITERS):
+        print(f"[runtime] campaign round {i}: sst_train RUNNING->DONE "
+              f"{run_s[i]:.4f} s in the trace, its {CAMPAIGN_STEPS} steps "
+              f"{inside[i]:.4f} s inside the callable (synchronised): the "
+              f"runtime's cost {run_s[i] - inside[i]:.4f} s; dispatch "
+              f"SCHEDULING->RUNNING {dispatch[i] * 1e3:.3f} ms  [{card}]",
+              flush=True)
+    steps = [x for s in out["step_s"] for x in s[1:]]
+    med = statistics.median(steps)
+    print(f"[runtime] campaign: {len(tasks)} tasks DONE in {wall_s:.2f} s "
+          f"(rounds {out['wall_s']:.2f} s); losses {losses}; direct "
+          f"{direct}: {'equal in every bit' if bitwise else f'rel {rel:.3e}'}"
+          f"; step {med:.4f} s in the task (median of the rounds' steps 2-"
+          f"{CAMPAIGN_STEPS}), {statistics.median(direct_s[1:]):.4f} s "
+          f"called directly, phase 7's {phase7_step_s:.4f} s; scores and "
+          f"selections equal to the CPU twin's; launches {launches}  "
+          f"[{card}]", flush=True)
+    return launches, out.pop("params")
+
+
+def _serve(torch, ops_of, cfg, handler, prompts, replicas):
+    """``prompts`` through a service of ``replicas`` replicas on dragon, the
+    launch counts set to 0 just before. Returns the results in request
+    order, the request log, the launches, the replica tasks, the requests
+    each replica served and the wall seconds."""
+    from repro_torch.core.pilot import PilotDescription
+    from repro_torch.runtime import PilotManager, Session, TaskManager
+
+    with Session(mode="real") as session:
+        pilot = PilotManager(session).submit_pilots(PilotDescription(
+            nodes=1, backends={"dragon": {"workers": replicas + 2}}))
+        tmgr = TaskManager(session)
+        tmgr.add_pilots(pilot)
+        _reset(ops_of)
+        t0 = time.perf_counter()
+        svc = tmgr.start_service(handler=handler, replicas=replicas,
+                                 backend="dragon")
+        rids = svc.submit_requests(prompts)
+        check(svc.wait_requests(timeout=TASK_TIMEOUT_S),
+              "service requests did not finish")
+        wall_s = time.perf_counter() - t0
+        svc.stop()
+        check(tmgr.wait_tasks(timeout=TASK_TIMEOUT_S),
+              "service replicas did not stop")
+        launches = _counts(ops_of)
+        tasks = [tmgr.tasks[d.uid] for d in svc.descriptions()]
+        log = {k: np.asarray(v) for k, v in svc.request_log().items()}
+        return ([svc.results[r] for r in rids], log, launches, tasks,
+                sorted(svc.served_per_replica().values()), wall_s)
+
+
+def service_on_card(torch, ops_of, card, dev, cfg, params):
+    """Phase 10 (b): an LM service of SERVICE_REPLICAS replicas on dragon
+    sharing ``params``, each request one PROMPT_LEN prompt and NEW_TOKENS
+    greedy tokens through launch/serve.py's generate; the tokens against
+    generate called directly; the replicas STOPPED; exact launches. Then
+    the same requests through one replica, and generate called one request
+    after another, for the rate each gives."""
+    from repro_torch.distributed import serve_step
+    from repro_torch.launch.serve import generate
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN),
+                             generator=gen, device=dev, dtype=torch.int32)
+               for _ in range(SERVICE_REQUESTS)]
+
+    cpu_s = []          # CPU seconds of the thread that ran each request
+
+    def handler(prompt):
+        t0 = time.thread_time()
+        out = generate(params, cfg, prompt,
+                       max_new_tokens=NEW_TOKENS)[:, PROMPT_LEN:].cpu()
+        cpu_s.append(time.thread_time() - t0)
+        return out
+
+    t0 = time.perf_counter()
+    direct = [handler(p) for p in prompts]
+    direct_s = time.perf_counter() - t0
+    cpu = {"direct": statistics.median(cpu_s)}
+    per_launch = serve_step.kernel_launches(cfg, NEW_TOKENS)
+    want = {k: SERVICE_REQUESTS * v for k, v in per_launch.items()}
+    rates, main = {}, None
+    for replicas in (SERVICE_REPLICAS, 1):
+        cpu_s.clear()
+        results, log, launches, tasks, served, wall_s = _serve(
+            torch, ops_of, cfg, handler, prompts, replicas)
+        check(all(t.state.value == "STOPPED" and t.backend == "dragon"
+                  for t in tasks),
+              f"replicas not STOPPED on dragon: "
+              f"{[(t.uid, t.state.value, t.error) for t in tasks]}")
+        check(bool((log["ok"] == 1).all()) and len(results) == len(prompts),
+              f"service requests not all answered: ok {log['ok'].tolist()}")
+        check(launches == want, f"service launches {launches} != {want}")
+        same = sum(bool(torch.equal(a, b)) for a, b in zip(results, direct))
+        check(same == len(prompts), f"service tokens differ from direct "
+              f"generate in {len(prompts) - same} of {len(prompts)}")
+        lat = log["end"] - log["submit"]
+        span = log["end"].max() - log["submit"].min()
+        rates[replicas] = len(prompts) / span
+        cpu[replicas] = statistics.median(cpu_s)
+        ready = _times(tasks, "PROVISIONING", "READY")
+        print(f"[runtime] service: {replicas} replica(s) of {cfg.name} on "
+              f"dragon, {len(prompts)} requests of {PROMPT_LEN} prompt "
+              f"tokens and {NEW_TOKENS} greedy new tokens: "
+              f"{rates[replicas]:.3f} requests/s "
+              f"({len(prompts) * NEW_TOKENS / span:.1f} new tokens/s) over "
+              f"{span:.3f} s from the request log, wall {wall_s:.3f} s; "
+              f"latency median {np.median(lat):.4f} s, p99 "
+              f"{np.percentile(lat, 99):.4f} s; CPU time of the replica's "
+              f"thread per request {cpu[replicas]:.4f} s (median); served "
+              f"per replica {served};"
+              f" PROVISIONING->READY {[round(x * 1e3, 3) for x in ready]} "
+              f"ms; tokens equal to direct generate in {same}/"
+              f"{len(prompts)}; replicas STOPPED; launches {launches}  "
+              f"[{card}]", flush=True)
+        main = main or launches
+    print(f"[runtime] service rates: {SERVICE_REPLICAS} replicas "
+          f"{rates[SERVICE_REPLICAS]:.3f}, 1 replica {rates[1]:.3f}, generate "
+          f"called one request after another {len(prompts) / direct_s:.3f} "
+          f"requests/s; CPU seconds of the serving thread per request "
+          f"(median) {cpu[SERVICE_REPLICAS]:.4f}, {cpu[1]:.4f} and "
+          f"{cpu['direct']:.4f}  [{card}]", flush=True)
+    return main
+
+
+def restart_on_card(torch, ops_of, card, dev, cfg):
+    """Phase 10 (c): a flux task trains ``cfg`` (mamba2-130m) at
+    DRIVER_LM_BATCH x DRIVER_LM_SEQ, saves through the manager the runtime
+    injects every RESTART_EVERY steps, crashes once after RESTART_CRASH, and
+    is resumed by the runtime to RESTART_STEPS; its final parameters against
+    an uninterrupted run, bit for bit."""
+    from repro_torch import tree as T
+    from repro_torch.core.pilot import PilotDescription
+    from repro_torch.core.task import TaskDescription
+    from repro_torch.distributed.train_step import (kernel_launches,
+                                                    make_train_step)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import _positions
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import PilotManager, Session, TaskManager
+
+    B, S = DRIVER_LM_BATCH, DRIVER_LM_SEQ
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous(),
+             "positions": _positions(cfg, B, S, device=dev)}
+    step = make_train_step(cfg, adamw.OptimizerConfig(warmup_steps=1,
+                                                      total_steps=10))
+    attempts = []
+
+    def trainer(n_steps, checkpoint=None, resume_from=None, mesh=None):
+        attempts.append(resume_from)
+        params = M.init_params(cfg, seed=SEED, device=dev)
+        opt = adamw.init(params)
+        start = 0
+        if resume_from is not None:
+            tree = checkpoint.restore(resume_from, template={
+                "params": params, "opt": opt})["tree"]
+            params, opt, start = tree["params"], tree["opt"], resume_from
+        for s in range(start + 1, n_steps + 1):
+            params, opt, _ = step(params, opt, batch)
+            if checkpoint is not None and s % RESTART_EVERY == 0:
+                checkpoint.save(s, {"params": params, "opt": opt})
+            if (checkpoint is not None and resume_from is None
+                    and s == RESTART_CRASH):
+                raise RuntimeError(f"a crash after step {s}")
+        _sync(torch, dev)
+        return params
+
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_runtime_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    with Session(mode="real") as session:
+        pilot = PilotManager(session).submit_pilots(PilotDescription(
+            nodes=1, backends={"flux": {"partitions": 1,
+                                        "mesh": make_host_mesh(device=dev)}}))
+        tmgr = TaskManager(session)
+        tmgr.add_pilots(pilot)
+        _reset(ops_of)
+        t0 = time.perf_counter()
+        task = tmgr.submit_tasks(TaskDescription(
+            kind="executable", coupling="tight", fn=trainer,
+            args=(RESTART_STEPS,), max_retries=1, checkpoint_dir=ckpt))
+        check(tmgr.wait_tasks(timeout=TASK_TIMEOUT_S),
+              "the restart task did not finish")
+        wall_s = time.perf_counter() - t0
+        launches = _counts(ops_of)
+        resumes = session.profiler.by_name("task:resume")
+        retries = session.profiler.by_name("agent:retry")
+    check(task.state.value == "DONE" and task.backend == "flux",
+          f"restart task {task.state.value} on {task.backend}: {task.error}")
+    check(attempts == [None, RESTART_CRASH],
+          f"restart attempts resumed from {attempts}")
+    check(len(resumes) == 1 and resumes[0].data["progress"] == RESTART_CRASH,
+          f"task:resume events {[e.data for e in resumes]}")
+    want = {k: RESTART_STEPS * v for k, v in kernel_launches(cfg).items()}
+    check(launches == want, f"restart launches {launches} != {want}")
+    t0 = time.perf_counter()
+    ref = trainer(RESTART_STEPS)
+    ref_s = time.perf_counter() - t0
+    diff = [key for (key, a), (_, b) in zip(T.flatten(task.result),
+                                             T.flatten(ref))
+            if not torch.equal(a, b)]
+    check(not diff, f"resumed parameters differ from the uninterrupted run's "
+          f"in {len(diff)} leaves: {diff[:5]}")
+    print(f"[runtime] restart: {cfg.name} at {B} x {S} on flux, a "
+          f"checkpoint every {RESTART_EVERY} steps, a crash after step "
+          f"{RESTART_CRASH} ({len(retries)} agent:retry), one task:resume "
+          f"with progress {resumes[0].data['progress']}, DONE at step "
+          f"{RESTART_STEPS} in {wall_s:.3f} s (the uninterrupted run "
+          f"{ref_s:.3f} s); parameters equal to the uninterrupted run's in "
+          f"every bit; launches {launches}  [{card}]", flush=True)
+    del task, ref
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return launches
+
+
+def _noop_rate(tmgr, backend, n):
+    """n no-op function tasks through ``backend``: tasks/s from the trace
+    (first submission to last DONE), and the tasks."""
+    from repro_torch.core.task import TaskDescription
+    tasks = tmgr.submit_tasks([TaskDescription(kind="function", fn=_noop,
+                                               args=(i,), backend=backend)
+                               for i in range(n)])
+    check(tmgr.wait_tasks(tasks, timeout=TASK_TIMEOUT_S),
+          f"{n} no-op tasks on {backend} did not finish")
+    check(all(t.state.value == "DONE" and t.backend == backend
+              for t in tasks) and [t.result for t in tasks] == list(range(n)),
+          f"no-op tasks on {backend} not all DONE there")
+    t_first = min(t.timestamps["SCHEDULING"] for t in tasks)
+    t_last = max(t.timestamps["DONE"] for t in tasks)
+    return n / (t_last - t_first)
+
+
+def throughput_on_card(torch, ops_of, card, dev, cfg):
+    """Phase 10 (d): THROUGHPUT_TASKS no-op function tasks through dragon
+    and through funcpool (worker processes forked after CUDA is up), each
+    alone and beside a flux task training ``cfg`` on the card. A task that
+    asks for the card in a forked funcpool worker fails with CUDA's error."""
+    from repro_torch.core.pilot import PilotDescription
+    from repro_torch.core.task import TaskDescription
+    from repro_torch.distributed.train_step import (kernel_launches,
+                                                    make_train_step)
+    from repro_torch.launch.hybrid_campaign import sst_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import PilotManager, Session, TaskManager
+
+    check(torch.cuda.is_initialized() or dev.type != "cuda",
+          "CUDA is not initialised before the funcpool workers fork")
+    pools = {"dragon": {"workers": THROUGHPUT_WORKERS},
+             "funcpool": {"workers": THROUGHPUT_WORKERS}}
+    rates = {}
+    for backend in ("dragon", "funcpool"):
+        with Session(mode="real") as session:
+            pilot = PilotManager(session).submit_pilots(PilotDescription(
+                nodes=1, backends={backend: pools[backend]}))
+            tmgr = TaskManager(session)
+            tmgr.add_pilots(pilot)
+            rates[(backend, "alone")] = _noop_rate(tmgr, backend,
+                                                   THROUGHPUT_TASKS)
+            if backend == "funcpool":
+                t0 = time.perf_counter()
+                bad = tmgr.submit_tasks(TaskDescription(
+                    kind="function", fn=_touch_cuda, backend="funcpool"))
+                check(tmgr.wait_tasks([bad], timeout=60),
+                      "a CUDA payload on funcpool did not end within 60 s")
+                fail_s = time.perf_counter() - t0
+                check(bad.state.value == "FAILED"
+                      and "CUDA" in (bad.error or ""),
+                      f"a CUDA payload on funcpool ended {bad.state.value}: "
+                      f"{bad.error}")
+                print(f"[runtime] funcpool (start method "
+                      f"{pilot.agent.backends['funcpool']._ctx.get_start_method()}"
+                      f", workers forked after CUDA was set up): a payload "
+                      f"that asks for the card ended FAILED in {fail_s:.3f} "
+                      f"s: {bad.error[:160]!r}", flush=True)
+
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    step = make_train_step(cfg, adamw.OptimizerConfig(warmup_steps=1,
+                                                      total_steps=10))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                         generator=gen, device=dev, dtype=torch.int32)
+    batch = sst_batch(toks.cpu().numpy(), dev)
+    first, stop = threading.Event(), threading.Event()
+
+    def trainer(mesh=None):
+        opt, n, times = adamw.init(params), 0, []
+        while n < 1 or not stop.is_set():
+            t0 = time.perf_counter()
+            _, opt, m = step(params, opt, batch)
+            if not math.isfinite(float(m["loss"])):
+                raise RuntimeError(f"step {n}: loss {float(m['loss'])}")
+            _sync(torch, dev)
+            times.append(time.perf_counter() - t0)
+            n += 1
+            first.set()
+        return times
+
+    with Session(mode="real") as session:
+        pilot = PilotManager(session).submit_pilots(PilotDescription(
+            nodes=1, backends={"flux": {"partitions": 1,
+                                        "mesh": make_host_mesh(device=dev)},
+                               **pools}))
+        tmgr = TaskManager(session)
+        tmgr.add_pilots(pilot)
+        _reset(ops_of)
+        train = tmgr.submit_tasks(TaskDescription(
+            kind="executable", coupling="tight", fn=trainer))
+        check(first.wait(timeout=TASK_TIMEOUT_S),
+              "the training task took no step")
+        for backend in ("dragon", "funcpool"):
+            rates[(backend, "beside training")] = _noop_rate(
+                tmgr, backend, THROUGHPUT_TASKS)
+        stop.set()
+        check(tmgr.wait_tasks([train], timeout=TASK_TIMEOUT_S),
+              "the training task did not stop")
+        launches = _counts(ops_of)
+    check(train.state.value == "DONE" and train.backend == "flux",
+          f"training task {train.state.value}: {train.error}")
+    times = train.result
+    want = {k: len(times) * v for k, v in kernel_launches(cfg).items()}
+    check(launches == want, f"throughput phase launches {launches} != {want}")
+    print(f"[runtime] function-task throughput, {THROUGHPUT_TASKS} no-op "
+          f"tasks, {THROUGHPUT_WORKERS} workers, tasks/s from the trace "
+          f"(first submission to last DONE): "
+          + ", ".join(f"{b} {w} {r:.1f}" for (b, w), r in rates.items())
+          + f"; the flux task trained {cfg.name} for {len(times)} steps "
+          f"meanwhile (step median {statistics.median(times):.4f} s, "
+          f"max {max(times):.4f} s); launches {launches}  [{card}]",
+          flush=True)
+    del params
+    return launches
 
 if __name__ == "__main__":
     main()

@@ -1,3 +1,20 @@
 """Hand-written Hopper kernels, one folder each: ``csrc/`` (CUDA C++),
 ``ops.py`` (the wrapper the model calls) and ``ref.py`` (the plain PyTorch
-version, run for CPU tensors and held against the kernel on the card)."""
+version, run for CPU tensors and held against the kernel on the card).
+
+Each wrapper module counts its kernel launches in its ``launches``, which
+readers read and set to 0 as a plain attribute. The runtime runs payloads in
+worker threads, where a bare ``launches += 1`` (load, add, store) can lose
+counts, so every wrapper adds through ``count_launch``."""
+import sys
+import threading
+
+_count_lock = threading.Lock()
+
+
+def count_launch(module: str):
+    """Add one to ``launches`` of the wrapper module named ``module`` (its
+    ``__name__``), under a lock shared by the four wrappers."""
+    mod = sys.modules[module]
+    with _count_lock:
+        mod.launches += 1

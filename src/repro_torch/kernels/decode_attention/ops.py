@@ -29,7 +29,7 @@ import ctypes
 import torch
 
 from ...device import sm_count, stream_ptr
-from .. import _build
+from .. import _build, count_launch
 from . import ref
 
 launches = 0
@@ -90,7 +90,6 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, scale: float):
     ``valid_len``: number of valid cache rows, the same for the whole batch,
     as an int32 tensor of one element on q's device (the kernel reads it
     there, so the host never waits on the device)."""
-    global launches
     if not isinstance(valid_len, torch.Tensor):
         raise TypeError("valid_len must be an int32 tensor on q's device")
     if torch.is_grad_enabled() and (q.requires_grad or k_cache.requires_grad
@@ -122,5 +121,5 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, scale: float):
         *k_cache.stride()[:3], *v_cache.stride()[:3], o.stride(0), o.stride(2),
         float(scale), stream_ptr(dev))
     _build.check(lib, "decode_attention", err)
-    launches += 1
+    count_launch(__name__)
     return o

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from .. import _build, _grad
+from .. import _build, _grad, count_launch
 from . import ref
 
 launches = 0
@@ -88,7 +88,6 @@ def flash_attention(q, k, v, *, scale: float):
 
 def _launch(q, k, v, *, scale):
     """Launch the CUDA kernel on q, k, v; a new output, outside autograd."""
-    global launches
     _check(q, k, v)
     B, S, H, hd = q.shape
     hd_v = v.shape[-1]
@@ -100,5 +99,5 @@ def _launch(q, k, v, *, scale):
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_attention", err)
-    launches += 1
+    count_launch(__name__)
     return o

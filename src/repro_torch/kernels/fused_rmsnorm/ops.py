@@ -27,7 +27,7 @@ import functools
 import torch
 
 from ...device import sm_count, stream_ptr
-from .. import _build, _grad
+from .. import _build, _grad, count_launch
 from . import ref
 
 launches = 0
@@ -108,7 +108,6 @@ def plain(x, w, gate, *, eps: float):
 
 def _launch(x, w, gate, *, eps):
     """Launch the CUDA kernel; a new output, outside autograd."""
-    global launches
     dtype = _DTYPES.get(x.dtype)
     if dtype is None or w.dtype != x.dtype:
         raise TypeError(f"rmsnorm takes float32 or bfloat16 x and w of one "
@@ -142,5 +141,5 @@ def _launch(x, w, gate, *, eps):
     if err:
         _build.check(_build.load("fused_rmsnorm", _SIGNATURES),
                      "fused_rmsnorm", err)
-    launches += 1
+    count_launch(__name__)
     return out

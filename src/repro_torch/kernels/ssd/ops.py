@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build, _grad
+from .. import _build, _grad, count_launch
 from . import ref
 
 launches = 0
@@ -101,7 +101,6 @@ def plain(x, dt, A, Bm, Cm, *, chunk: int):
 def _launch(x, dt, A, Bm, Cm, *, chunk):
     """Launch the CUDA kernel; new outputs (y, final state), outside
     autograd."""
-    global launches
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     L = min(chunk, S)
@@ -116,5 +115,5 @@ def _launch(x, dt, A, Bm, Cm, *, chunk):
         *Cm.stride()[:3], *y.stride()[:3],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, "ssd", err)
-    launches += 1
+    count_launch(__name__)
     return y, h_final

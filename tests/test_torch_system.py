@@ -5,12 +5,18 @@ runs as co-scheduled (``coupling="tight"``) executable tasks on the real
 ``flux`` backend and its forward as function tasks on ``dragon``, through
 the JAX package's runtime (``repro.core.LocalRuntime``) on the CPU. The
 runtime imports the callables it is given and nothing of them; the port
-imports nothing of the runtime."""
+imports nothing of the runtime.
+
+Its twin runs the same tasks through the port's own runtime
+(``repro_torch.core.local.LocalRuntime``), with the port's one-process mesh
+passed to ``flux``, and must give the same losses and outputs."""
 import numpy as np
 import torch
 
-from repro.core.local import LocalRuntime
-from repro.core.task import TaskDescription, TaskState
+from repro.core import local as jlocal
+from repro.core import task as jtask
+from repro_torch.core import local as tlocal
+from repro_torch.core import task as ttask
 from repro_torch import tree as T
 from repro_torch.configs import get_smoke_config
 from repro_torch.distributed.train_step import make_train_step
@@ -18,7 +24,10 @@ from repro_torch.models import model as M
 from repro_torch.optim import adamw
 
 
-def test_real_hybrid_ai_hpc_workload_with_the_port():
+def _workload(local, task_mod, mesh=None):
+    """The port's train and forward tasks through ``local.LocalRuntime``;
+    returns the losses and the inference outputs."""
+    TaskDescription, TaskState = task_mod.TaskDescription, task_mod.TaskState
     cfg = get_smoke_config("stablelm-3b")
     params = M.init_params(cfg, seed=0, device="cpu")
     step = make_train_step(cfg, adamw.OptimizerConfig())
@@ -42,7 +51,8 @@ def test_real_hybrid_ai_hpc_workload_with_the_port():
                               "positions": torch.arange(8).expand(1, 8)})
         return float(logits.float().abs().sum())
 
-    rt = LocalRuntime(n_function_workers=2, n_partitions=1)
+    rt = local.LocalRuntime(n_function_workers=2, n_partitions=1,
+                            mesh=mesh)
     descs = [TaskDescription(kind="executable", fn=train_task,
                              coupling="tight") for _ in range(2)]
     descs += [TaskDescription(kind="function", fn=infer_task, args=(i,))
@@ -61,3 +71,15 @@ def test_real_hybrid_ai_hpc_workload_with_the_port():
         assert {t.backend for t in tasks} == {"flux", "dragon"}
     finally:
         rt.shutdown()
+    return losses, outs
+
+
+def test_real_hybrid_ai_hpc_workload_with_the_port():
+    _workload(jlocal, jtask)
+
+
+def test_real_hybrid_ai_hpc_workload_through_the_ports_runtime():
+    from repro_torch.launch.mesh import make_host_mesh
+    got = _workload(tlocal, ttask, mesh=make_host_mesh(device="cpu"))
+    want = _workload(jlocal, jtask)
+    assert got == want
