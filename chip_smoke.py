@@ -82,12 +82,30 @@ Phases, each printing its lines; any failed check exits non-zero:
      run once on fake tensors on the CPU and once on the card on the plain
      path under the same ``OpProfile``: their matmul FLOPs equal; the kernel
      path's time of phases 5 and 7 not below the floor the counts give; the
-     dry-run's peak memory against ``max_memory_allocated``.
+     dry-run's peak memory against ``max_memory_allocated``;
+ 10. the port's runtime (``repro_torch.runtime``, real engine) driving the
+     kernels: launch/hybrid_campaign.py with full stablelm-3b as its
+     surrogate (its losses against the same steps called directly), an LM
+     service of two replicas on dragon (tokens against direct
+     ``generate``), a checkpoint-restart of mamba2-130m through the runtime
+     (bit for bit), and no-op function-task throughput alone and beside a
+     flux training task;
+ 11. the rest of the paper's runtime over the same tasks: (a) phase 10's
+     campaign as Stages through ``TaskManager.run_campaign`` under a
+     ``Watcher`` with a stall rule (losses equal in every bit to phase
+     10's, the streamed breakdown equal to the post-hoc one, the lifecycle
+     telescoping, no alert, ``compute_metrics``, a Chrome trace read back,
+     a ``RunReport`` round trip); (b) an LM service of two replicas on
+     dragon under a ``CampaignScheduler`` and a ``RestartPolicy``, watched,
+     with a ``ChaosController`` node fault on dragon while requests are
+     served (no request lost, tokens equal to direct ``generate``, launches
+     equal to the ``generate`` calls started, ``fault_metrics`` and the
+     time to recover).
 No serving path is cut to fit the time limit: the whole script takes a few
 minutes on an H100.
 The line before the last is the ``{"kernels": [...]}`` summary (with each
-kernel's launches per serve_batch, per train step and per driver step); the
-last is
+kernel's launches per serve_batch, per train step, per driver step and per
+part of phases 10 and 11); the last is
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -112,7 +130,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.launch.roofline import (  # noqa: E402
     HBM_BW as PEAK_BYTES_PER_S, PEAK_FLOPS_BY_DTYPE as PEAK_FLOPS, add_bound,
-    ssd_work)
+    kernel_bound, ssd_work)
 
 # phase 7: training at full width and depth, five steps on one batch
 TRAIN_PATHS = ("stablelm-3b", "mamba2-130m")
@@ -217,6 +235,23 @@ RESTART_STEPS, RESTART_EVERY, RESTART_CRASH = 6, 2, 4
 THROUGHPUT_TASKS = 2000
 THROUGHPUT_WORKERS = 4
 TASK_TIMEOUT_S = 600
+
+# phase 11: the rest of the paper's runtime on the card (Campaign, analytics,
+# chaos, observability). (a) phase 10 (a)'s campaign as Stages through
+# TaskManager.run_campaign under a Watcher ticking every WATCH_INTERVAL_S
+# wall seconds; (b) an LM service of CHAOS_REPLICAS replicas on dragon
+# under a CampaignScheduler, CHAOS_REQUESTS requests of phase 10 (b)'s
+# shape, one node fault on dragon while requests are served. The rules'
+# thresholds and the fault's time are set from this run's phase 10
+# readings: (a)'s stall window STALL_FACTOR times phase 10 (a)'s longest
+# train task (no task completes while one runs); (b)'s p99 limit phase 10
+# (b)'s two-replica p99 (over 16 requests; 8 here), and the fault FAULT_AT
+# of the way into one request served alone. (b) has no stall rule: a
+# replica never completes as a task does, it stops
+WATCH_INTERVAL_S = 0.25
+CHAOS_REPLICAS, CHAOS_REQUESTS = 2, 8
+STALL_FACTOR = 2.0
+FAULT_AT = 0.5
 
 
 def check(ok, msg):
@@ -973,9 +1008,14 @@ def main():
         torch.cuda.empty_cache()
 
     # ------------------------------------------------- 10. the runtime
-    runtime_launches = runtime_on_card(
+    runtime_launches, readings = runtime_on_card(
         torch, ops_of, card, dev, get_config("stablelm-3b"),
         get_config("mamba2-130m"), trained["stablelm-3b"][1])
+    torch.cuda.empty_cache()
+
+    # ----------------------------- 11. campaign, chaos and observability
+    runtime_launches.update(watched_runtime_on_card(
+        torch, ops_of, card, dev, get_config("stablelm-3b"), readings))
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- result
@@ -1333,14 +1373,59 @@ def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
     from repro_torch.distributed.serve_step import (make_decode_step,
                                                     make_prefill_step,
                                                     pad_cache, sample)
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
     from repro_torch.launch.serve import _positions
 
     arch = cfg.name
     B, S = N_REQUESTS, PROMPT_LEN
+    # the (flops, bytes) each launch of the profiled call needs, from its
+    # arguments: the bound of the per-launch readings below
+    work = {}
+
+    @contextlib.contextmanager
+    def recorded(where):
+        norm, dec = rn_ops._launch, da_ops.decode_attention
+        norms, decs = work.setdefault((where, "norm"), []), work.setdefault(
+            (where, "decode"), [])
+
+        def norm_rec(x, w, gate, *, eps):
+            n, item = x.numel(), x.element_size()
+            norms.append((4 * n, (2 + (gate is not None)) * n * item
+                          + w.numel() * item))
+            return norm(x, w, gate, eps=eps)
+
+        def dec_rec(q, k_cache, v_cache, valid_len, *, scale):
+            b, _, h, hd = q.shape
+            kv = k_cache.shape[2]
+            valid = S + 1                  # the step after the prompt
+            decs.append((4 * b * h * valid * hd,
+                         (2 * q.numel() + 2 * b * valid * kv * hd)
+                         * q.element_size()))
+            return dec(q, k_cache, v_cache, valid_len, scale=scale)
+
+        rn_ops._launch, da_ops.decode_attention = norm_rec, dec_rec
+        try:
+            yield
+        finally:
+            rn_ops._launch, da_ops.decode_attention = norm, dec
+
+    def bound_of(where, kind, n_profiled):
+        """The per-launch mean of the least time the card could take for
+        the recorded launches (roofline terms), what bounds it, and the
+        launch count when the profile holds another (the profiler has
+        missed a kernel of a long window: zamba2-7b's prefill ran 189
+        norms, its profile held 188)."""
+        ws = work[(where, kind)]
+        ms, by = zip(*(kernel_bound(f, b, "bfloat16") for f, b in ws))
+        seen = ("" if len(ws) == n_profiled
+                else f", over {len(ws)} launches ({n_profiled} profiled)")
+        return sum(ms) / len(ms), max(set(by), key=by.count) + seen
 
     def breakdown(label, fn, step_ms, host=False):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA]) as prof, \
+                recorded(label.split()[1]):
             fn()
             torch.cuda.synchronize()
         rows = sorted(device_rows(prof), key=lambda r: -r[1])
@@ -1408,9 +1493,14 @@ def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
               f"not {kernels} {key} row(s) of one count in the {arch} {where} "
               f"profile: {hits}")
         ms, n = sum(ms for ms, _ in hits), hits[0][1]
+        bound = ""
+        if what.startswith("decode_attention"):
+            b_ms, by = bound_of("decode", "decode", n)
+            bound = (f"; bound {b_ms:.5f} ms ({by}), "
+                     f"{b_ms / (ms / n):.1%} of it")
         print(f"[time] {arch} {what} bf16 in the {where}: {ms / n:.5f} ms per "
-              f"launch (profiler device time, {n} launches)  [{card}]",
-              flush=True)
+              f"launch (profiler device time, {n} launches){bound}  "
+              f"[{card}]", flush=True)
     # RMSNorm: one row per instantiation the step ran (gated or not); a step
     # runs 2 per block and a final one
     for where, n_rows in (("prefill", B * S), ("decode step", B)):
@@ -1422,6 +1512,15 @@ def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
                   f"{where}, {inst.group(0) if inst else k[:60]}: "
                   f"{ms / n:.5f} ms per launch (profiler device time, {n} "
                   f"launches)  [{card}]", flush=True)
+        # every width of the step's norms (model, MLA's kv_norm, the gated
+        # Mamba2 norm) against the bound of the same launches
+        ms = sum(ms for _, ms, _ in hits)
+        n = sum(n for _, _, n in hits)
+        b_ms, by = bound_of(where.split()[0], "norm", n)
+        print(f"[time] {arch} fused_rmsnorm bf16 in the {where}, all "
+              f"{n} launches: {ms / n:.5f} ms per launch (profiler device "
+              f"time); bound {b_ms:.5f} ms per launch ({by}), "
+              f"{b_ms / (ms / n):.1%} of it  [{card}]", flush=True)
     del cache
 
 
@@ -1940,18 +2039,19 @@ def _sync(torch, dev):
 
 def runtime_on_card(torch, ops_of, card, dev, cfg, mamba, phase7_step_s):
     """Phase 10: the port's runtime drives the kernels on the card. Returns
-    each part's launch counts by kernel."""
-    launches = {}
-    launches["campaign"], params = campaign_on_card(
+    each part's launch counts by kernel, and the readings phase 11 sets its
+    limits and comparisons from."""
+    launches, readings = {}, {}
+    launches["campaign"], params, readings["campaign"] = campaign_on_card(
         torch, ops_of, card, dev, cfg, phase7_step_s)
-    launches["service"] = service_on_card(torch, ops_of, card, dev, cfg,
-                                          params)
+    launches["service"], readings["service"] = service_on_card(
+        torch, ops_of, card, dev, cfg, params)
     del params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     launches["restart"] = restart_on_card(torch, ops_of, card, dev, mamba)
     launches["throughput"] = throughput_on_card(torch, ops_of, card, dev, cfg)
-    return launches
+    return launches, readings
 
 
 def campaign_on_card(torch, ops_of, card, dev, cfg, phase7_step_s):
@@ -2056,7 +2156,11 @@ def campaign_on_card(torch, ops_of, card, dev, cfg, phase7_step_s):
           f"called directly, phase 7's {phase7_step_s:.4f} s; scores and "
           f"selections equal to the CPU twin's; launches {launches}  "
           f"[{card}]", flush=True)
-    return launches, out.pop("params")
+    readings = {"losses": losses, "scores": out["scores"],
+                "selections": out["selections"],
+                "inference": out["inference"], "step_s": med,
+                "sst_run_s": max(run_s)}
+    return launches, out.pop("params"), readings
 
 
 def _serve(torch, ops_of, cfg, handler, prompts, replicas):
@@ -2120,7 +2224,7 @@ def service_on_card(torch, ops_of, card, dev, cfg, params):
     cpu = {"direct": statistics.median(cpu_s)}
     per_launch = serve_step.kernel_launches(cfg, NEW_TOKENS)
     want = {k: SERVICE_REQUESTS * v for k, v in per_launch.items()}
-    rates, main = {}, None
+    rates, main, lat_of, served_of = {}, None, {}, {}
     for replicas in (SERVICE_REPLICAS, 1):
         cpu_s.clear()
         results, log, launches, tasks, served, wall_s = _serve(
@@ -2136,6 +2240,8 @@ def service_on_card(torch, ops_of, card, dev, cfg, params):
         check(same == len(prompts), f"service tokens differ from direct "
               f"generate in {len(prompts) - same} of {len(prompts)}")
         lat = log["end"] - log["submit"]
+        lat_of[replicas] = lat
+        served_of[replicas] = float(np.median(log["end"] - log["start"]))
         span = log["end"].max() - log["submit"].min()
         rates[replicas] = len(prompts) / span
         cpu[replicas] = statistics.median(cpu_s)
@@ -2161,7 +2267,9 @@ def service_on_card(torch, ops_of, card, dev, cfg, params):
           f"requests/s; CPU seconds of the serving thread per request "
           f"(median) {cpu[SERVICE_REPLICAS]:.4f}, {cpu[1]:.4f} and "
           f"{cpu['direct']:.4f}  [{card}]", flush=True)
-    return main
+    readings = {"served_s": served_of[1],
+                "p99_s": float(np.percentile(lat_of[SERVICE_REPLICAS], 99))}
+    return main, readings
 
 
 def restart_on_card(torch, ops_of, card, dev, cfg):
@@ -2376,6 +2484,411 @@ def throughput_on_card(torch, ops_of, card, dev, cfg):
           flush=True)
     del params
     return launches
+
+
+def hybrid_stages(cfg, params, dev, iterations, docking_batch, train_steps,
+                  seq_len):
+    """launch/hybrid_campaign.py's campaign as Stages of a Campaign: per
+    round ``docking.{it}`` (a function task per candidate), then
+    ``sst_train.{it}`` (one tight executable task), then ``inference.{it}``
+    (a function task); the next round's docking depends on the previous
+    inference. The payloads are the twin's own (``make_payloads``) and the
+    draws its own, from ``default_rng(0)`` in the loop's order: each
+    stage's ``make_tasks`` draws the round's SST tokens (``sst_train``) or
+    makes the selection and the fresh candidates (``inference``, reading
+    ``ctx.results`` of the round's docking). ``make_tasks`` runs under the
+    engine lock, so it only draws numpy and builds descriptions. Returns
+    the stages and a record that fills in as they run: per round the SST
+    ``tokens``, the docking ``scores`` and the ``selections``; the train
+    tasks' ``step_s`` and ``meshes``; and ``state``, whose ``params`` the
+    train tasks update."""
+    from repro_torch.core.campaign import Stage
+    from repro_torch.core.task import TaskDescription
+    from repro_torch.launch import hybrid_campaign as HC
+    from repro_torch.optim import adamw
+
+    state = {"params": params, "opt": adamw.init(params)}
+    rec = {"tokens": [], "scores": [], "selections": [], "step_s": [],
+           "meshes": [], "state": state}
+    docking, train_task, inference = HC.make_payloads(
+        cfg, state, HC.make_step(cfg), dev, train_steps, rec["step_s"],
+        rec["meshes"])
+    rng = np.random.default_rng(0)
+    cand = {"now": rng.standard_normal((docking_batch, 8))}
+
+    def mk_docking(ctx):
+        return [TaskDescription(kind="function", fn=docking, args=(m,))
+                for m in cand["now"]]
+
+    def mk_train(ctx):
+        toks = HC.sst_tokens(cand["now"], rng, seq_len, cfg.vocab_size)
+        rec["tokens"].append(toks)
+        return [TaskDescription(kind="executable", coupling="tight",
+                                fn=train_task, args=(toks,))]
+
+    def mk_inference(ctx, it):
+        scores = np.asarray([t.result
+                             for t in ctx.results(f"docking.{it}")])
+        pick, cand["now"] = HC.select(cand["now"], scores, rng)
+        rec["scores"].append(scores)
+        rec["selections"].append(pick)
+        return [TaskDescription(kind="function", fn=inference,
+                                args=(scores,))]
+
+    stages = []
+    for it in range(iterations):
+        stages += [
+            Stage(f"docking.{it}", mk_docking,
+                  depends_on=[f"inference.{it - 1}"] if it else []),
+            Stage(f"sst_train.{it}", mk_train,
+                  depends_on=[f"docking.{it}"]),
+            Stage(f"inference.{it}",
+                  lambda ctx, it=it: mk_inference(ctx, it),
+                  depends_on=[f"sst_train.{it}"])]
+    return stages, rec
+
+
+def assert_streamed_equals_posthoc(w, tasks, cores, prof, what):
+    """tests/test_streaming.py's golden check: the watcher's streamed
+    throughput, in-flight and occupancy series equal to the post-hoc
+    reconstruction, bit for bit, and its breakdown to 1e-9 (sums) and
+    exactly (counts, order statistics)."""
+    from repro_torch.observability import (PHASES, inflight,
+                                           lifecycle_breakdown, occupancy,
+                                           throughput)
+
+    for name, got, want in (
+            ("throughput", w.throughput.series(),
+             throughput(prof, tasks, dt=w.dt)),
+            ("inflight", w.inflight.series(), inflight(tasks, dt=w.dt)),
+            ("occupancy", w.occupancy_series(),
+             occupancy(tasks, cores, dt=w.dt))):
+        check(np.array_equal(got.t, want.t) and np.array_equal(got.v, want.v),
+              f"{what}: streamed {name} differs from the post-hoc one")
+    st = w.breakdown.stats(exact_quantiles=True)
+    post = lifecycle_breakdown(tasks, prof).total.as_dict()
+    close = lambda a, b: abs(a - b) <= 1e-9 * abs(b) + 1e-12  # noqa: E731
+    check(st["n"] == post["n"] and close(st["span_sum"], post["span_sum"]),
+          f"{what}: streamed breakdown n/span {st['n']}/{st['span_sum']} "
+          f"!= post-hoc {post['n']}/{post['span_sum']}")
+    for p in PHASES:
+        sp, pp = st["phases"][p], post["phases"][p]
+        check(sp["n"] == pp["n"] and close(sp["sum"], pp["sum"])
+              and (sp["p50"], sp["p99"], sp["max"])
+              == (pp["p50"], pp["p99"], pp["max"]),
+              f"{what}: streamed phase {p} {sp} != post-hoc {pp}")
+
+
+def assert_telescopes(bd, tasks, cores, what):
+    """tests/test_observability.py's check: each task's lifecycle stamps in
+    order, the phase sums tiling submit -> done in every group, and the
+    breakdown's count equal to compute_metrics' (real mode)."""
+    from repro_torch.core.analytics import compute_metrics
+    from repro_torch.observability import PHASES
+
+    order = ("SCHEDULING", "QUEUED", "LAUNCHING", "RUNNING", "DONE")
+    for t in tasks:
+        ts = [t.timestamps[s] for s in order]
+        check(ts == sorted(ts), f"{what}: {t.uid} stamps out of order {ts}")
+    for g in [bd.total, *bd.groups.values()]:
+        s = sum(g.phases[p].sum for p in PHASES)
+        check(abs(s - g.span_sum) <= 1e-9 * abs(g.span_sum) + 1e-12,
+              f"{what}: phases sum {s} != span {g.span_sum}")
+    m = compute_metrics(tasks, cores, mode="real")
+    check(bd.n_tasks == m.n_done == len(tasks),
+          f"{what}: breakdown of {bd.n_tasks} tasks, {m.n_done} done")
+
+
+def watched_runtime_on_card(torch, ops_of, card, dev, cfg, readings):
+    """Phase 11: the port's Campaign, analytics, chaos and observability
+    layers over the card's tasks. Returns each part's launch counts."""
+    launches = {}
+    launches["watched_campaign"], params = watched_campaign_on_card(
+        torch, ops_of, card, dev, cfg, readings["campaign"])
+    launches["service_under_chaos"] = chaos_service_on_card(
+        torch, ops_of, card, dev, cfg, params, readings["service"])
+    del params
+    impeccable_on_sim_engine()
+    return launches
+
+
+def impeccable_on_sim_engine():
+    """The survey's IMPECCABLE campaign (``run_impeccable``, its defaults:
+    3 iterations, seed 0) on the port's SimEngine at 256 and 1,024 nodes:
+    virtual seconds of a simulated cluster, no card involved."""
+    from repro_torch.core.analytics import compute_metrics
+    from repro_torch.core.impeccable import run_impeccable
+
+    for nodes in (256, 1024):
+        row = []
+        for backend in ("srun", "flux", "flux+dragon"):
+            agent, camp = run_impeccable(backend, nodes)
+            check(camp.complete, f"IMPECCABLE on {backend} did not finish")
+            m = compute_metrics(camp.all_tasks(), agent.total_cores)
+            row.append(f"{backend} makespan {m.makespan:.3f} s, utilization "
+                       f"{m.utilization:.4f}")
+        print(f"[sim] IMPECCABLE at {nodes} nodes ({len(camp.all_tasks())} "
+              f"tasks; SimEngine virtual seconds, not a card reading): "
+              + "; ".join(row), flush=True)
+
+
+def watched_campaign_on_card(torch, ops_of, card, dev, cfg, before):
+    """Phase 11 (a): phase 10 (a)'s campaign through
+    ``TaskManager.run_campaign`` from the same weights and draws, watched.
+    ``before`` holds phase 10 (a)'s readings."""
+    from repro_torch.core.analytics import compute_metrics
+    from repro_torch.core.pilot import PilotDescription
+    from repro_torch.distributed import serve_step, train_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.observability import (RunReport, StallRule,
+                                           export_chrome_trace,
+                                           lifecycle_breakdown)
+    from repro_torch.runtime import PilotManager, Session, TaskManager
+
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    stages, rec = hybrid_stages(cfg, params, dev, CAMPAIGN_ITERS,
+                                CAMPAIGN_DOCK, CAMPAIGN_STEPS, CAMPAIGN_SEQ)
+    del params
+    # no completion lands while a train task runs (phase 10 (a)'s longest
+    # read before["sst_run_s"]): the window leaves it STALL_FACTOR of room
+    window = STALL_FACTOR * before["sst_run_s"]
+    with Session(mode="real") as session:
+        pilot = PilotManager(session).submit_pilots(PilotDescription(
+            nodes=1, backends={"dragon": {"workers": 4},
+                               "flux": {"partitions": 1,
+                                        "mesh": make_host_mesh(device=dev)}}))
+        tmgr = TaskManager(session)
+        tmgr.add_pilots(pilot)
+        _reset(ops_of)
+        t0 = time.perf_counter()
+        watcher = tmgr.watch(interval=WATCH_INTERVAL_S,
+                             rules=[StallRule(window=window)])
+        camp = tmgr.run_campaign(stages, name="hybrid",
+                                 timeout=TASK_TIMEOUT_S)
+        _sync(torch, dev)
+        wall_s = time.perf_counter() - t0
+        watcher.finalize()
+        launches = _counts(ops_of)
+        agent, prof = pilot.agent, session.profiler
+        tasks = camp.all_tasks()
+        workers = sum(ex.workers for ex in agent.backends.values())
+        check(camp.complete, "the campaign did not complete")
+        check(watcher.n_rows_folded == prof.n_rows,
+              f"the watcher folded {watcher.n_rows_folded} of "
+              f"{prof.n_rows} trace rows")
+        assert_streamed_equals_posthoc(watcher, tasks, agent.total_cores,
+                                       prof, "campaign")
+        bd = lifecycle_breakdown(tasks, prof, by="backend")
+        m = compute_metrics(tasks, workers, mode="real")
+        trace_path = os.path.join(ROOT, "build", "chip_smoke_campaign.trace"
+                                  ".json")
+        os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+        summary = export_chrome_trace(trace_path, tasks, prof,
+                                      total_cores=workers, dt=0.25)
+        report = RunReport.collect(tasks, workers, profiler=prof,
+                                   mode="real")
+    state = rec.pop("state")
+    params = state.pop("params")
+    state.clear()
+
+    for name, ts in camp.stage_tasks.items():
+        check(ts and all(t.state.value == "DONE" for t in ts),
+              f"stage {name}: {[(t.uid, t.state.value, t.error) for t in ts]}")
+        want = ("flux" if name.startswith("sst_train") else "dragon")
+        check({t.backend for t in ts} == {want},
+              f"stage {name} ran on {sorted({t.backend for t in ts})}")
+    check(len(tasks) == CAMPAIGN_ITERS * (CAMPAIGN_DOCK + 2),
+          f"{len(tasks)} campaign tasks")
+    losses = [camp.stage_tasks[f"sst_train.{i}"][0].result
+              for i in range(CAMPAIGN_ITERS)]
+    check(losses == before["losses"],
+          f"staged losses {losses} != phase 10 (a)'s {before['losses']}")
+    for key in ("scores", "selections"):
+        check(len(rec[key]) == CAMPAIGN_ITERS and all(
+            np.array_equal(a, b) for a, b in zip(rec[key], before[key])),
+            f"staged {key} differ from phase 10 (a)'s")
+    same_inf = all(np.array_equal(
+        camp.stage_tasks[f"inference.{i}"][0].result, before["inference"][i])
+        for i in range(CAMPAIGN_ITERS))
+    assert_telescopes(bd, tasks, workers, "campaign")
+    check(not watcher.monitor.alerts,
+          f"alerts in the campaign: {watcher.monitor.alerts}")
+    tl = train_step.kernel_launches(cfg)
+    fl = serve_step.kernel_launches(cfg, 1)          # one full forward
+    want = {k: CAMPAIGN_ITERS * (CAMPAIGN_STEPS * tl[k] + fl[k]) for k in tl}
+    check(launches == want, f"watched campaign launches {launches} != {want}")
+
+    with open(trace_path) as fh:
+        doc = json.load(fh)
+    slices = [e["name"] for e in doc["traceEvents"] if e["ph"] == "X"]
+    attempts = sum(1 + t.retries for t in tasks)
+    check(sorted(slices) == sorted(t.uid for t in tasks)
+          and len(slices) == attempts == summary["n_slices"]
+          and summary["n_slices_dropped"] == 0,
+          f"Chrome trace: {len(slices)} slices for {attempts} attempts")
+    payload = report.to_json()
+    check(json.loads(json.dumps(payload)) == payload
+          and payload["metrics"]["n_done"] == len(tasks)
+          and "lifecycle breakdown" in report.render(),
+          "the RunReport did not round-trip")
+
+    steps = [x for s in rec["step_s"] for x in s[1:]]
+    print(f"[runtime] watched campaign: {len(camp.stage_tasks)} stages, "
+          f"{len(tasks)} tasks DONE through run_campaign in {wall_s:.2f} s; "
+          f"losses {losses} equal in every bit to phase 10 (a)'s; scores "
+          f"and selections equal; inference outputs "
+          f"{'equal' if same_inf else 'differ'}; step in the watched task "
+          f"{statistics.median(steps):.4f} s (median of the rounds' steps "
+          f"2-{CAMPAIGN_STEPS}), unwatched (phase 10 (a)) "
+          f"{before['step_s']:.4f} s; launches {launches}  [{card}]",
+          flush=True)
+    print(f"[runtime] watched campaign metrics (compute_metrics, real, "
+          f"{workers} workers): makespan {m.makespan:.4f} s, utilization "
+          f"{m.utilization:.4f}, throughput {m.throughput_avg:.4f} tasks/s, "
+          f"peak concurrency {m.concurrency_peak}; watcher: "
+          f"{watcher.n_ticks} ticks every {WATCH_INTERVAL_S} s, "
+          f"{watcher.fold_wall_s * 1e3:.3f} ms folding {watcher.n_rows_folded}"
+          f" rows, stall window {window:.3f} s, no alert; streamed == "
+          f"post-hoc; Chrome trace {len(slices)} slices "
+          f"({os.path.relpath(trace_path, ROOT)}); RunReport round-trips  "
+          f"[{card}]", flush=True)
+    for b, g in sorted(bd.groups.items()):
+        print(f"[runtime] lifecycle {b} ({g.n} tasks): " + ", ".join(
+            f"{p} p50 {g.phases[p].p50 * 1e3:.3f} / p99 "
+            f"{g.phases[p].p99 * 1e3:.3f} ms" for p in g.phases), flush=True)
+    return launches, params
+
+
+def chaos_service_on_card(torch, ops_of, card, dev, cfg, params, before):
+    """Phase 11 (b): CHAOS_REPLICAS LM replicas on dragon with a
+    RestartPolicy, CHAOS_REQUESTS requests, a node fault on dragon while
+    they are served; watched. ``before`` holds phase 10 (b)'s readings."""
+    from repro_torch.core.analytics import fault_metrics, service_metrics
+    from repro_torch.core.pilot import PilotDescription
+    from repro_torch.distributed import serve_step
+    from repro_torch.faults import ChaosController, FaultEvent, FaultPlan
+    from repro_torch.launch.serve import generate
+    from repro_torch.observability import ServiceLatencyRule
+    from repro_torch.runtime import PilotManager, Session, TaskManager
+    from repro_torch.sched import CampaignScheduler
+    from repro_torch.services import RestartPolicy
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN),
+                             generator=gen, device=dev, dtype=torch.int32)
+               for _ in range(CHAOS_REQUESTS)]
+    calls, lock = {"started": 0, "finished": 0}, threading.Lock()
+
+    def answer(prompt):
+        return generate(params, cfg, prompt,
+                        max_new_tokens=NEW_TOKENS)[:, PROMPT_LEN:].cpu()
+
+    def handler(prompt):
+        with lock:
+            calls["started"] += 1
+        try:
+            return answer(prompt)
+        finally:
+            with lock:
+                calls["finished"] += 1
+
+    direct = [answer(p) for p in prompts]
+    # the fault lands FAULT_AT of one request's service time (phase 10 (b),
+    # one replica) after the requests go in: both replicas are serving
+    fault_t = FAULT_AT * before["served_s"]
+    with Session(mode="real") as session:
+        pilot = PilotManager(session).submit_pilots(PilotDescription(
+            nodes=1, backends={"dragon": {"workers": CHAOS_REPLICAS + 2}}))
+        sched = CampaignScheduler(policy="fifo")
+        tmgr = TaskManager(session, scheduler=sched)
+        tmgr.add_pilots(pilot)
+        _reset(ops_of)
+        t0 = time.perf_counter()
+        svc = tmgr.start_service(
+            handler=handler, replicas=CHAOS_REPLICAS, backend="dragon",
+            restart=RestartPolicy(max_restarts=2, backoff=0.1))
+        watcher = tmgr.watch(
+            interval=WATCH_INTERVAL_S, services=[svc],
+            rules=[ServiceLatencyRule(svc, slo_p99=before["p99_s"],
+                                      min_requests=1)])
+        check(svc.wait_ready(timeout=TASK_TIMEOUT_S),
+              "the replicas did not get READY")
+        chaos = ChaosController(sched, FaultPlan(
+            [FaultEvent(fault_t, "node", backend="dragon")]), seed=SEED)
+        rids = svc.submit_requests(prompts)
+        chaos.arm()
+        check(svc.wait_requests(timeout=TASK_TIMEOUT_S),
+              "the requests did not finish")
+        svc.stop()
+        check(tmgr.wait_tasks(timeout=TASK_TIMEOUT_S),
+              "the replicas did not stop")
+        # a killed replica's thread cannot be stopped: it finishes the
+        # generate it was running (and answers its request) before the
+        # launches are read
+        deadline = time.perf_counter() + TASK_TIMEOUT_S
+        while calls["finished"] < calls["started"]:
+            check(time.perf_counter() < deadline,
+                  "a replica's generate did not return")
+            time.sleep(0.01)
+        wall_s = time.perf_counter() - t0
+        watcher.finalize()
+        launches = _counts(ops_of)
+        stats = chaos.stats()
+        fm = fault_metrics(session.profiler)
+        sm = service_metrics(svc)
+        log = {k: np.asarray(v) for k, v in svc.request_log().items()}
+        replicas = [pilot.agent.tasks[d.uid] for d in svc.all_descriptions()]
+        fail_t = [e.time for e in session.profiler.by_name("chaos:node_fail")]
+        alerts = [a.as_dict() for a in watcher.monitor.alerts]
+
+    check(stats["node_failures"] == 1 and stats["tasks_killed"] >= 1,
+          f"the node fault killed nothing: {stats}")
+    check(sm.n_completed == CHAOS_REQUESTS and sm.n_failed == 0
+          and sm.n_restarts >= 1,
+          f"service metrics {sm.as_dict()}")
+    check(len(rids) == CHAOS_REQUESTS and bool((log["ok"] == 1).all())
+          and bool((log["end"] >= 0.0).all()),
+          f"a request was lost: ok {log['ok'].tolist()}")
+    same = sum(bool(torch.equal(svc.results[r], d))
+               for r, d in zip(rids, direct))
+    check(same == CHAOS_REQUESTS, f"tokens differ from direct generate in "
+          f"{CHAOS_REQUESTS - same} of {CHAOS_REQUESTS}")
+    killed = [t for t in replicas if t.state.value == "FAILED"]
+    check(len(killed) == stats["tasks_killed"]
+          and all("node failure" in (t.error or "") for t in killed)
+          and all(t.state.value == "STOPPED" for t in replicas
+                  if t not in killed)
+          and all(t.backend == "dragon" for t in replicas),
+          f"replicas: {[(t.uid, t.state.value, t.error) for t in replicas]}")
+    per = serve_step.kernel_launches(cfg, NEW_TOKENS)
+    want = {k: calls["started"] * v for k, v in per.items()}
+    check(launches == want, f"launches {launches} != {want} "
+          f"({calls['started']} generate calls)")
+
+    t_fail = fail_t[0]
+    ready = [t.timestamps["READY"] - t_fail for t in replicas
+             if t.description.restarted_from and "READY" in t.timestamps]
+    after = log["end"][log["end"] > t_fail] - t_fail
+    lat = log["end"] - log["submit"]
+    print(f"[runtime] service under chaos: {CHAOS_REPLICAS} replicas of "
+          f"{cfg.name} on dragon, {CHAOS_REQUESTS} requests of {PROMPT_LEN} "
+          f"+ {NEW_TOKENS} tokens, a node fault at +{fault_t:.3f} s "
+          f"(chaos {stats}); {sm.n_completed} answered, none lost, tokens "
+          f"equal to direct generate; {sm.n_restarts} restart(s), "
+          f"{calls['started']} generate calls; replicas "
+          f"{[t.state.value for t in replicas]}; wall {wall_s:.3f} s; "
+          f"latency median {np.median(lat):.4f} s, p99 "
+          f"{np.percentile(lat, 99):.4f} s; launches {launches}  [{card}]",
+          flush=True)
+    print(f"[runtime] recovery: replacement READY "
+          f"{[round(x, 4) for x in ready]} s after the fault, first answer "
+          f"after it {after.min():.4f} s, last {after.max():.4f} s; "
+          f"fault_metrics {fm.as_dict()}; alerts {alerts} (p99 limit "
+          f"{before['p99_s']:.3f} s); watcher "
+          f"{watcher.n_ticks} ticks  [{card}]", flush=True)
+    return launches
+
 
 if __name__ == "__main__":
     main()

@@ -9,12 +9,9 @@ Public surface:
     LocalRuntime                          — compat shim over Session(mode="real")
     Task, TaskDescription, TaskState      — task state machine
     Pilot, PilotDescription, PilotState   — pilot state machine
-
-Not ported yet (ROADMAP queue 1, items 14-17): ``Campaign``, ``Stage``,
-``StageContext``, ``make_impeccable_stages``, ``run_impeccable``, the
-analytics names (``RunMetrics``, ``compute_metrics``,
-``concurrency_series``, ``FaultMetrics``, ``fault_metrics``) and the chaos
-names (``ChaosController``, ``FaultEvent``, ``FaultPlan``).
+    Campaign, Stage                       — workflow-of-workflows engine
+    make_impeccable_stages, run_impeccable
+    compute_metrics, concurrency_series   — paper metrics from event traces
 
 Attributes resolve lazily (PEP 562): ``repro_torch.core`` and
 ``repro_torch.runtime`` import each other across layers, and deferring the
@@ -39,6 +36,19 @@ _EXPORTS = {
     "Pilot": "repro_torch.core.pilot",
     "PilotDescription": "repro_torch.core.pilot",
     "PilotState": "repro_torch.core.pilot",
+    "Campaign": "repro_torch.core.campaign",
+    "Stage": "repro_torch.core.campaign",
+    "StageContext": "repro_torch.core.campaign",
+    "make_impeccable_stages": "repro_torch.core.impeccable",
+    "run_impeccable": "repro_torch.core.impeccable",
+    "RunMetrics": "repro_torch.core.analytics",
+    "compute_metrics": "repro_torch.core.analytics",
+    "concurrency_series": "repro_torch.core.analytics",
+    "FaultMetrics": "repro_torch.core.analytics",
+    "fault_metrics": "repro_torch.core.analytics",
+    "ChaosController": "repro_torch.faults.chaos",
+    "FaultEvent": "repro_torch.faults.chaos",
+    "FaultPlan": "repro_torch.faults.chaos",
 }
 
 __all__ = list(_EXPORTS)

@@ -302,9 +302,8 @@ class Profiler:
             yield self._event_at(int(row))
 
     # ------------------------------------------------------- cursor support
-    # (the JAX package's repro.observability.stream.TraceCursor; not yet
-    # ported): streaming readers poll the
-    # trace in O(rows-appended-since-last-poll) — one bounded copy of the
+    # (repro_torch.observability.stream.TraceCursor): streaming readers poll
+    # the trace in O(rows-appended-since-last-poll) — one bounded copy of the
     # raw columns per poll, never a whole-trace scan or index build.
 
     @property
@@ -325,7 +324,7 @@ class Profiler:
 
     def tail(self, lo: int, copy: bool = True):
         """``(times, packed_ids, hi)`` for rows ``[lo, n)`` — the delta a
-        ``TraceCursor`` (JAX package's observability) folds.  Copies by
+        :class:`~repro_torch.observability.stream.TraceCursor` folds.  Copies by
         default: a later append may grow (and so orphan) the underlying
         buffers while the caller still holds the delta.  ``copy=False``
         returns views — valid only until the next append — for callers

@@ -123,8 +123,8 @@ class TaskDescription:
     tenant: str = ""
     share: float = 1.0
     after: Tuple[str, ...] = ()
-    # fault-model fields (the JAX package's repro.faults; not yet ported
-    # here): per-task walltime limit (0 = none;
+    # fault-model fields (repro_torch.faults): per-task walltime limit (0 =
+    # none;
     # overrunning tasks are killed and FAILED with reason "walltime"), and
     # the checkpoint-resume contract — checkpoint_dir names where the task
     # persists progress, checkpoint_period how often (sim: virtual seconds

@@ -68,26 +68,16 @@ def sst_batch(batch_tokens: np.ndarray, device) -> Dict[str, torch.Tensor]:
     return {"tokens": toks, "labels": toks, "positions": pos.expand(B, S)}
 
 
-def run_campaign(cfg: Optional[ModelConfig] = None, *, params=None,
-                 iterations: int = 2, docking_batch: int = 16,
-                 train_steps: int = 3, seq_len: int = 32, device="cuda",
-                 quiet: bool = False) -> Dict[str, Any]:
-    """Run the campaign; returns, per round, the SST ``losses`` (the last
-    step's), the docking ``scores``, the ``selections`` (indices into that
-    round's candidates), the ``inference`` outputs, the ``tokens`` of the
-    SST batch, ``step_s`` (each train step's time inside the task,
-    synchronised with the device) and ``meshes`` (the mesh each train task
-    was given), each stage's wall seconds (``stage_s``) and ``tasks``; and
-    the trained ``params``."""
-    cfg = cfg if cfg is not None else get_smoke_config(
-        "stablelm-3b", d_model=96, num_layers=2)
-    dev = resolve_device(device)
-    state = {"params": (params if params is not None
-                        else M.init_params(cfg, seed=0, device=dev))}
-    state["opt"] = adamw.init(state["params"])
-    step = make_train_step(cfg, adamw.OptimizerConfig(total_steps=64,
-                                                      warmup_steps=2))
-    step_s, meshes = [], []
+def make_payloads(cfg: ModelConfig, state: Dict[str, Any], step,
+                  dev: torch.device, train_steps: int, step_s: list,
+                  meshes: list):
+    """The campaign's three payloads, as the example defines them:
+    ``docking(mol)`` (numpy scoring), ``train_task(batch_tokens, mesh=None)``
+    (``train_steps`` steps of ``step`` on ``state["params"]`` and
+    ``state["opt"]``, updated in place of the dict; returns the last loss)
+    and ``inference(mol_scores)`` (a forward pass of ``state["params"]``).
+    Each train task appends its steps' seconds (synchronised with the
+    device) to ``step_s`` and the mesh it was given to ``meshes``."""
 
     def docking(mol):
         # CPU-bound scoring stand-in (AutoDock analogue)
@@ -120,6 +110,53 @@ def run_campaign(cfg: Optional[ModelConfig] = None, *, params=None,
                                      mode="train")
         return logits.float().mean(dim=(-1, -2)).cpu().numpy()
 
+    return docking, train_task, inference
+
+
+def make_step(cfg: ModelConfig):
+    """The SST train step with the example's optimizer schedule."""
+    return make_train_step(cfg, adamw.OptimizerConfig(total_steps=64,
+                                                      warmup_steps=2))
+
+
+def sst_tokens(candidates: np.ndarray, rng: np.random.Generator,
+               seq_len: int, vocab_size: int) -> np.ndarray:
+    """One round's SST batch, drawn from ``rng`` as the example draws it."""
+    return (np.abs(candidates @ rng.standard_normal((8, seq_len)))
+            * 100).astype(np.int32) % vocab_size
+
+
+def select(candidates: np.ndarray, scores: np.ndarray,
+           rng: np.random.Generator):
+    """The adaptive selection: the best half by docking score, refilled
+    with fresh draws from ``rng``. Returns (picked indices, next
+    candidates)."""
+    pick = np.argsort(scores)[: len(candidates) // 2]
+    fresh = rng.standard_normal((len(candidates) - len(pick), 8))
+    return pick, np.concatenate([candidates[pick], fresh])
+
+
+def run_campaign(cfg: Optional[ModelConfig] = None, *, params=None,
+                 iterations: int = 2, docking_batch: int = 16,
+                 train_steps: int = 3, seq_len: int = 32, device="cuda",
+                 quiet: bool = False) -> Dict[str, Any]:
+    """Run the campaign; returns, per round, the SST ``losses`` (the last
+    step's), the docking ``scores``, the ``selections`` (indices into that
+    round's candidates), the ``inference`` outputs, the ``tokens`` of the
+    SST batch, ``step_s`` (each train step's time inside the task,
+    synchronised with the device) and ``meshes`` (the mesh each train task
+    was given), each stage's wall seconds (``stage_s``) and ``tasks``; and
+    the trained ``params``."""
+    cfg = cfg if cfg is not None else get_smoke_config(
+        "stablelm-3b", d_model=96, num_layers=2)
+    dev = resolve_device(device)
+    state = {"params": (params if params is not None
+                        else M.init_params(cfg, seed=0, device=dev))}
+    state["opt"] = adamw.init(state["params"])
+    step_s, meshes = [], []
+    docking, train_task, inference = make_payloads(
+        cfg, state, make_step(cfg), dev, train_steps, step_s, meshes)
+
     out: Dict[str, Any] = {
         "losses": [], "scores": [], "selections": [], "inference": [],
         "tokens": [], "step_s": step_s, "meshes": meshes,
@@ -148,8 +185,7 @@ def run_campaign(cfg: Optional[ModelConfig] = None, *, params=None,
 
             # stage 2: surrogate training (flux modality, co-scheduled)
             t0 = time.perf_counter()
-            toks = (np.abs(candidates @ rng.standard_normal((8, seq_len)))
-                    * 100).astype(np.int32) % cfg.vocab_size
+            toks = sst_tokens(candidates, rng, seq_len, cfg.vocab_size)
             train = tmgr.submit_tasks(TaskDescription(
                 kind="executable", coupling="tight", fn=train_task,
                 args=(toks,), stage="sst_train"))
@@ -163,10 +199,7 @@ def run_campaign(cfg: Optional[ModelConfig] = None, *, params=None,
                 stage="inference"))
             _wait(tmgr, [inf], "inference")
             out["stage_s"]["inference"].append(time.perf_counter() - t0)
-            pick = np.argsort(scores)[: docking_batch // 2]
-            candidates = np.concatenate(
-                [candidates[pick],
-                 rng.standard_normal((docking_batch - len(pick), 8))])
+            pick, candidates = select(candidates, scores, rng)
 
             for key, val in (("losses", train.result), ("scores", scores),
                              ("selections", pick),

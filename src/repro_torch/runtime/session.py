@@ -272,13 +272,17 @@ class TaskManager:
         return svc
 
     def watch(self, interval: float = 1.0, **watcher_kw):
-        """Streaming telemetry over the bound pilot's run, as the JAX
-        package's ``TaskManager.watch``. Its module,
-        ``observability/stream.py``, is not in the port yet: this raises
-        until it is (ROADMAP item 18)."""
-        raise NotImplementedError(
-            "TaskManager.watch needs the port of observability/ "
-            "(ROADMAP item 18)")
+        """Attach streaming telemetry to the bound pilot's run: returns a
+        started :class:`repro_torch.observability.stream.Watcher` whose
+        engine callback folds the trace every ``interval`` (virtual seconds
+        on a sim session, wall seconds on a real one). Keyword args pass
+        through — ``rules=``, ``services=``, ``emit=``, ``promfile=``,
+        ``on_tick=``, ``dt=``. Works on both engines; the watcher
+        auto-finalizes when the agent drains."""
+        # deferred import: observability is an optional consumer layer
+        from repro_torch.observability.stream import Watcher
+
+        return Watcher(self.agent, interval=interval, **watcher_kw).start()
 
     def submit_functions(self, fn, argslist, **td_kw) -> List[Task]:
         """Submit one function task per element of ``argslist`` (each element
@@ -308,10 +312,16 @@ class TaskManager:
 
     def run_campaign(self, stages, name: str = "campaign",
                      timeout: Optional[float] = None):
-        """Run a Campaign through this manager's scheduler, as the JAX
-        package's ``TaskManager.run_campaign``. Its module,
-        ``core/campaign.py``, is not in the port yet: this raises until it
-        is (ROADMAP item 14)."""
-        raise NotImplementedError(
-            "TaskManager.run_campaign needs the port of core/campaign.py "
-            "(ROADMAP item 14)")
+        """Convenience: run a Campaign through this manager's scheduler
+        (stage priorities/tenants and ``barrier=False`` per-task release
+        apply) and block until it completes. Returns the Campaign."""
+        from repro_torch.core.campaign import Campaign
+
+        sched = self.scheduler
+        camp = Campaign(sched, stages, name=name)
+        with self.session.engine.lock:
+            camp.start()
+        self.session.engine.drain(
+            lambda: sched.n_unfinished == 0 and camp.complete,
+            timeout=timeout)
+        return camp

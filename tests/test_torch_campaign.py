@@ -131,3 +131,60 @@ def test_campaign_cli_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "[campaign] iter 0: docked 4" in out
     assert "complete: 6/6 tasks" in out
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_campaign_as_stages_equals_the_loop(jax_run, port_run):
+    """chip_smoke.py phase 11 (a)'s campaign: the twin's payloads and
+    draws as Stages through ``TaskManager.run_campaign``, watched, on the
+    CPU at the example's size from the same weights: the losses, scores,
+    selections, SST tokens and inference outputs equal to the loop's
+    (``run_campaign`` of launch/hybrid_campaign.py) in every bit."""
+    import torch
+
+    from repro_torch.core.pilot import PilotDescription
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.observability import StallRule
+    from repro_torch.runtime import PilotManager, Session, TaskManager
+
+    cs = _chip_smoke()
+    cfg = get_smoke_config("stablelm-3b", d_model=96, num_layers=2,
+                           dtype="float32")
+    dev = torch.device("cpu")
+    # the loop's starting weights (its run updated its own copy)
+    params = bridge.to_torch(jax_run["params"], device="cpu")
+    stages, rec = cs.hybrid_stages(cfg, params, dev, 2, 16, 3, 32)
+    with Session(mode="real") as session:
+        pilot = PilotManager(session).submit_pilots(PilotDescription(
+            nodes=1, backends={"dragon": {"workers": 4},
+                               "flux": {"partitions": 1,
+                                        "mesh": make_host_mesh(device=dev)}}))
+        tmgr = TaskManager(session)
+        tmgr.add_pilots(pilot)
+        watcher = tmgr.watch(interval=0.05, rules=[StallRule(window=60.0)])
+        camp = tmgr.run_campaign(stages, name="hybrid", timeout=120)
+        watcher.finalize()
+    assert camp.complete and not watcher.monitor.alerts
+    assert list(camp.stage_tasks) == [
+        f"{s}.{i}" for i in range(2)
+        for s in ("docking", "sst_train", "inference")]
+    for name, ts in camp.stage_tasks.items():
+        assert all(t.state.value == "DONE" for t in ts), name
+        assert {t.backend for t in ts} == (
+            {"flux"} if name.startswith("sst_train") else {"dragon"}), name
+    got = {"losses": [camp.stage_tasks[f"sst_train.{i}"][0].result
+                      for i in range(2)],
+           "inference": [camp.stage_tasks[f"inference.{i}"][0].result
+                         for i in range(2)], **rec}
+    assert got["losses"] == port_run["losses"]
+    for key in ("scores", "selections", "tokens", "inference"):
+        assert len(got[key]) == len(port_run[key]) == 2, key
+        for a, b in zip(got[key], port_run[key]):
+            np.testing.assert_array_equal(a, b, err_msg=key)

@@ -8,10 +8,11 @@
   the code, the calibration and the draws are the same.
 * Real-mode twins of the JAX package's tests
   (tests/test_runtime_substrate.py, tests/test_faults.py) on the port's
-  runtime. The port has no ``Campaign`` and no ``ChaosController`` yet
-  (ROADMAP items 14 and 17): the twins order stages by ``after``
-  dependencies and inject faults through the scheduler's and the
-  executors' own hooks, which is what the chaos controller calls.
+  runtime. These twins order stages by ``after`` dependencies and inject
+  faults through the scheduler's and the executors' own hooks, which is
+  what ``Campaign`` and ``ChaosController`` call; the twins through those
+  two are in tests/test_torch_runtime_substrate.py and
+  tests/test_torch_faults.py.
 * The partition bridge: a one-process ``Mesh`` is one partition and reaches
   a callable that declares ``mesh=``; a mesh over several ranks raises.
 * The kernel wrappers' launch counts lose nothing under threads.
@@ -45,6 +46,9 @@ class Pkg:
         self.CampaignScheduler = sched.CampaignScheduler
         self.PriorityPolicy = sched.PriorityPolicy
         self.FairSharePolicy = sched.FairSharePolicy
+        services = importlib.import_module(f"{name}.services")
+        self.RestartPolicy = services.RestartPolicy
+        self.ScalePolicy = services.ScalePolicy
 
 
 def _uid_start(pkgs):
@@ -169,10 +173,101 @@ def w_node_loss_dag(p, s):
     return list(tasks), {}
 
 
+def w_cohort_wave(p, s):
+    # tests/test_cohort_golden.py's hybrid wave, cut to 600 tasks: a
+    # cohort_min below the wave (the agent's default is 50,000) lets the
+    # planner take it, one cohort per backend
+    pilot, tm = _pilot(p, s, 8, {"flux": {"nodes": 4, "partitions": 2},
+                                 "dragon": {"nodes": 4, "partitions": 2}},
+                       cohort=True, cohort_min=500)
+    wave = tm.submit_tasks(
+        [p.TD(kind="function" if i % 2 else "executable", cores=2,
+              duration=0.05 * (i % 4)) for i in range(600)])
+    assert tm.wait_tasks(timeout=60)
+    assert isinstance(wave, p.task.CohortWave)
+    assert len(pilot.agent.cohorts) == 2
+    return list(wave), {}
+
+
+def w_batch_and_wave(p, s):
+    # tests/test_batch_golden.py's paths: a uniform wave of one template
+    # through submit_wave, which the cohort planner takes (it plans only on
+    # idle executors), then a mixed DescriptionBatch (dense columns,
+    # interned strings, explicit uids) through submit_batch beside it; and
+    # a batch held as row slices by a gated priority scheduler on a second
+    # pilot
+    def mixed(tag):
+        return p.task.DescriptionBatch.from_descriptions(
+            [p.TD(uid=f"{tag}.{i}",
+                  kind="function" if i % 3 == 0 else "executable",
+                  cores=1 + i % 4, duration=0.5 * (1 + i % 5),
+                  priority=i % 3, tenant="ab"[i % 2]) for i in range(240)])
+
+    backends = {"flux": {"partitions": 2}, "dragon": {"partitions": 2}}
+    pilot, tm = _pilot(p, s, 4, backends, cohort=True, cohort_min=300)
+    wave = tm.submit_wave(p.TD(cores=1, duration=0.25), 400)
+    tm.submit_batch(mixed("b"))
+    sched = p.CampaignScheduler(policy=p.PriorityPolicy(), admission=True)
+    gated_pilot, tm2 = _pilot(p, s, 4, backends, sched)
+    tm2.submit_batch(mixed("g"))
+    assert tm.wait_tasks(timeout=60) and tm2.wait_tasks(timeout=60)
+    assert isinstance(wave, p.task.CohortWave)
+    tasks = (list(pilot.agent.tasks.values()) + list(wave)
+             + list(gated_pilot.agent.tasks.values()))
+    assert len(tasks) == 880
+    return tasks, {}
+
+
+def w_speculation(p, s):
+    # tests/test_runtime_core.py's straggler: the first task launched runs
+    # 10x its duration and a speculative clone finishes first
+    straggler = {}
+
+    def duration_fn(task):
+        straggler.setdefault("uid", task.uid)
+        scale = 10.0 if task.uid == straggler["uid"] else 1.0
+        return task.description.duration * scale
+
+    s.engine.duration_fn = duration_fn
+    pilot, tm = _pilot(p, s, 8, {"flux": {"partitions": 2}},
+                       speculation=True, speculation_factor=2.0)
+    tm.submit_tasks([p.TD(cores=1, duration=30.0) for _ in range(40)])
+    assert tm.wait_tasks(timeout=60)
+    tasks = list(pilot.agent.tasks.values())
+    assert any(t.speculative_of for t in tasks)
+    return tasks, {}
+
+
+def w_elastic_service(p, s):
+    # tests/test_service_faults.py's chaos and autoscaling paths in one
+    # service: a replica killed mid-stream (its requests requeue, a
+    # RestartPolicy replaces it) under a ScalePolicy that grows the
+    # rotation for the burst and drains it after
+    _, tm = _pilot(p, s, 16, {"flux": {"partitions": 8}})
+    svc = tm.start_service(
+        replicas=2, nodes=1, startup=0.5, rate=1.0, max_retries=3,
+        balancer="least-outstanding",
+        restart=p.RestartPolicy(max_restarts=2, backoff=0.5),
+        scale=p.ScalePolicy(min_replicas=2, max_replicas=5, up_threshold=3.0,
+                            down_threshold=0.5, cooldown=2.0))
+    eng, t0 = s.engine, 30.0
+    for i in range(120):
+        eng.schedule(t0 + i * 0.125, svc.request, i)
+    eng.schedule(t0 + 4.0, svc.kill_replica)
+    eng.schedule(t0 + 120 * 0.125 + 40.0, svc.stop)
+    assert svc.wait_stopped()
+    assert svc.n_completed == 120 and svc.restarts >= 1
+    log = {k: list(v) for k, v in svc.request_log().items()}
+    scale = {k: list(v) for k, v in svc.scale_log().items()}
+    assert scale["t"], "the service never scaled"
+    return list(tm.tasks.values()), {"request_log": log, "scale_log": scale}
+
+
 WORKLOADS = {f.__name__[2:]: f for f in (
     w_dragon_functions, w_funcpool_functions, w_flux_executables,
     w_srun_executables, w_sched_priority_fair_share, w_service, w_retry,
-    w_node_loss_dag)}
+    w_node_loss_dag, w_cohort_wave, w_batch_and_wave, w_speculation,
+    w_elastic_service)}
 
 
 def _sim_run(p, workload, seed):
@@ -268,12 +363,36 @@ def test_dag_identical_across_engines():
 
 
 def test_run_campaign_and_watch_name_their_roadmap_items():
-    with Session(mode="sim") as session:
+    """``run_campaign`` and ``watch`` run in the port (they raised, naming
+    their ROADMAP items, until their modules were ported): a two-stage
+    campaign under a watcher, and the watcher's streamed breakdown equal to
+    the post-hoc one at finalize."""
+    from repro_torch.core.campaign import Stage
+    from repro_torch.observability.lifecycle import lifecycle_breakdown
+
+    with Session(mode="sim", seed=0) as session:
+        pilot = PilotManager(session).submit_pilots(PilotDescription(
+            nodes=2, backends={"flux": {"partitions": 1}, "dragon": {}}))
         tmgr = TaskManager(session)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tmgr.run_campaign([])
-        with pytest.raises(NotImplementedError, match="item 18"):
-            tmgr.watch()
+        tmgr.add_pilots(pilot)
+        watcher = tmgr.watch(interval=1.0)
+        camp = tmgr.run_campaign([
+            Stage("a", lambda ctx: [TaskDescription(cores=1, duration=2.0)
+                                    for _ in range(6)]),
+            Stage("b", lambda ctx: [TaskDescription(kind="function",
+                                                    duration=1.0)],
+                  depends_on=["a"])])
+        assert camp.complete
+        assert [len(camp.stage_tasks[k]) for k in "ab"] == [6, 1]
+        watcher.finalize()
+        got = watcher.breakdown.stats(exact_quantiles=True)
+        want = lifecycle_breakdown(pilot.agent.all_tasks(),
+                                   session.profiler).total.as_dict()
+        assert got["n"] == want["n"] == 7
+        for phase, stats in want["phases"].items():
+            assert got["phases"][phase]["n"] == stats["n"], phase
+            assert got["phases"][phase]["sum"] == pytest.approx(
+                stats["sum"], rel=1e-9, abs=1e-12), phase
 
 
 def test_subprocess_executor_runs_executables():
