@@ -101,11 +101,22 @@ Phases, each printing its lines; any failed check exits non-zero:
      served (no request lost, tokens equal to direct ``generate``, launches
      equal to the ``generate`` calls started, ``fault_metrics`` and the
      time to recover).
+ 12. tensor parallelism over ``model`` and ZeRO-1 over ``data``
+     (``distributed/tensor_parallel.py``), on ranks spawned on this card and
+     joined over gloo: (a) f32, full width and 2 layers, one step against
+     the one-rank kernel-path step (chatglm3-6b on (1, 4), its 2 kv heads
+     under the replicated-KV rule; stablelm-3b on (2, 2); deepseek's dense
+     layer and one MoE layer on (1, 4)): the loss, every gathered gradient,
+     updated leaf and moment, and each rank's kernel launches; (b) bf16
+     stablelm-3b at full width and depth on (1, 2), three steps of phase
+     7's batch beside phase 7's losses, with step time, tokens/s, each
+     rank's peak memory and the seconds in collectives (gloo through host
+     memory, not NCCL).
 No serving path is cut to fit the time limit: the whole script takes a few
 minutes on an H100.
 The line before the last is the ``{"kernels": [...]}`` summary (with each
-kernel's launches per serve_batch, per train step, per driver step and per
-part of phases 10 and 11); the last is
+kernel's launches per serve_batch, per train step, per driver step, per
+part of phases 10 and 11 and per rank of each phase 12 step); the last is
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -253,6 +264,31 @@ CHAOS_REPLICAS, CHAOS_REQUESTS = 2, 8
 STALL_FACTOR = 2.0
 FAULT_AT = 0.5
 
+# phase 12: tensor parallelism over ``model`` and ZeRO-1 over ``data``
+# (distributed/tensor_parallel.py) on ranks spawned on card 0 and joined over
+# gloo (NCCL refuses two ranks on one device; gloo stages CUDA tensors
+# through host memory). (a) f32 at full width and TP_DEPTH layers, one step
+# of TP_BATCH x TRAIN_SEQ tokens per (arch, (data, model)) case against the
+# one-rank kernel-path step on the same weights: chatglm3-6b's replicated-KV
+# rule (2 kv heads over 4 ranks), stablelm-3b with ZeRO-1, deepseek's dense
+# layer and one MoE layer (MLA; 64 experts as 16 a rank). The loss within
+# GRAD_LOSS_TOL, every gathered gradient within GRAD_LEAF_TOL of its
+# largest value (phase 7's limits), every gathered updated leaf and moment
+# within GRAD_LEAF_TOL of the one-rank AdamW update on the same gradients
+# (against the independent one-rank step Adam's first update m/(sqrt(v)+eps)
+# turns rounding-level differences of gradients near eps into differences
+# up to the learning rate). (b) bf16 stablelm-3b at full width and depth on
+# (1, 2), phase 7's batch and optimizer, TP_STEPS steps: losses within
+# TP_LOSS_GAP of phase 7's first ones (first set at 0.02; the first run read
+# at most 4.9e-4 relative, H100 80GB HBM3, 700 W).
+TP_CASES = (("chatglm3-6b", (1, 4)), ("stablelm-3b", (2, 2)),
+            ("deepseek-v2-lite-16b", (1, 4)))
+TP_DEPTH, TP_BATCH = 2, 2
+TP_BF16 = ("stablelm-3b", (1, 2))
+TP_STEPS = 3
+TP_LOSS_GAP = 2e-3
+TP_TIMEOUT_S = 420
+
 
 def check(ok, msg):
     if not ok:
@@ -360,6 +396,7 @@ def _touch_cuda():
 def main():
     import torch
     import torch.nn.functional as F
+    started = time.perf_counter()
 
     # ------------------------------------------------------------ 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -1018,7 +1055,14 @@ def main():
         torch, ops_of, card, dev, get_config("stablelm-3b"), readings))
     torch.cuda.empty_cache()
 
+    # ------------------------------ 12. tensor parallelism and ZeRO-1
+    tp_launches = tensor_parallel_on_card(torch, card,
+                                          trained["stablelm-3b"][2])
+    torch.cuda.empty_cache()
+
     # ----------------------------------------------------------------- result
+    print(f"[device] phases 1-12 ran in {time.perf_counter() - started:.1f} "
+          f"s", flush=True)
     print(f"[device] {card}")
     summary = []
     for name, route, source, replaces in (
@@ -1036,12 +1080,16 @@ def main():
         r = results[name]
         by_path = {arch: launches[arch][name] for arch in PATHS}
         by_part = {part: n[name] for part, n in runtime_launches.items()}
+        by_tp = {case: [n.get(name, 0) for n in ranks]
+                 for case, ranks in tp_launches.items()}
         summary.append({"name": name, "route": route, "source": source,
                         "replaces": replaces,
                         "launches": (sum(by_path.values())
-                                     + sum(by_part.values())),
+                                     + sum(by_part.values())
+                                     + sum(map(sum, by_tp.values()))),
                         "launches_by_path": by_path,
                         "launches_by_runtime_part": by_part,
+                        "launches_per_tp_rank_step": by_tp,
                         "launches_per_train_step": {
                             arch: train_launches[arch][name]
                             for arch in TRAIN_PATHS},
@@ -1524,11 +1572,11 @@ def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
     del cache
 
 
-def train_batch(torch, cfg, dev):
-    """One fixed batch of TRAIN_BATCH x TRAIN_SEQ random tokens from a
-    seeded generator on the card, labelled with the next token."""
+def train_batch(torch, cfg, dev, B=TRAIN_BATCH):
+    """One fixed batch of B x TRAIN_SEQ random tokens from a seeded
+    generator on the card, labelled with the next token."""
     from repro_torch.launch.serve import _positions
-    B, S = TRAIN_BATCH, TRAIN_SEQ
+    S = TRAIN_SEQ
     gen = torch.Generator(device=dev).manual_seed(SEED)
     tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
                            device=dev, dtype=torch.int32)
@@ -1630,7 +1678,7 @@ def train_and_hold(torch, cfg, ops_of, card, dev):
           f"and nonzero; launches per step {step_launches}  [{card}]",
           flush=True)
     del params, opt
-    return step_launches, med
+    return step_launches, med, losses
 
 
 def profile_train_step(torch, arch, grad_fn, opt_cfg, params, opt, batch,
@@ -2887,6 +2935,308 @@ def chaos_service_on_card(torch, ops_of, card, dev, cfg, params, before):
           f"fault_metrics {fm.as_dict()}; alerts {alerts} (p99 limit "
           f"{before['p99_s']:.3f} s); watcher "
           f"{watcher.n_ticks} ticks  [{card}]", flush=True)
+    return launches
+
+
+# ------------------------------------------------------------------ phase 12
+def _card_rank(fn, rank, world, port, results, args):
+    """A spawned rank on card 0, joined to the others over gloo."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", world_size=world, rank=rank,
+                                init_method=f"tcp://localhost:{port}")
+        try:
+            results.put((rank, True, fn(rank, world, *args)))
+        finally:
+            dist.destroy_process_group()
+    except Exception:                                    # noqa: BLE001
+        results.put((rank, False, traceback.format_exc()))
+
+
+def on_card_ranks(fn, world, *args, timeout=TP_TIMEOUT_S):
+    """[fn(rank, world, *args) for each rank], run in ``world`` processes
+    spawned on card 0 (this process has CUDA up: no fork). A rank that
+    fails, or a deadline passed, fails the run; every process is stopped
+    before this returns."""
+    import multiprocessing as mp
+    import queue
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_card_rank,
+                         args=(fn, rank, world, port, results, args))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    out, errors = {}, []
+    try:
+        while len(out) + len(errors) < world:   # drain before joining
+            try:
+                rank, ok, payload = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in out]
+                if dead or time.monotonic() > deadline:
+                    missing = sorted(set(range(world)) - set(out))
+                    errors.append(f"ranks {missing} gave nothing (exited "
+                                  f"{dead}; deadline {timeout} s)")
+                    break
+                continue
+            if ok:
+                out[rank] = payload
+            else:
+                errors.append(f"rank {rank}:\n{payload}")
+                deadline = min(deadline, time.monotonic() + 10)
+    finally:
+        for p in procs:
+            p.join(timeout=max(0.1, deadline - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(not errors, f"{fn.__name__} on {world} ranks: " + "\n".join(errors))
+    return [out[r] for r in range(world)]
+
+
+def _rank_ops():
+    """The kernel wrappers of this process, by kernel name."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return {"flash_attention": fa_ops, "decode_attention": da_ops,
+            "fused_rmsnorm": rn_ops, "ssd": ssd_ops}
+
+
+def tp_parity_rank(rank, world, arch, mesh_shape):
+    """Phase 12 (a) on one rank: the tensor-parallel step in its two parts
+    (gradients, then the sharded AdamW update), its launches counted. Rank
+    0 first takes the one-rank kernel-path gradients on the whole weights;
+    then every gathered leaf (a collective) is compared on rank 0 and
+    dropped on the others (the ranks share one card): the gradients against
+    the one-rank ones, the updated leaves and moments against the one-rank
+    AdamW update on the gathered gradients."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import train_step as TS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    ops_of = _rank_ops()
+    dev = torch.device("cuda")
+    cfg = get_config(arch, dtype="float32", num_layers=TP_DEPTH)
+    mesh = make_mesh(mesh_shape, ("data", "model"), device=dev)
+    batch = train_batch(torch, cfg, dev, TP_BATCH)
+    opt_cfg = adamw.OptimizerConfig(warmup_steps=1, total_steps=10)
+    step = TS.make_train_step(cfg, opt_cfg, mesh=mesh,
+                              dp_axes=SH.batch_axes(mesh, cfg, TP_BATCH))
+    layout = step.layout
+    whole = M.init_params(cfg, seed=SEED, device=dev)
+    local = layout.shard_params(whole)
+    if rank:
+        del whole
+    else:
+        want, ref = TS.make_grad_fn(cfg)(whole, batch)
+        want = dict(T.flatten(want))
+    state = adamw.init(local, layout)
+    for ops in ops_of.values():
+        ops.launches = 0
+    grads, m = step.grad_fn(local, batch)
+    local, state, _ = adamw.update(opt_cfg, state, grads, local, layout)
+    mine = {"launches": {name: ops.launches for name, ops in ops_of.items()},
+            "loss": m["loss"].item(),
+            "n_local": sum(t.numel() for t in T.leaves(local)),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    grad_rel, gathered = {}, []
+    for path, g in T.flatten(grads):
+        g = SH.gather_leaf(g, layout.specs[path], mesh)
+        if not rank:
+            grad_rel[path] = rel_err(g, want.pop(path))
+            gathered.append(g)
+    del grads
+    upd_rel = {}
+    if not rank:                    # the one-rank AdamW on those gradients
+        one = adamw.init(whole)
+        adamw.update(opt_cfg, one, T.unflatten(whole, gathered), whole)
+        del gathered
+        ones = {"": dict(T.flatten(whole)), ".mu/": dict(T.flatten(one.mu)),
+                ".nu/": dict(T.flatten(one.nu))}
+    for prefix, tree, specs in (("", local, layout.specs),
+                                (".mu/", state.mu, layout.moment_specs),
+                                (".nu/", state.nu, layout.moment_specs)):
+        for path, t in T.flatten(tree):
+            t = SH.gather_leaf(t, specs[path], mesh)
+            if not rank:
+                upd_rel[prefix + path] = rel_err(t, ones[prefix][path])
+    if rank:
+        return mine
+    return {**mine, "ref_loss": ref["loss"].item(), "grad_rel": grad_rel,
+            "upd_rel": upd_rel}
+
+
+def tp_bf16_rank(rank, world, arch, mesh_shape, steps):
+    """Phase 12 (b) on one rank: ``steps`` tensor-parallel steps of the
+    full bf16 model on phase 7's batch, each one's time, launches and the
+    seconds spent in the collectives (each timed between two device
+    synchronizations), and the rank's peak memory over the steps."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed import train_step as TS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    ops_of = _rank_ops()
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    mesh = make_mesh(mesh_shape, ("data", "model"), device=dev)
+    batch = train_batch(torch, cfg, dev)
+    step = TS.make_train_step(cfg, adamw.OptimizerConfig(warmup_steps=1,
+                                                         total_steps=10),
+                              mesh=mesh,
+                              dp_axes=SH.batch_axes(mesh, cfg, TRAIN_BATCH))
+    params = step.layout.shard_params(M.init_params(cfg, seed=SEED,
+                                                    device=dev))
+    opt = adamw.init(params, step.layout)
+    spent = [0.0]
+
+    def timed(fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+            return out
+        return run
+    dist.all_reduce = timed(dist.all_reduce)
+    TP._all_gather = timed(TP._all_gather)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, coll_s, launches = [], [], [], []
+    for _ in range(steps):
+        for ops in ops_of.values():
+            ops.launches = 0
+        spent[0] = 0.0
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        coll_s.append(spent[0])
+        launches.append({name: ops.launches for name, ops in ops_of.items()})
+    return {"losses": losses, "step_s": step_s, "coll_s": coll_s,
+            "launches": launches,
+            "n_local": sum(t.numel() for t in T.leaves(params)),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def tensor_parallel_on_card(torch, card, phase7_losses):
+    """Phase 12 (see the module docstring). Returns each step's kernel
+    launches per rank, by case."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.train_step import kernel_launches
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()              # the ranks share this card
+    print(f"[tp] this process holds {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB of the card as phase 12 starts", flush=True)
+    launches = {}
+    for arch, shape in TP_CASES:
+        world = shape[0] * shape[1]
+        t0 = time.perf_counter()
+        out = on_card_ranks(tp_parity_rank, world, arch, shape)
+        case_s = time.perf_counter() - t0
+        r0 = out[0]
+        want = kernel_launches(get_config(arch, dtype="float32",
+                                          num_layers=TP_DEPTH))
+        loss_rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+        g_worst = max(r0["grad_rel"], key=r0["grad_rel"].get)
+        u_worst = max(r0["upd_rel"], key=r0["upd_rel"].get)
+        print(f"[tp] {arch} f32, {TP_DEPTH} layers at full width, (data, "
+              f"model) {shape} on {world} ranks sharing the card over gloo, "
+              f"batch {TP_BATCH} x {TRAIN_SEQ}: loss {r0['loss']:.7f} vs "
+              f"one rank {r0['ref_loss']:.7f} (rel {loss_rel:.3e}, tol "
+              f"{GRAD_LOSS_TOL}); gathered gradients vs the one-rank kernel "
+              f"path, max|diff|/max|grad| per leaf: max "
+              f"{r0['grad_rel'][g_worst]:.3e} ({g_worst}) over "
+              f"{len(r0['grad_rel'])} leaves; updated leaves and moments vs "
+              f"the one-rank AdamW on those gradients: max "
+              f"{r0['upd_rel'][u_worst]:.3e} ({u_worst}) (tol "
+              f"{GRAD_LEAF_TOL}); per rank: parameters "
+              f"{[r['n_local'] for r in out]}, peak "
+              f"{[round(r['peak_gb'], 2) for r in out]} GB; launches "
+              f"{out[0]['launches']}; the case took {case_s:.1f} s  "
+              f"[{card}]", flush=True)
+        check(all(r["loss"] == r0["loss"] for r in out),
+              f"{arch} {shape}: the ranks' losses differ")
+        check(loss_rel < GRAD_LOSS_TOL, f"{arch} {shape} loss differs: "
+              f"{loss_rel}")
+        check(r0["grad_rel"][g_worst] < GRAD_LEAF_TOL,
+              f"{arch} {shape} gradients differ: {r0['grad_rel']}")
+        check(r0["upd_rel"][u_worst] < GRAD_LEAF_TOL,
+              f"{arch} {shape} updated leaves differ: {r0['upd_rel']}")
+        for rank, r in enumerate(out):
+            check(r["launches"] == want, f"{arch} {shape} rank {rank} "
+                  f"launches {r['launches']} != {want}")
+        launches[f"{arch} {shape[0]}x{shape[1]}"] = [r["launches"]
+                                                     for r in out]
+
+    arch, shape = TP_BF16
+    world = shape[0] * shape[1]
+    t0 = time.perf_counter()
+    out = on_card_ranks(tp_bf16_rank, world, arch, shape, TP_STEPS)
+    case_s = time.perf_counter() - t0
+    cfg = get_config(arch)
+    want = kernel_launches(cfg)
+    losses = out[0]["losses"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, phase7_losses)]
+    med = statistics.median(out[0]["step_s"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[tp] {arch} bf16 at full width and depth ({cfg.num_layers} "
+          f"layers), (data, model) {shape} on {world} ranks sharing the card "
+          f"over gloo, {TP_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens (phase 7's batch): losses "
+          f"{[round(x, 6) for x in losses]}, phase 7's first "
+          f"{[round(x, 6) for x in phase7_losses[:TP_STEPS]]}, relative gaps "
+          f"{[f'{g:.3e}' for g in gaps]} (tol {TP_LOSS_GAP})  [{card}]",
+          flush=True)
+    print(f"[tp] {arch} {shape} per step, gloo through host memory on one "
+          f"card (not NCCL): step "
+          f"{[round(x, 4) for x in out[0]['step_s']]} s (median of steps "
+          f"2-{TP_STEPS} {med:.4f} s, {tokens / med:.0f} tokens/s), seconds "
+          f"in collectives by rank "
+          f"{[[round(x, 4) for x in r['coll_s']] for r in out]}; parameters "
+          f"{[r['n_local'] for r in out]} and peak memory "
+          f"{[round(r['peak_gb'], 2) for r in out]} GB by rank; launches per "
+          f"step {out[0]['launches'][0]}; the case took {case_s:.1f} s  "
+          f"[{card}]", flush=True)
+    for rank, r in enumerate(out):
+        check(r["losses"] == losses, f"{arch} rank {rank} losses "
+              f"{r['losses']} != rank 0's {losses}")
+        for i, got in enumerate(r["launches"]):
+            check(got == want, f"{arch} bf16 rank {rank} step {i} launches "
+                  f"{got} != {want}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{arch} bf16 tensor-parallel losses not finite and falling: "
+          f"{losses}")
+    check(max(gaps) <= TP_LOSS_GAP, f"{arch} bf16 tensor-parallel losses "
+          f"{losses} more than {TP_LOSS_GAP} from phase 7's {phase7_losses}")
+    launches[f"{arch} bf16 {shape[0]}x{shape[1]}"] = [r["launches"][0]
+                                                      for r in out]
     return launches
 
 

@@ -22,12 +22,28 @@ def carve_submeshes(mesh, n_partitions: int, axis: str = "data"
 
     A one-process mesh (every axis of size 1, as ``make_host_mesh`` gives
     without a launcher) is one partition, the mesh whole, as JAX carves a
-    one-device mesh. A mesh over several ranks would need a ``DeviceMesh``
-    over each range of ranks, built collectively by every rank: not done
-    (ROADMAP item 12b)."""
-    mesh.axis_names.index(axis)     # ValueError for an axis it lacks
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"carving {mesh!r} along {axis!r}: a mesh over several ranks is "
-            f"not carved into partitions yet (ROADMAP item 12b)")
-    return [MeshPartition(0, mesh)]
+    one-device mesh. A mesh over ranks gives each partition a
+    ``DeviceMesh`` over its range of ranks: ``new_group`` is collective, so
+    every rank of the mesh calls this and builds every partition, in one
+    order (a partition without this rank has no coordinate for it). An
+    abstract mesh gives abstract partitions (shapes only)."""
+    from repro_torch.launch.mesh import Mesh
+    idx = mesh.axis_names.index(axis)     # ValueError for an axis it lacks
+    size = mesh.shape[axis]
+    if mesh.size == 1:
+        return [MeshPartition(0, mesh)]
+    n_partitions = min(n_partitions, size)
+    step = size // n_partitions
+    parts = []
+    for i in range(n_partitions):
+        lo = i * step
+        hi = (i + 1) * step if i < n_partitions - 1 else size
+        shape = {**mesh.shape, axis: hi - lo}
+        sub = None
+        if mesh.device_mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+            ranks = mesh.device_mesh.mesh.narrow(idx, lo, hi - lo)
+            sub = DeviceMesh(mesh.device_mesh.device_type, ranks,
+                             mesh_dim_names=mesh.axis_names)
+        parts.append(MeshPartition(i, Mesh(shape, sub)))
+    return parts

@@ -22,12 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch import tree as T
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.launch.mesh import Mesh
-
-# all_gather into one tensor: ``all_gather_single`` where torch has it (the
-# older name is deprecated there)
-_all_gather = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
 
 
 def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -72,8 +68,7 @@ def int8_psum_mean(g: torch.Tensor, group, n_shards: int) -> torch.Tensor:
     # phase 2 (int8 wire): share the reduced chunk back to all ranks
     scale2 = _scale(part, group)
     q2 = quantize_int8(part, scale2)
-    full = torch.empty(n_shards * m, dtype=torch.int8, device=g.device)
-    _all_gather(full, q2, group=group)
+    full = TP.all_gather_dim(q2, 0, group, n_shards)
     out = full.float() * scale2
     if pad:
         out = out[:-pad]

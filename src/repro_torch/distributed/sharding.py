@@ -19,15 +19,20 @@ for an ``OptState`` field). Rules are path-based: a leaf's spec is decided
 by its name/rank, with leading layer-stack dims padded with None.
 ``kv_heads < TP`` triggers the replicated-KV rule.
 
-The specs are a policy; what the port executes of them is the data-parallel
-part (``batch_axes``: each rank's rows of the batch, ``local_slices``).
-Tensor-parallel execution over ``model`` and ZeRO-1 execution (ROADMAP.md,
-item 12b) are not ported: ``placements`` turns a spec into DTensor
-placements for the day they are.
+The port executes them: ``batch_axes`` gives each rank's rows of the batch;
+under tp16 a rank holds the ``local_slices`` block of every parameter
+(``shard_tree``; ``gather_tree`` is the inverse) and of every AdamW moment
+(``zero1_spec``), and the model runs tensor-parallel over ``model``
+(``distributed/tensor_parallel.py``). Under dp_all the parameters stay
+whole on every rank (the vocab matrices too: the same arithmetic as JAX's
+split). ``placements`` gives a spec's DTensor placements, against which the
+tests hold ``local_slices``.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
+
+import torch
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
@@ -268,3 +273,34 @@ def placements(spec: Spec, mesh: Mesh):
     where = {a: d for d, entry in enumerate(spec) for a in _axes_of(entry)}
     return tuple(Shard(where[a]) if a in where else Replicate()
                  for a in mesh.axis_names)
+
+
+def shard_tree(tree, specs: Dict[str, Spec], mesh: Mesh):
+    """This rank's block of every leaf of ``tree`` under ``specs`` ({path:
+    spec}, ``flatten``'s paths), each a contiguous tensor of its own, a
+    whole leaf too: an update of the blocks in place leaves ``tree`` as it
+    was, and ``tree`` can be freed."""
+    def block(path, leaf):
+        sl = local_slices(specs[path], tuple(leaf.shape), mesh)
+        return leaf[sl].clone(memory_format=torch.contiguous_format)
+    return T.unflatten(tree, [block(p, t) for p, t in T.flatten(tree)])
+
+
+def gather_leaf(leaf: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor from every rank's ``local_slices`` block under
+    ``spec``, on every rank (collective): gathered over the axes each dim
+    of the spec names."""
+    from repro_torch.distributed.tensor_parallel import all_gather_dim
+    for d, entry in enumerate(spec):
+        axes = _axes_of(entry)
+        n = mesh.axes_size(axes)
+        if n > 1:
+            leaf = all_gather_dim(leaf, d, mesh.group(axes), n)
+    return leaf
+
+
+def gather_tree(tree, specs: Dict[str, Spec], mesh: Mesh):
+    """The inverse of ``shard_tree``, collective: every leaf whole on every
+    rank (``gather_leaf``)."""
+    return T.unflatten(tree, [gather_leaf(t, specs[p], mesh)
+                              for p, t in T.flatten(tree)])

@@ -1,0 +1,274 @@
+"""Tensor parallelism over a mesh's ``model`` axis and the ZeRO-1 layout of a
+train step: what GSPMD derives for the JAX package from the tp16 specs of
+``distributed/sharding.py``, written out as Megatron-LM does it.
+
+The pieces:
+  * ``TP``: the model group of a ``Mesh`` (its size, this rank's index),
+    ``model_group(mesh)`` (None when the axis has one rank);
+  * the two collectives it runs (``all_reduce``, ``all_gather_dim``), which
+    gloo and NCCL both implement, gloo on CUDA tensors too;
+  * Megatron's two autograd collectives: ``copy_to_tp`` (identity forward,
+    all-reduce of the gradient backward), where a replicated activation
+    enters a computation split over the ranks, and ``reduce_from_tp``
+    (all-reduce forward, identity backward), after a row-parallel product;
+  * ``row_parallel``, ``vocab_embed`` (a masked lookup into this rank's rows
+    of the table), ``vocab_parallel_ce`` (the cross entropy of logits split
+    over the vocabulary) and ``local_kv`` (the replicated-KV rule);
+  * ``TrainLayout``: every leaf's block on this rank, the parameters by
+    their tp16 specs and the AdamW moments by ``zero1_spec``.
+
+Which tensors are split: column-parallel products (QKV, MLP in, MLA's
+per-head up-projections, each rank's experts) produce this rank's part;
+row-parallel ones (attention out, MLP out, the experts' partial sums)
+produce a partial sum that ``reduce_from_tp`` completes. Everything else
+(the residual stream, norms, the router, MLA's latents, K/V under the
+replicated-KV rule) is computed whole on every rank, and every leaf used
+that way gets the whole gradient on every rank: a replicated tensor that a
+split computation reads goes through ``copy_to_tp`` first.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import tree as T
+from repro_torch.distributed import sharding as SH
+
+
+@dataclass(frozen=True)
+class TP:
+    """The ranks of one model group: ``group`` (a process group), ``size``
+    and this rank's ``rank`` in it."""
+    group: Any
+    size: int
+    rank: int
+
+
+def model_group(mesh) -> Optional[TP]:
+    """The model group of ``mesh``, or None when its ``model`` axis has one
+    rank (or there is no mesh)."""
+    if mesh is None or mesh.shape.get(SH.MODEL_AXIS, 1) == 1:
+        return None
+    return TP(mesh.group((SH.MODEL_AXIS,)), mesh.shape[SH.MODEL_AXIS],
+              mesh.coordinate()[SH.MODEL_AXIS])
+
+
+# ------------------------------------------------------------- collectives
+# all_gather into one tensor: ``all_gather_single`` where torch has it (the
+# older name is deprecated there)
+_all_gather = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """All-reduce ``x`` (contiguous) over ``group`` in place; returns it.
+    gloo takes CUDA tensors too (ranks that share one card), staging them
+    through host memory itself."""
+    dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group, n: int,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``n`` ranks' blocks of ``x`` (each of x's shape) concatenated
+    along ``dim`` in group-rank order; written into ``out`` when given."""
+    x = x.contiguous()
+    shape = list(x.shape)
+    if out is not None and dim == 0 and out.is_contiguous():
+        _all_gather(out, x, group=group)          # in place, no copy
+        return out
+    buf = x.new_empty((n * shape[0], *shape[1:]))
+    _all_gather(buf, x, group=group)
+    full = buf.view(n, *shape).movedim(0, dim).reshape(
+        *shape[:dim], n * shape[dim], *shape[dim + 1:])
+    return full if out is None else out.copy_(full)
+
+
+# ------------------------------------------------ autograd collectives
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.tp.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return all_reduce(x.contiguous().clone(), tp.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """Identity forward; backward, the gradient summed over the model
+    group. For a replicated tensor that a split computation reads."""
+    return _CopyToTP.apply(x, tp)
+
+
+def reduce_from_tp(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """The sum of every rank's ``x`` forward; identity backward. For the
+    partial sums of a row-parallel product."""
+    return _ReduceFromTP.apply(x, tp)
+
+
+def row_parallel(p, h: torch.Tensor, tp: TP) -> torch.Tensor:
+    """A linear layer ``{w[, b]}`` whose input dim is split over the model
+    group: this rank's ``h @ w`` summed over the ranks, then the bias
+    (whole on every rank, added once)."""
+    y = reduce_from_tp(h @ p["w"], tp)
+    return y + p["b"] if "b" in p else y
+
+
+# ------------------------------------------------------ vocab-parallel ops
+def _local_ids(ids: torch.Tensor, n: int, tp: TP):
+    """(ids local to this rank's ``n`` rows, 0 where another rank owns
+    them; the mask of those this rank owns)."""
+    local = ids.long() - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    return torch.where(mine, local, 0), mine
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, tp: TP
+                ) -> torch.Tensor:
+    """``F.embedding(tokens, full table)`` from this rank's rows of the
+    table: a masked lookup, summed over the model group (one rank adds the
+    row, the others zeros)."""
+    local, mine = _local_ids(tokens, table.shape[0], tp)
+    x = torch.nn.functional.embedding(local, table)
+    return reduce_from_tp(x.masked_fill(~mine[..., None], 0), tp)
+
+
+def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, tp: TP
+                      ) -> torch.Tensor:
+    """Per-token ``logsumexp(logits) - logits[label]`` from this rank's
+    vocab columns of the logits, as ``train_step.make_loss_fn`` computes
+    it on the whole vocabulary: the gold logit gathered in the logits'
+    dtype by the rank that owns the label, then f32; the logsumexp in f32
+    from a max (a stop-gradient shift) and a sum of exponentials, each
+    reduced over the model group."""
+    local, mine = _local_ids(labels, logits.shape[-1], tp)
+    gold = torch.gather(logits, -1, local[..., None])[..., 0].float()
+    gold = reduce_from_tp(torch.where(mine, gold, 0.0), tp)
+    l32 = logits.float()
+    with torch.no_grad():
+        m = all_reduce(l32.amax(dim=-1), tp.group, op=dist.ReduceOp.MAX)
+    s = reduce_from_tp(torch.sum(torch.exp(l32 - m[..., None]), dim=-1), tp)
+    return torch.log(s) + m - gold
+
+
+def local_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, groups: int,
+             tp: TP) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The replicated-KV rule: K/V (B, S, KV, hd) whole on every rank; this
+    rank's ``n_heads`` query heads (``rank * n_heads`` on) read kv heads
+    ``h // groups`` (groups = H / KV). Returns views of exactly the kv heads
+    they read, after ``copy_to_tp`` (each kv head's gradient is summed over
+    the ranks whose heads read it), so the kernel's ``h // G`` on local
+    indices finds them."""
+    if n_heads % groups and groups % n_heads:
+        raise ValueError(f"{n_heads} query heads a rank over groups of "
+                         f"{groups}: a rank's heads straddle kv heads")
+    first = tp.rank * n_heads // groups
+    n_kv = max(1, n_heads // groups)
+    k, v = copy_to_tp(k, tp), copy_to_tp(v, tp)
+    return k[:, :, first:first + n_kv], v[:, :, first:first + n_kv]
+
+
+# -------------------------------------------------------- train layout
+class TrainLayout:
+    """How the ranks of ``mesh`` hold a tp16 model's train state: each
+    parameter leaf's block by its spec (``sharding.params_pspec``: split
+    over ``model``, replicated over ``data``), each AdamW moment's block by
+    ``sharding.zero1_spec`` (ZeRO-1: also split over ``data`` where a free
+    dim divides), and this rank's model group (``tp``)."""
+
+    def __init__(self, cfg, mesh):
+        from repro_torch.models.model import init_params   # models imports us
+        struct = init_params(cfg, device="meta")
+        self.mesh = mesh
+        self.tp = model_group(mesh)
+        self.specs = SH.params_pspec(cfg, mesh, struct)
+        self.shapes = {p: tuple(t.shape) for p, t in T.flatten(struct)}
+        self.moment_specs = {p: SH.zero1_spec(s, self.shapes[p], mesh)
+                             for p, s in self.specs.items()}
+        self.data_size = mesh.shape.get(SH.DATA_AXIS, 1)
+        self.data_group = mesh.group((SH.DATA_AXIS,))
+        self._split = {p for p, spec in self.specs.items()
+                       if self.tp is not None
+                       and any(SH.MODEL_AXIS in SH._axes_of(e) for e in spec)}
+        self._blocks = {p: self._moment_block(p) for p in self.specs}
+
+    def split_over_model(self, path: str) -> bool:
+        """Whether ranks of the model group hold other parts of the leaf."""
+        return path in self._split
+
+    def moment_block(self, path: str
+                     ) -> Optional[Tuple[int, Tuple[slice, ...]]]:
+        """(dim, slices): the block of this rank's parameter block that its
+        moments cover, split along ``dim`` over ``data``; None when they
+        cover it whole."""
+        return self._blocks[path]
+
+    def _moment_block(self, path):
+        spec = self.moment_specs[path]
+        if self.data_size == 1 or SH.DATA_AXIS not in spec:
+            return None
+        dim = spec.index(SH.DATA_AXIS)
+        local = [sl.stop - sl.start for sl in SH.local_slices(
+            self.specs[path], self.shapes[path], self.mesh)]
+        only_data = tuple(SH.DATA_AXIS if i == dim else None
+                          for i in range(len(local)))
+        return dim, SH.local_slices(only_data, tuple(local), self.mesh)
+
+    def shard_params(self, params):
+        """This rank's block of every leaf of a whole parameter tree."""
+        return SH.shard_tree(params, self.specs, self.mesh)
+
+    def gather_params(self, params):
+        """The whole tree from every rank's blocks (collective)."""
+        return SH.gather_tree(params, self.specs, self.mesh)
+
+    def gather_moments(self, tree):
+        return SH.gather_tree(tree, self.moment_specs, self.mesh)
+
+
+def unsupported(cfg, mesh) -> Optional[str]:
+    """Why the port cannot run ``cfg`` tensor-parallel over ``mesh``'s
+    ``model`` axis, or None (also for one rank or the dp_all policy)."""
+    n = mesh.shape.get(SH.MODEL_AXIS, 1)
+    if n == 1 or SH.policy_for(cfg) != "tp16":
+        return None
+    if cfg.family == "hybrid":
+        return (f"{cfg.name}: tensor parallelism of the hybrid family over "
+                f"{n} model ranks needs the gated norm's sum of squares "
+                f"reduced across ranks inside the fused RMSNorm kernel "
+                f"(ROADMAP.md, item 12c)")
+    if cfg.num_heads % n:
+        return (f"{cfg.name}: {cfg.num_heads} query heads do not divide over "
+                f"{n} model ranks (the port splits whole heads)")
+    return None
+
+
+def train_layout(cfg, mesh) -> Optional[TrainLayout]:
+    """The ``TrainLayout`` of ``cfg`` on ``mesh`` under the tp16 policy on
+    more than one rank; None for one rank or the dp_all policy (whose
+    parameters and moments stay whole on every rank). Raises
+    NotImplementedError where ``unsupported`` says why."""
+    if (mesh is None or SH.policy_for(cfg) != "tp16"
+            or math.prod(mesh.shape.get(a, 1)
+                         for a in (SH.DATA_AXIS, SH.MODEL_AXIS)) == 1):
+        return None
+    why = unsupported(cfg, mesh)
+    if why:
+        raise NotImplementedError(why)
+    return TrainLayout(cfg, mesh)

@@ -10,6 +10,8 @@ carries over from one step to the next. With ``cfg.use_pallas`` (the port's
 default) the forward on the card runs the CUDA kernels and the backward the
 vector-Jacobian products of their plain versions (the kernels' wrappers).
 ``cfg.remat`` selects the activation checkpointing (``models.model``).
+Under the tp16 policy on a mesh of several ranks the step is tensor-parallel
+and ZeRO-1 (``distributed/tensor_parallel.py``).
 
 The update is ``optim.adamw.update``, which writes the new parameters and
 moments into the trees it is given: ``train_step`` returns the caller's
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.compression import make_local_grad_fn
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
@@ -31,10 +34,20 @@ from repro_torch.optim import adamw
 _METRICS = ("loss", "ce", "aux_loss")
 
 
-def make_loss_fn(cfg: ModelConfig):
+def make_loss_fn(cfg: ModelConfig, tp=None):
+    """loss_fn(params, batch) -> (loss, metrics). With ``tp`` the forward
+    runs tensor-parallel and, where the vocabulary is split, the cross
+    entropy is the vocab-parallel one (``tensor_parallel.vocab_parallel_ce``,
+    the same arithmetic)."""
+    vtp = M.vocab_group(cfg, tp)
+
     def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        logits, aux, _ = M.forward(params, cfg, batch, mode="train")
+        logits, aux, _ = M.forward(params, cfg, batch, mode="train", tp=tp)
         labels = batch["labels"].long()
+        if vtp is not None:
+            ce = torch.mean(TP.vocab_parallel_ce(logits, labels, vtp))
+            loss = ce + aux
+            return loss, {"loss": loss, "ce": ce, "aux_loss": aux}
         # the gold logit gathered first in the logits' dtype, then the f32
         # logsumexp (as the JAX package)
         gold = torch.gather(logits, -1, labels[..., None])[..., 0].float()
@@ -61,14 +74,18 @@ def _microbatch(batch, i: int, mb: int, B: int):
     return {k: cut(v) for k, v in batch.items()}
 
 
-def make_grad_fn(cfg: ModelConfig, *, accum_steps: int = 1) -> Callable:
+def make_grad_fn(cfg: ModelConfig, *, accum_steps: int = 1,
+                 tp=None) -> Callable:
     """grad_fn(params, batch) -> (grads, metrics): the gradients of the loss
     as a tree of params' structure (in the parameters' dtype, or f32 when
     accumulated over ``accum_steps`` microbatches along dim 0) and the
-    loss metrics, averaged over the microbatches, detached."""
+    loss metrics, averaged over the microbatches, detached. With ``tp``
+    (``tensor_parallel.TP``) ``params`` are this rank's blocks and so are
+    the gradients; a leaf whole on every rank has its whole gradient on
+    every rank."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    loss_fn = make_loss_fn(cfg)
+    loss_fn = make_loss_fn(cfg, tp)
 
     def one(params, batch):
         alias = [p.detach().requires_grad_() for p in T.leaves(params)]
@@ -114,7 +131,9 @@ def kernel_launches(cfg: ModelConfig) -> Dict[str, int]:
     layers) runs flash attention and 2 RMSNorms, 3 with MLA (its
     ``kv_norm``); a Mamba2 block the SSD scan, its input norm and its gated
     norm; the hybrid's shared block runs once per group, never under remat
-    (as in the reference)."""
+    (as in the reference). A rank of a tensor-parallel step launches as
+    many: each kernel runs once a layer whatever the rank's share of the
+    heads, and every norm runs whole on every rank."""
     L, runs = cfg.num_layers, 1 if cfg.remat == "none" else 2
     shared = 0                          # the hybrid's shared-block calls
     if cfg.family in ("ssm", "hybrid"):
@@ -141,10 +160,20 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig, *,
     than one rank, each rank takes the gradients of its rows of the (global)
     batch and the ranks' mean is explicit (``compression.make_local_grad_fn``,
     in f32); grad_compression='int8' makes that mean the two-phase int8 one,
-    on any number of ranks (one rank: the gradients quantized once)."""
+    on any number of ranks (one rank: the gradients quantized once).
+
+    A tp16 model on a mesh of several ranks (``tensor_parallel.train_layout``)
+    runs tensor-parallel over ``model`` and ZeRO-1 over ``data``: the step
+    takes this rank's blocks, ``layout.shard_params(params)`` and
+    ``adamw.init(params, layout)``, and updates them; the gradient mean over
+    ``data`` acts on the rank's blocks of the gradients. The step carries
+    its gradient function (``grad_fn``, the mean over ``data`` included)
+    and its ``layout`` (None on one rank) as attributes."""
     if grad_compression not in (None, "int8"):
         raise ValueError(f"unknown grad_compression {grad_compression!r}")
-    grad_fn = make_grad_fn(cfg, accum_steps=accum_steps)
+    layout = TP.train_layout(cfg, mesh)
+    grad_fn = make_grad_fn(cfg, accum_steps=accum_steps,
+                           tp=layout.tp if layout else None)
     compress = grad_compression == "int8"
     if compress or (mesh is not None and mesh.axes_size(dp_axes) > 1):
         if mesh is None or not dp_axes:
@@ -155,10 +184,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig, *,
 
     def train_step(params, opt_state, batch):
         grads, metrics = grad_fn(params, batch)
-        params, opt_state, om = adamw.update(opt_cfg, opt_state, grads, params)
+        params, opt_state, om = adamw.update(opt_cfg, opt_state, grads, params,
+                                             layout)
         metrics.update(om)
         return params, opt_state, metrics
 
+    # its parts, for callers that read the gradients or gather the blocks
+    train_step.grad_fn, train_step.layout = grad_fn, layout
     return train_step
 
 

@@ -13,7 +13,10 @@ rank's own batch, the global batch over the size of ``sharding.batch_axes``:
     axes on rank 0 of a fake process group of the mesh's size (c10d's
     ``fake`` backend: every collective returns at once), on the global
     batch, of which the rank keeps its rows: the exact per-rank program the
-    port runs, its gradient mean's all-reduces included;
+    port runs, its gradient mean's all-reduces included. A tp16 cell's rank
+    holds its blocks of the parameters and of the ZeRO-1 moments and runs
+    the tensor-parallel step (``distributed/tensor_parallel.py``): its
+    FLOPs, bytes and collectives are that rank's own;
   * prefill and decode cells run their step on the rank's rows (the port's
     serve steps run no collective).
 
@@ -28,16 +31,18 @@ What the record holds, per device:
     the bytes of every op's inputs and outputs (unfused: an upper bound on
     XLA's post-fusion "bytes accessed");
   * ``collectives``: what the step ran, by kind (``dp_all`` cells,
-    mamba2-130m: the gradient mean over all 256 ranks);
+    mamba2-130m: the gradient mean over all 256 ranks; tp16 cells: the
+    tensor-parallel all-reduces, the gradient mean over ``data`` and the
+    ZeRO-1 all-gathers);
   * ``roofline``: ``roofline.derive`` in H100 terms.
 
-``tp16`` cells: the port does not execute tensor parallelism (ROADMAP item
-12b), so each rank here runs the whole model on its rows. Their FLOPs, bytes
-and data-parallel collective bytes are divided by the ``model`` axis's size,
-and ``split`` marks that division as ideal; ``collectives`` holds the
-data-parallel part only and names item 12b for the tensor-parallel part.
-Sequence-parallel decode (the long_500k cell's cache sharded over ``data``)
-is not executed either, and is not divided.
+Serving cells run the one-rank step on the rank's rows: the port serves
+without a mesh (as the JAX package's ``generate``, which takes one and never
+uses it), so their counts are a whole model's. Sequence-parallel decode (the
+long_500k cell's cache sharded over ``data``) is not executed either. A
+train cell whose tensor-parallel program the port lacks is skipped, with
+the reason (``tensor_parallel.unsupported``: the hybrid family, ROADMAP item
+12c; query heads that do not divide over the ``model`` axis).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-7b --shape train_4k --mesh single
@@ -65,6 +70,7 @@ from repro_torch import tree as T
 from repro_torch.configs import ARCH_IDS, SHAPES, cell_is_runnable, get_config
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.serve_step import (make_decode_step,
                                                 make_prefill_step)
 from repro_torch.distributed.train_step import make_train_step
@@ -73,8 +79,6 @@ from repro_torch.launch import roofline as RL
 from repro_torch.launch import specs as SP
 from repro_torch.launch.mesh import Mesh, make_mesh, make_production_mesh
 from repro_torch.optim.adamw import OptimizerConfig
-
-TP_NOTE = "not executed: tensor parallelism is ROADMAP item 12b"
 
 
 def _sharded_bytes(tree, specs: Dict[str, Tuple], mesh: Mesh) -> int:
@@ -125,13 +129,18 @@ class Cell:
     dp_axes: Tuple[str, ...]
     rows: int                                  # the rank's batch rows
 
-    def inputs(self, make):
-        """The step's arguments, each leaf ``make(meta tensor)``."""
+    def inputs(self, make, layout=None):
+        """The step's arguments, each leaf ``make(meta tensor)``; with the
+        train step's ``layout``, the rank's blocks of the parameters and
+        moments."""
         cfg, shape = self.cfg, self.shape
-        params = T.tree_map(make, SP.params_struct(cfg))
+        params = SP.params_struct(cfg)
+        if layout is not None:
+            params = layout.shard_params(params)
+        params = T.tree_map(make, params)
         if shape.kind == "train":
             # every rank draws the global batch and keeps its rows
-            return (params, SP.opt_state_struct(params),
+            return (params, SP.opt_state_struct(params, layout),
                     T.tree_map(make, SP.train_input_specs(cfg, shape)))
         local = dataclasses.replace(shape, global_batch=self.rows)
         if shape.kind == "prefill":
@@ -147,22 +156,26 @@ class Cell:
             return make_prefill_step(self.cfg)
         return make_decode_step(self.cfg)
 
-    def run(self, *, device="cpu", fake: bool = True) -> opprof.OpProfile:
+    def run(self, *, device="cpu", fake: bool = True,
+            mesh: Optional[Mesh] = None) -> opprof.OpProfile:
         """Run the step once under ``OpProfile``: on fake tensors (the
         dry-run), or on real ones on ``device`` (random values in each
-        leaf's dtype, zero integers). Returns the profile, with
-        ``argument_bytes`` (the arguments' storages) and ``output_bytes``
-        (what the step returned) set."""
-        world = (self.shape.kind == "train"
-                 and self.mesh.axes_size(self.dp_axes) > 1)
+        leaf's dtype, zero integers). A train step over several ranks runs
+        on rank 0 of a fake process group, or on ``mesh``, a mesh of this
+        cell's shape over real ranks (each rank runs this). Returns the
+        profile, with ``argument_bytes`` (the arguments' storages) and
+        ``output_bytes`` (what the step returned) set."""
+        world = (self.shape.kind == "train" and self.mesh.size > 1
+                 and mesh is None)
         with _fake_world(self.mesh) if world else contextlib.nullcontext(
-                self.mesh) as mesh:
+                mesh or self.mesh) as mesh:
+            step = self.step(mesh)
             # every input is made under the fake mode: no real tensor in
             mode = (FakeTensorMode(allow_non_fake_inputs=False) if fake
                     else contextlib.nullcontext())
             with mode:
-                args = self.inputs(lambda m: _make(m, device))
-            step = self.step(mesh)
+                args = self.inputs(lambda m: _make(m, device),
+                                   getattr(step, "layout", None))
             prof = opprof.OpProfile()
             prof.argument_bytes = prof.hold(args)
             with mode, prof:
@@ -213,6 +226,9 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         return None, {"skipped": why}
     mesh = mesh or make_production_mesh(multi_pod=multi_pod)
     if shape.kind == "train":
+        why = TP.unsupported(cfg, mesh)
+        if why:
+            return None, {"skipped": f"skip: {why}"}
         dp_axes = SH.batch_axes(mesh, cfg)
     else:
         dp_axes = SH.batch_axes(mesh, cfg, shape.global_batch)
@@ -244,16 +260,15 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                 "traceback": traceback.format_exc()[-2000:]}
     run_s = time.time() - t0
     cfg, mesh = cell.cfg, cell.mesh
-    tp = mesh.shape.get(SH.MODEL_AXIS, 1) if SH.policy_for(cfg) == "tp16" else 1
-    coll = {k: v / tp if k != "count" else v
-            for k, v in prof.collective_bytes().items()}
-    cost = {"flops": prof.flops / tp, "bytes accessed": prof.bytes / tp,
-            "matmul_flops": prof.matmul_flops / tp}
+    coll = prof.collective_bytes()
+    cost = {"flops": prof.flops, "bytes accessed": prof.bytes,
+            "matmul_flops": prof.matmul_flops}
+    axes = cell.dp_axes
+    if cell.shape.kind == "train" and SH.policy_for(cfg) == "tp16":
+        axes = (*axes, SH.MODEL_AXIS)         # the tensor-parallel ones too
     terms = RL.derive(arch, cell.shape, cfg, mesh_name, mesh.size, cost, coll,
                       peak_bytes_dev=prof.peak_bytes,
-                      link_bw=RL.link_bandwidth(mesh.shape, cell.dp_axes))
-    if tp > 1:
-        coll["tensor_parallel"] = TP_NOTE
+                      link_bw=RL.link_bandwidth(mesh.shape, axes))
     rec = {**base, "status": "ok", "n_devices": mesh.size,
            "compile_s": round(run_s, 1), "probe_compile_s": 0.0,
            "memory": {"argument_size_in_bytes": args,
@@ -263,9 +278,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
            "collectives": {k: (round(v) if isinstance(v, float) else v)
                            for k, v in coll.items()},
            "roofline": terms.to_dict(),
-           "split": ({"model": tp, "ideal": True,
-                      "divided": ["flops", "bytes accessed", "collectives"],
-                      "why": TP_NOTE} if tp > 1 else None),
            "rows_per_rank": cell.rows, "n_ops": prof.n_ops}
     if verbose:
         print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: "
@@ -274,8 +286,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
               f"memory {terms.memory_s*1e3:.2f}ms  "
               f"coll {terms.collective_s*1e3:.2f}ms  "
               f"-> {terms.bottleneck}  hw_frac={terms.hw_frac:.3f}  "
-              f"useful={terms.useful_ratio:.2f}"
-              f"{'  (tp16 split ideal)' if tp > 1 else ''}", flush=True)
+              f"useful={terms.useful_ratio:.2f}", flush=True)
     return rec
 
 

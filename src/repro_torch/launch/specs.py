@@ -58,8 +58,10 @@ def params_struct(cfg: ModelConfig):
     return init_params(cfg, device="meta")
 
 
-def opt_state_struct(params):
-    return adamw.init(params)
+def opt_state_struct(params, layout=None):
+    """AdamW's state of ``params`` (of their device and kind), the ZeRO-1
+    share of each block under a train ``layout``."""
+    return adamw.init(params, layout)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:

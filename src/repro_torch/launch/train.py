@@ -10,12 +10,19 @@ compression.
 Data parallelism: every rank draws the *global* batch from the stream (one
 host) and keeps its rows inside the step (``distributed/compression.py``,
 by ``sharding.batch_axes``), so the global batch at a step is the same at
-any world size; a batch that does not divide goes to every rank whole. The
-parameters and optimizer state are replicated: the tensor-parallel and
-ZeRO-1 layouts of ``distributed/sharding.py`` are not executed (ROADMAP.md,
-item 12b), and a tp16 model on a mesh whose ``model`` axis is larger than 1
-is refused. Under the dp_all policy the vocab matrices, which JAX splits
-over ``model``, stay whole on every rank (the same arithmetic).
+any world size; a batch that does not divide goes to every rank whole.
+
+Under the tp16 policy on a mesh of several ranks the parameters and AdamW
+moments are laid out as JAX's ``params_pspec``/``opt_state_pspec`` shard
+them (``distributed/tensor_parallel.TrainLayout``): tensor parallelism over
+``model``, ZeRO-1 over ``data``. Every rank builds the whole tree from the
+seed and keeps its blocks, so a run starts from the same weights on any
+mesh; a checkpoint holds the whole tree, gathered before rank 0 writes it
+(the JAX package's format), and a restore takes each rank's blocks of it,
+on whatever mesh it runs (elastic restart). The hybrid family on a
+``model`` axis of several ranks is refused (ROADMAP.md, item 12c). Under
+the dp_all policy the parameters, the vocab matrices JAX splits over
+``model`` included, stay whole on every rank (the same arithmetic).
 
 On the card (the default) ranks use NCCL; with ``--device cpu``, gloo.
 
@@ -27,22 +34,29 @@ Two data-parallel ranks on the CPU:
       -m repro_torch.launch.train \\
       --arch mamba2-130m --smoke --steps 20 --batch 8 --seq-len 256 \\
       --device cpu
+Tensor-parallel over four cards (a (1, 4) mesh, NCCL):
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch chatglm3-6b --steps 5 \\
+      --batch 8 --seq-len 1024 --model-parallel 4
 """
 from __future__ import annotations
 
 import argparse
 import functools
+import statistics
 import time
 from typing import Any, Dict
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import tree as T
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, PrefetchingLoader, make_loader
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.train_step import make_train_step
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
@@ -60,6 +74,34 @@ def _is_lead() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+def _restore(ckpt, layout, params, opt_state):
+    """The latest checkpoint as (params, opt_state, step, meta): the whole
+    tree onto the template's devices, or with a ``layout`` each rank's
+    blocks of it (of any mesh's checkpoint: it holds the whole tree)."""
+    if layout is None:
+        r = ckpt.restore(template={"params": params, "opt": opt_state})
+        return r["tree"]["params"], r["tree"]["opt"], r["step"], r["meta"]
+    r = ckpt.restore()
+
+    def read(prefix, tree, specs):
+        leaves = []
+        for path, leaf in T.flatten(tree):
+            t = r["get"](f"{prefix}/{path}")
+            if tuple(t.shape) != layout.shapes[path] or t.dtype != leaf.dtype:
+                raise ValueError(f"{prefix}/{path}: checkpoint {t.dtype} "
+                                 f"{tuple(t.shape)}, model {leaf.dtype} "
+                                 f"{layout.shapes[path]}")
+            sl = SH.local_slices(specs[path], tuple(t.shape), layout.mesh)
+            leaves.append(t[sl].to(leaf.device, copy=True).contiguous())
+        return T.unflatten(tree, leaves)
+    opt = adamw.OptState(
+        step=r["get"]("opt/.step").to(opt_state.step.device),
+        mu=read("opt/.mu", opt_state.mu, layout.moment_specs),
+        nu=read("opt/.nu", opt_state.nu, layout.moment_specs))
+    return (read("params", params, layout.specs), opt, r["step"],
+            r["meta"])
+
+
 def train(cfg, *, steps: int, global_batch: int, seq_len: int,
           mesh=None, ckpt_dir: str = "", ckpt_every: int = 0,
           resume: bool = False, accum_steps: int = 1,
@@ -71,14 +113,12 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
     Returns JAX's dict (``losses``, ``params``, ``opt_state``,
     ``final_loss``, ``steps``) and ``step_s``: each step's seconds, from
     taking its batch to reading its loss. Rank 0 writes the checkpoints and
-    the log."""
+    the log. On a mesh of several ranks under tp16 ``params`` and
+    ``opt_state`` are this rank's blocks (``TP.train_layout(cfg,
+    mesh).gather_params`` makes them whole)."""
     dev = resolve_device(device)
     mesh = mesh if mesh is not None else make_host_mesh(device=dev)
-    if SH.policy_for(cfg) == "tp16" and mesh.shape.get(SH.MODEL_AXIS, 1) > 1:
-        raise NotImplementedError(
-            f"{cfg.name} takes the tp16 policy, and tensor-parallel "
-            f"execution over the model axis ({mesh.shape[SH.MODEL_AXIS]} "
-            f"ranks here) is not ported (ROADMAP.md, item 12b)")
+    layout = TP.train_layout(cfg, mesh)
     opt_cfg = opt_cfg or adamw.OptimizerConfig(total_steps=max(steps, 2),
                                                warmup_steps=max(2, steps // 10))
     dp_axes = SH.batch_axes(mesh, cfg, global_batch)
@@ -86,28 +126,34 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
     say = lead and not quiet
 
     params = M.init_params(cfg, seed=seed, device=dev)
-    opt_state = adamw.init(params)
+    if layout is not None:            # the whole tree is freed here
+        params = layout.shard_params(params)
+    opt_state = adamw.init(params, layout)
     dcfg = DataConfig(seq_len=seq_len, global_batch=global_batch, seed=seed)
     stream = make_loader(cfg, dcfg)
 
     start_step = 0
     ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
     if ckpt and resume and ckpt.latest_step() is not None:
-        restored = ckpt.restore(template={"params": params, "opt": opt_state})
-        params = restored["tree"]["params"]
-        opt_state = restored["tree"]["opt"]
-        start_step = restored["step"]
+        params, opt_state, start_step, meta = _restore(ckpt, layout, params,
+                                                       opt_state)
         # the cursor is the step (one batch a step); a checkpoint without
         # one (the JAX driver's) resumes the stream there
-        stream.load_state_dict(restored["meta"].get(
+        stream.load_state_dict(meta.get(
             "data", {"step": start_step, "seed": seed}))
         if say:
             print(f"[train] resumed from step {start_step} onto {mesh.size} "
                   f"ranks", flush=True)
 
     def save(step: int):
+        state = {"params": params, "opt": opt_state}
+        if layout is not None:        # collective: every rank gathers
+            state = {"params": layout.gather_params(params),
+                     "opt": opt_state._replace(
+                         mu=layout.gather_moments(opt_state.mu),
+                         nu=layout.gather_moments(opt_state.nu))}
         if lead:
-            ckpt.save(step, {"params": params, "opt": opt_state},
+            ckpt.save(step, state,
                       extra_meta={"data": {"step": step, "seed": seed}})
 
     step_fn = make_train_step(
@@ -146,6 +192,20 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
             "steps": steps, "step_s": step_s}
 
 
+def _peak_gb_by_rank(dev):
+    """Every rank's ``max_memory_allocated`` in GB (collective), or None
+    off the card."""
+    if dev.type != "cuda":
+        return None
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not dist.is_initialized():
+        return [round(peak, 2)]
+    t = torch.zeros(dist.get_world_size(), dtype=torch.float64, device=dev)
+    t[dist.get_rank()] = peak
+    dist.all_reduce(t)
+    return [round(x, 2) for x in t.tolist()]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -163,6 +223,9 @@ def main(argv=None):
                     help="override d_model for --smoke scaling")
     ap.add_argument("--device", default="cuda",
                     help="cuda (NCCL between ranks) or cpu (gloo)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks of the mesh's model axis (tensor parallelism "
+                         "under tp16)")
     args = ap.parse_args(argv)
 
     if args.smoke:
@@ -171,13 +234,23 @@ def main(argv=None):
     else:
         cfg = get_config(args.arch)
     try:
+        mesh = make_host_mesh(args.model_parallel, device=args.device)
         out = train(cfg, steps=args.steps, global_batch=args.batch,
+                    mesh=mesh,
                     seq_len=args.seq_len, ckpt_dir=args.ckpt_dir,
                     ckpt_every=args.ckpt_every, resume=args.resume,
                     accum_steps=args.accum,
                     compress_grads=args.compress_grads, device=args.device)
+        peaks = _peak_gb_by_rank(resolve_device(args.device))
         if _is_lead():
             print(f"[train] done: final loss {out['final_loss']:.4f}")
+            if len(out["step_s"]) > 1:
+                med = statistics.median(out["step_s"][1:])
+                print(f"[train] {mesh.shape} mesh: step {med:.4f} s (median "
+                      f"after the first), "
+                      f"{args.batch * args.seq_len / med:.0f} tokens/s"
+                      + (f"; peak memory by rank {peaks} GB" if peaks
+                         else ""), flush=True)
     finally:
         if dist.is_initialized():          # joined by train's host mesh
             dist.destroy_process_group()

@@ -18,6 +18,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models.layers import (apply_rope, init_linear, init_rmsnorm,
                                        linear, rmsnorm, rope_cos_sin,
                                        rot_dim_for)
@@ -87,19 +88,34 @@ def gqa_rope(cfg: ModelConfig, q, k, positions):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
 
-def gqa_full(p, x, cfg: ModelConfig, positions, *, return_kv: bool = False):
+def gqa_full(p, x, cfg: ModelConfig, positions, *, return_kv: bool = False,
+             tp=None):
     """Full-sequence causal attention (train / prefill).
 
     Returns (out, (k, v) or None). positions: (B,S) or (3,B,S) for mrope.
+    With ``tp`` (``tensor_parallel.TP``) the weights are this rank's: q
+    heads and ``wo``'s rows split over the ranks, the head counts read off
+    the weights' widths; K/V split the same way, or whole on every rank
+    under the replicated-KV rule (``tensor_parallel.local_kv``).
     """
     B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = linear(p["wq"], x).reshape(B, S, H, hd)
-    k = linear(p["wk"], x).reshape(B, S, KV, hd)
-    v = linear(p["wv"], x).reshape(B, S, KV, hd)
+    hd = cfg.head_dim
+    xq = x if tp is None else TP.copy_to_tp(x, tp)
+    kv_split = tp is not None and (p["wk"]["w"].shape[-1]
+                                   < cfg.num_kv_heads * hd)
+    xkv = xq if kv_split else x
+    q = linear(p["wq"], xq).reshape(B, S, -1, hd)
+    k = linear(p["wk"], xkv).reshape(B, S, -1, hd)
+    v = linear(p["wv"], xkv).reshape(B, S, -1, hd)
     q, k = gqa_rope(cfg, q, k, positions)
-    o = attn_core(q, k, v, scale=1.0 / math.sqrt(hd), use_pallas=cfg.use_pallas)
-    out = linear(p["wo"], o.reshape(B, S, H * hd))
+    ka, va = k, v
+    if tp is not None and not kv_split:
+        ka, va = TP.local_kv(k, v, q.shape[2],
+                             cfg.num_heads // cfg.num_kv_heads, tp)
+    o = attn_core(q, ka, va, scale=1.0 / math.sqrt(hd),
+                  use_pallas=cfg.use_pallas).reshape(B, S, -1)
+    out = (linear(p["wo"], o) if tp is None
+           else TP.row_parallel(p["wo"], o, tp))
     return out, ((k, v) if return_kv else None)
 
 
@@ -161,23 +177,32 @@ def mla_latents(p, x, cfg: ModelConfig, positions):
     return c_kv, k_rope, (cos, sin)
 
 
-def mla_full(p, x, cfg: ModelConfig, positions, *, return_kv: bool = False):
+def mla_full(p, x, cfg: ModelConfig, positions, *, return_kv: bool = False,
+             tp=None):
     """Full-sequence MLA (train / prefill). Decompresses K/V explicitly; q
     and k are (B, S, H, nope + rope_d), v (B, S, H, vdim), all contiguous
-    (k_rope broadcast to every head by the concatenation)."""
+    (k_rope broadcast to every head by the concatenation). With ``tp`` the
+    per-head weights (``wq``, ``w_uk``, ``w_uv``, ``wo``'s rows) are this
+    rank's heads; the latents come whole from the replicated ``w_dkv`` and
+    ``w_krope`` and enter the per-head products through ``copy_to_tp``."""
     B, S, _ = x.shape
-    H, nope, rope_d, vdim, r = _mla_dims(cfg)
+    _, nope, rope_d, vdim, r = _mla_dims(cfg)
     c_kv, k_rope, (cos, sin) = mla_latents(p, x, cfg, positions)
-    q = linear(p["wq"], x).reshape(B, S, H, nope + rope_d)
+    c_h, k_rope_h, xq = c_kv, k_rope, x
+    if tp is not None:
+        c_h, k_rope_h, xq = (TP.copy_to_tp(t, tp) for t in (c_kv, k_rope, x))
+    q = linear(p["wq"], xq).reshape(B, S, -1, nope + rope_d)
+    H = q.shape[2]
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, cos, sin)
-    k_nope = linear(p["w_uk"], c_kv).reshape(B, S, H, nope)
-    v = linear(p["w_uv"], c_kv).reshape(B, S, H, vdim)
-    k = torch.cat([k_nope, k_rope.expand(B, S, H, rope_d)], -1)
+    k_nope = linear(p["w_uk"], c_h).reshape(B, S, H, nope)
+    v = linear(p["w_uv"], c_h).reshape(B, S, H, vdim)
+    k = torch.cat([k_nope, k_rope_h.expand(B, S, H, rope_d)], -1)
     qf = torch.cat([q_nope, q_rope], -1)
     o = attn_core(qf, k, v, scale=1.0 / math.sqrt(nope + rope_d),
-                  use_pallas=cfg.use_pallas)
-    out = linear(p["wo"], o.reshape(B, S, H * vdim))
+                  use_pallas=cfg.use_pallas).reshape(B, S, H * vdim)
+    out = (linear(p["wo"], o) if tp is None
+           else TP.row_parallel(p["wo"], o, tp))
     return out, ((c_kv, k_rope[:, :, 0, :]) if return_kv else None)
 
 

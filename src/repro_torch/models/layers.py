@@ -3,9 +3,12 @@
 Plain functions on tensors, as in the JAX package: params are nested dicts of
 tensors, every ``init_*`` returns such a dict, every apply is a function of
 (params, inputs). Linear weights are ``(d_in, d_out)`` so ``x @ w`` means the
-same as in JAX. Every ``init_*`` draws from an explicit ``torch.Generator``
-and creates its tensors on ``device``; ``lead`` prepends dims, which is how
-``model.init_params`` builds the stacked per-layer leaves in one draw.
+same as in JAX. ``embed``, ``unembed`` and ``mlp`` take ``tp``, the model
+group of a tensor-parallel step (``distributed/tensor_parallel.py``); with
+``tp=None`` they are the one-rank code. Every ``init_*`` draws from an
+explicit ``torch.Generator`` and creates its tensors on ``device``; ``lead``
+prepends dims, which is how ``model.init_params`` builds the stacked
+per-layer leaves in one draw.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
 
 
@@ -75,8 +79,11 @@ def init_embedding(gen, vocab: int, d: int, dtype, device):
                                            dtype, device)}
 
 
-def embed(p, tokens, cfg: ModelConfig):
-    x = F.embedding(tokens, p["table"])
+def embed(p, tokens, cfg: ModelConfig, tp=None):
+    """Token embeddings; with ``tp`` (``tensor_parallel.TP``) the table is
+    this rank's rows of the vocabulary (the vocab-parallel lookup)."""
+    x = (F.embedding(tokens, p["table"]) if tp is None
+         else TP.vocab_embed(p["table"], tokens, tp))
     if cfg.gemma_norm:
         # the scale is rounded to x's dtype first, as in the JAX package
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
@@ -84,8 +91,12 @@ def embed(p, tokens, cfg: ModelConfig):
     return x
 
 
-def unembed(p, x, cfg: ModelConfig):
-    """Project to (padded) vocab logits. ``p`` is the embedding table when tied."""
+def unembed(p, x, cfg: ModelConfig, tp=None):
+    """Project to (padded) vocab logits. ``p`` is the embedding table when
+    tied. With ``tp`` the weights are this rank's vocab columns (rows of a
+    tied table), and so are the logits."""
+    if tp is not None:
+        x = TP.copy_to_tp(x, tp)
     return x @ p["table"].T if "table" in p else x @ p["w"]
 
 
@@ -185,10 +196,20 @@ def _act(name: str, x):
     raise ValueError(name)
 
 
-def mlp(p, x, cfg: ModelConfig):
+def mlp_hidden(p, x, cfg: ModelConfig):
+    """The MLP's activation, before its out-projection."""
     h = linear(p["w_in"], x)
     if cfg.gated_mlp:
         h = _act(cfg.act, linear(p["w_gate"], x)) * h
     else:
         h = _act(cfg.act, h)
-    return linear(p["w_out"], h)
+    return h
+
+
+def mlp(p, x, cfg: ModelConfig, tp=None):
+    """With ``tp``: ``w_in``/``w_gate`` column-parallel (this rank's ffn
+    columns), ``w_out`` row-parallel, its partial sums reduced."""
+    if tp is None:
+        return linear(p["w_out"], mlp_hidden(p, x, cfg))
+    return TP.row_parallel(p["w_out"], mlp_hidden(p, TP.copy_to_tp(x, tp),
+                                                  cfg), tp)

@@ -36,6 +36,12 @@ the reference:
 The serving path runs none of this: without a parameter that requires grad
 the loop and its ops are the plain ones.
 
+Tensor parallelism (``forward``'s ``tp``, train mode, the dense and MoE
+stacks): each layer's weights are this rank's blocks, and the layer's
+collectives (``distributed/tensor_parallel.py``) run inside its remat
+region, so a recompute reruns its forward all-reduces, the same on every
+rank.
+
 Modes: ``forward(..., mode='train')`` full logits; ``mode='prefill'`` last-token
 logits + filled caches; ``decode(...)`` single-token step against caches,
 which writes the caches in place.
@@ -141,19 +147,24 @@ def init_dense_block(gen, cfg: ModelConfig, dtype, device, lead=(), *,
     return p
 
 
-def dense_block_full(p, x, cfg: ModelConfig, positions, *, return_kv: bool):
-    """Returns (out, kv or None, the MoE aux loss or None)."""
+def dense_block_full(p, x, cfg: ModelConfig, positions, *, return_kv: bool,
+                     tp=None):
+    """Returns (out, kv or None, the MoE aux loss or None). With ``tp``
+    (``tensor_parallel.TP``) the block runs tensor-parallel on this rank's
+    weights; its input and output are whole on every rank."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, cfg.use_pallas)
     if cfg.use_mla:
-        h, kv = attn.mla_full(p["attn"], h, cfg, positions, return_kv=return_kv)
+        h, kv = attn.mla_full(p["attn"], h, cfg, positions,
+                              return_kv=return_kv, tp=tp)
     else:
-        h, kv = attn.gqa_full(p["attn"], h, cfg, positions, return_kv=return_kv)
+        h, kv = attn.gqa_full(p["attn"], h, cfg, positions,
+                              return_kv=return_kv, tp=tp)
     x = x + h
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, cfg.use_pallas)
     if "moe" in p:
-        h, aux = moe_lib.moe_apply(p["moe"], h, cfg)
+        h, aux = moe_lib.moe_apply(p["moe"], h, cfg, tp)
     else:
-        h, aux = L.mlp(p["mlp"], h, cfg), None
+        h, aux = L.mlp(p["mlp"], h, cfg, tp), None
     return x + h, kv, aux
 
 
@@ -177,13 +188,13 @@ def dense_block_decode(p, x, cfg: ModelConfig, positions, cache, index):
 
 
 def _dense_stack_full(stacked, x, aux, cfg: ModelConfig, positions,
-                      prefill: bool, grad: bool):
+                      prefill: bool, grad: bool, tp=None):
     """The attention blocks of a stack in order: (x, aux plus the blocks'
     MoE aux losses, their prefill caches stacked or None)."""
     block = _remat(cfg, dense_block_full, grad)
     kvs = []
     for lp in _unbind(stacked):
-        x, kv, a = block(lp, x, cfg, positions, return_kv=prefill)
+        x, kv, a = block(lp, x, cfg, positions, return_kv=prefill, tp=tp)
         if a is not None:
             aux = aux + a
         kvs.append(kv)
@@ -314,36 +325,58 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 # ===================================================================== forward
-def _inputs_to_h(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+def _inputs_to_h(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                 vocab_tp=None):
     if cfg.input_mode == "embeddings" and "embeds" in batch:
         x = batch["embeds"].to(torch_dtype(cfg))
     else:
-        x = L.embed(params["embed"], batch["tokens"], cfg)
+        x = L.embed(params["embed"], batch["tokens"], cfg, vocab_tp)
     if cfg.pos_embed == "sinusoidal":
         x = x + L.sinusoidal_pos_embed(batch["positions"], cfg.d_model, x.dtype)
     return x
 
 
-def _logits(params, cfg: ModelConfig, x):
+def _logits(params, cfg: ModelConfig, x, vocab_tp=None):
     if cfg.tie_embeddings:
-        return L.unembed(params["embed"], x, cfg)
-    return L.unembed(params["unembed"], x, cfg)
+        return L.unembed(params["embed"], x, cfg, vocab_tp)
+    return L.unembed(params["unembed"], x, cfg, vocab_tp)
+
+
+def vocab_group(cfg: ModelConfig, tp):
+    """The model group the vocabulary is split over: ``tp`` where the
+    config splits it (``vocab_tp``), else None (the table whole on every
+    rank)."""
+    return tp if cfg.vocab_tp else None
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            *, mode: str = "train"
+            *, mode: str = "train", tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, Any]]]:
     """Full-sequence forward.
 
     mode='train':   returns (logits (B,S,V), aux_loss, None)
     mode='prefill': returns (last-token logits (B,1,V), aux_loss, cache)
+
+    ``tp`` (``tensor_parallel.TP``, train only, dense and MoE families):
+    ``params`` are this rank's blocks under the tp16 specs and the stacks
+    run tensor-parallel; the logits are this rank's vocab columns where
+    ``cfg.vocab_tp`` (else whole).
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill', got {mode!r}")
+    if tp is not None:
+        if mode != "train":
+            raise ValueError("tensor parallelism runs mode='train' only")
+        if cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}) runs no tensor parallelism: the "
+                f"ssm family takes dp_all, the hybrid family waits for the "
+                f"gated norm's cross-rank sum (ROADMAP.md, item 12c)")
     prefill = mode == "prefill"
     grad = _needs_grad(params)
     positions = batch["positions"]
-    x = _inputs_to_h(params, cfg, batch)
+    vtp = vocab_group(cfg, tp)
+    x = _inputs_to_h(params, cfg, batch, vtp)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: Dict[str, Any] = {}
 
@@ -374,16 +407,16 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         if _first_dense(cfg):
             x, aux_total, caches["dense_layers"] = _dense_stack_full(
                 params["dense_layers"], x, aux_total, cfg, positions, prefill,
-                grad)
+                grad, tp)
         x, aux_total, caches["layers"] = _dense_stack_full(
-            params["layers"], x, aux_total, cfg, positions, prefill, grad)
+            params["layers"], x, aux_total, cfg, positions, prefill, grad, tp)
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, cfg.use_pallas)
     if prefill:
         x = x[:, -1:, :]
         caches["index"] = torch.full((), positions.shape[-1],
                                      dtype=torch.int32, device=x.device)
-    logits = _logits(params, cfg, x)
+    logits = _logits(params, cfg, x, vtp)
     return logits, aux_total, (caches if prefill else None)
 
 

@@ -20,8 +20,8 @@ the products take them with no copy; the dump slot is one extra row after
 them. Kept slots hold exactly one token each, so the scatter
 (``index_add_``, atomic on CUDA) adds a token to zeros only there; the
 tokens it piles into the dump row are never read.
-``cfg.moe_dispatch_constraint`` pins a sharding in the reference; on one
-card it is read and ignored.
+``cfg.moe_dispatch_constraint`` pins a sharding in the reference; here it
+is read and ignored (expert parallelism is ``moe_apply``'s ``tp``).
 """
 from __future__ import annotations
 
@@ -33,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (_act, init_mlp, mlp,
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.models.layers import (_act, init_mlp, mlp, mlp_hidden,
                                        truncated_normal_init)
 
 
@@ -103,12 +104,21 @@ def _scatter(x_flat: torch.Tensor, slot: torch.Tensor, n_rows: int
     return buf
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), aux_loss scalar f32).
 
     Token groups: one group per batch row when S > 1 (train/prefill), a single
     global group for decode (S == 1).
+
+    With ``tp`` (``tensor_parallel.TP``, expert parallelism): the expert
+    weights are this rank's ``E / tp`` experts. The router, the aux loss and
+    the slots stay whole and the same on every rank; the rank scatters only
+    its experts' slots (the others go to its dump row), runs its experts,
+    gathers their outputs back weighted by the gates (taken through
+    ``copy_to_tp``, so the router's gradient is whole on every rank), adds
+    the shared experts' partial sum (the dense MLP's split) and reduces the
+    sum once over the ranks.
     """
     B, S, d = x.shape
     E, K = cfg.num_experts, cfg.top_k
@@ -124,8 +134,16 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
     group = torch.arange(G, device=x.device)[:, None, None]
     dump = E * G * C
     slot = torch.where(keep, (top_i * G + group) * C + pos, dump)  # (G,Tg,K)
-    x_e = _scatter(xg.reshape(G * Tg, d), slot, dump + 1)[:dump].view(
-        E, G * C, d)
+    xs = xg
+    if tp is not None:
+        # this rank's experts' rows; every other slot goes to its dump row
+        dump = p["w_in"].shape[0] * G * C
+        slot = slot - tp.rank * dump
+        slot = torch.where((slot >= 0) & (slot < dump), slot, dump)
+        xs = TP.copy_to_tp(xg, tp)
+        top_p = TP.copy_to_tp(top_p, tp)
+    x_e = _scatter(xs.reshape(G * Tg, d), slot, dump + 1)[:dump].view(
+        -1, G * C, d)
 
     # --- expert GEMMs ---------------------------------------------------------
     h = torch.bmm(x_e, p["w_in"])
@@ -151,7 +169,13 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
     # tensor its backward saves, so after them the aux loss would rerun their
     # down projection, which the reference's remat does not
     if "shared" in p:
-        out = out + mlp(p["shared"], xg, cfg)
+        if tp is None:
+            out = out + mlp(p["shared"], xg, cfg)
+        else:
+            out = out + mlp_hidden(p["shared"], xs, cfg) @ p["shared"][
+                "w_out"]["w"]
+    if tp is not None:
+        out = TP.reduce_from_tp(out, tp)
 
     return out.reshape(B, S, d), aux
 

@@ -14,6 +14,11 @@ returns those same trees with a new step. The global norm is taken first;
 each leaf's gradient is then scaled as it is consumed, so no f32 copy of the
 whole gradient tree is made (the reference's ``clip_by_global_norm`` makes
 one; it is kept here for its callers).
+
+On a mesh (``layout``, ``distributed/tensor_parallel.TrainLayout``) the trees
+are one rank's blocks: the norm sums over the ranks, and the moments hold
+only the ZeRO-1 share of each block (``distributed/sharding.zero1_spec``),
+the parameter gathered over ``data`` after its update.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.distributed import tensor_parallel as TP
 
 
 @dataclass(frozen=True)
@@ -44,12 +50,21 @@ class OptState(NamedTuple):
     nu: Any                    # second moment (f32 tree)
 
 
-def init(params) -> OptState:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+def init(params, layout=None) -> OptState:
+    """Zero moments of the parameters' shapes; with a ``layout``
+    (``tensor_parallel.TrainLayout``, ``params`` this rank's blocks) of
+    each block's ZeRO-1 share (``layout.moment_block``)."""
+    def shape(path, p):
+        blk = layout.moment_block(path) if layout is not None else None
+        return p.shape if blk is None else p[blk[1]].shape
+
+    def zeros():
+        return T.unflatten(params, [
+            torch.zeros(shape(path, p), dtype=torch.float32, device=p.device)
+            for path, p in T.flatten(params)])
     device = T.leaves(params)[0].device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
-                    mu=T.tree_map(zeros, params), nu=T.tree_map(zeros, params))
+                    mu=zeros(), nu=zeros())
 
 
 def schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
@@ -62,12 +77,21 @@ def schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, layout=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32 (no f32 copy of a
-    leaf is made)."""
-    sq = [torch.linalg.vector_norm(x, dtype=torch.float32).square()
-          for x in T.leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+    leaf is made). With a ``layout`` the leaves are this rank's blocks: the
+    squares of the leaves split over the model group are summed over its
+    ranks, those of a leaf whole on every rank counted once."""
+    sq = {path: torch.linalg.vector_norm(x, dtype=torch.float32).square()
+          for path, x in T.flatten(tree)}
+    if layout is None or layout.tp is None:
+        return torch.sqrt(torch.sum(torch.stack(list(sq.values()))))
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=T.leaves(tree)[0].device)
+    split = sum((v for p, v in sq.items() if layout.split_over_model(p)), zero)
+    whole = sum((v for p, v in sq.items() if not layout.split_over_model(p)),
+                zero)
+    return torch.sqrt(TP.all_reduce(split, layout.tp.group) + whole)
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -86,20 +110,28 @@ def _decay_mask(path: str) -> bool:
 
 
 @torch.no_grad()
-def update(cfg: OptimizerConfig, state: OptState, grads, params
+def update(cfg: OptimizerConfig, state: OptState, grads, params, layout=None
            ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step, in place (see the module docstring). Returns
-    (params, OptState(step + 1, mu, nu), {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+    (params, OptState(step + 1, mu, nu), {"grad_norm", "lr"}).
+
+    With a ``layout`` (``tensor_parallel.TrainLayout``; ``params``,
+    ``grads`` and the moments this rank's blocks, as ``init(params,
+    layout)`` makes them): the global norm over every rank's blocks, and
+    ZeRO-1, each rank updating the block of a parameter its moments cover
+    and all-gathering the parameter over ``data``."""
+    gnorm = global_norm(grads, layout)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     b1, b2 = cfg.betas
     step = state.step + 1
     lr = schedule(cfg, state.step)
     bc1 = 1.0 - b1 ** step.to(torch.float32)
     bc2 = 1.0 - b2 ** step.to(torch.float32)
-    for (path, p), g, m, v in zip(T.flatten(params), T.leaves(grads),
-                                  T.leaves(state.mu), T.leaves(state.nu)):
-        g32 = g.float() * scale
+    for (path, whole), g, m, v in zip(T.flatten(params), T.leaves(grads),
+                                      T.leaves(state.mu), T.leaves(state.nu)):
+        blk = layout.moment_block(path) if layout is not None else None
+        p = whole if blk is None else whole[blk[1]]
+        g32 = (g if blk is None else g[blk[1]]).float() * scale
         m.mul_(b1).add_(g32, alpha=1 - b1)
         v.mul_(b2).addcmul_(g32, g32, value=1 - b2)
         del g32
@@ -109,5 +141,8 @@ def update(cfg: OptimizerConfig, state: OptState, grads, params
         if _decay_mask(path):
             upd.add_(p, alpha=cfg.weight_decay)      # in f32
         p.sub_(upd.mul_(lr))           # in f32, rounded once to p's dtype
+        if blk is not None:            # the other ranks' blocks
+            TP.all_gather_dim(p.clone(), blk[0], layout.data_group,
+                              layout.data_size, out=whole)
     return params, OptState(step=step, mu=state.mu, nu=state.nu), \
         {"grad_norm": gnorm, "lr": lr}

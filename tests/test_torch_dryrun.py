@@ -201,7 +201,10 @@ def test_op_profile_counts_and_storage_lifetimes():
     ("ssm", "train_4k", True), ("hybrid", "long_500k", False)])
 def test_run_cell_per_family(family, shape, multi_pod):
     arch = FAMILIES[family]
-    rec = D.run_cell(arch, shape, multi_pod, smoke(arch), verbose=False)
+    # the tensor-parallel step splits whole heads over the 16 model ranks
+    heads = {"num_heads": 16} if family == "dense" else {}
+    rec = D.run_cell(arch, shape, multi_pod, smoke(arch, **heads),
+                     verbose=False)
     assert rec["status"] == "ok", rec.get("traceback")
     assert JAX_RECORD_KEYS <= set(rec)
     assert rec["n_devices"] == (512 if multi_pod else 256)
@@ -221,12 +224,48 @@ def test_run_cell_per_family(family, shape, multi_pod):
         n = sum(t.numel() for t in T.leaves(params))
         assert coll == {"all-reduce": 4 * n + 12, "count":
                         len(T.leaves(params)) + 1, "total": 4 * n + 12}
-        assert rec["split"] is None and rec["rows_per_rank"] == 1
+        assert rec["rows_per_rank"] == 1
+    elif SHAPES[shape].kind == "train":
+        # the rank's own tensor-parallel program: its all-reduces (the
+        # layers', the loss's, the gradient mean over data) and the ZeRO-1
+        # all-gathers over data
+        assert coll["all-reduce"] > 0 and coll["all-gather"] > 0
+        assert coll["total"] == coll["all-reduce"] + coll["all-gather"]
     else:
-        assert coll["tensor_parallel"].endswith("item 12b")
-        assert rec["split"]["ideal"] and rec["split"]["model"] == 16
-        if SHAPES[shape].kind != "train":
-            assert coll["total"] == 0              # serving runs none
+        assert coll["total"] == 0                  # serving runs none
+    assert "split" not in rec and "tensor_parallel" not in coll
+
+
+def test_tp16_cell_matmul_flops_on_the_fake_group_equal_real_ranks():
+    """A tp16 train cell (stablelm-3b's smoke config, 2 x 16 tokens) on a
+    (2, 2) mesh: the per-rank program's matmul FLOPs and collective bytes
+    on rank 0 of the fake process group equal ``opprof``'s count of the
+    same program on 4 real gloo ranks (every rank's)."""
+    from torch_ranks import dryrun_cell_on_ranks, run_ranks
+    over = smoke("stablelm-3b")
+    c, _ = D.lower_cell("stablelm-3b", None, False, over,
+                        shape=ShapeConfig("train_2x16", 16, 2, "train"),
+                        mesh=abstract_mesh(data=2, model=2))
+    fake = c.run()
+    whole = cell("stablelm-3b", "train", over).run()
+    assert fake.matmul_flops < whole.matmul_flops      # the rank's share
+    real = run_ranks(dryrun_cell_on_ranks, 4, "stablelm-3b", over, (2, 2),
+                     2, 16, timeout=180)
+    for flops, coll in real:
+        assert flops == fake.matmul_flops
+        assert coll == fake.collective_bytes()
+
+
+def test_run_cell_skips_what_the_port_cannot_split():
+    """Train cells whose tensor-parallel program the port lacks are skipped
+    with the reason: the hybrid family (item 12c), and 28 heads over 16
+    model ranks."""
+    rec = D.run_cell("zamba2-7b", "train_4k", False, smoke("zamba2-7b"),
+                     verbose=False)
+    assert rec["status"] == "skipped" and "item 12c" in rec["why"]
+    rec = D.run_cell("qwen2-vl-7b", "train_4k", False,
+                     smoke("qwen2-vl-7b", num_heads=28), verbose=False)
+    assert rec["status"] == "skipped" and "28 query heads" in rec["why"]
 
 
 def test_run_cell_skips_long_context_on_full_attention():

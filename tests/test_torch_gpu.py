@@ -707,3 +707,25 @@ def test_dryrun_counts_equal_the_card(cuda, arch, kind):
     for attr in ("matmul_flops", "flops", "argument_bytes", "peak_bytes",
                  "output_bytes"):
         assert getattr(fake, attr) == getattr(real, attr), attr
+
+
+@pytest.mark.parametrize("arch,world", [("stablelm-3b", 2),
+                                        ("chatglm3-6b", 4)])
+def test_tensor_parallel_step_on_ranks_sharing_the_card(cuda, arch, world):
+    """A tensor-parallel step on gloo ranks that share the card (chatglm3-6b
+    on 4: its 2 kv heads under the replicated-KV rule, a strided K/V view
+    into the flash kernel): the loss within 1e-6 of the one-rank kernel
+    path's, the gathered gradients and the updated leaves within 1e-4 of
+    each leaf's largest value (the latter against the one-rank AdamW on the
+    same gradients), every rank's launches those of one rank's step."""
+    from repro_torch.distributed.train_step import kernel_launches
+    from torch_ranks import run_ranks, tp_step_on_card
+    cfg = get_smoke_config(arch, dtype="float32")
+    want = kernel_launches(cfg)
+    out = run_ranks(tp_step_on_card, world, arch, timeout=300)
+    ref_loss, g_gap, p_gap = out[0][2]
+    for launches, loss, _ in out:
+        assert launches == {k: want[k] for k in launches}
+        assert loss == out[0][1]
+    assert abs(out[0][1] - ref_loss) <= 1e-6 * abs(ref_loss)
+    assert g_gap < 1e-4 and p_gap < 1e-4

@@ -14,7 +14,8 @@
   two are in tests/test_torch_runtime_substrate.py and
   tests/test_torch_faults.py.
 * The partition bridge: a one-process ``Mesh`` is one partition and reaches
-  a callable that declares ``mesh=``; a mesh over several ranks raises.
+  a callable that declares ``mesh=``; a mesh over several ranks is carved
+  into contiguous ranges of ranks, each a tensor-parallel mesh.
 * The kernel wrappers' launch counts lose nothing under threads.
 """
 import importlib
@@ -619,11 +620,35 @@ def test_one_process_mesh_is_one_partition_and_reaches_mesh_callables():
 
 
 def test_multi_rank_mesh_carve_names_item_12b():
+    """Item 12b carves a mesh over several ranks: an abstract one into
+    abstract partitions, contiguous along ``data`` as JAX's carve (the last
+    takes the remainder), the other axes whole."""
     from repro_torch.core.partition import carve_submeshes
     from repro_torch.launch.mesh import abstract_mesh
 
-    with pytest.raises(NotImplementedError, match="12b"):
-        carve_submeshes(abstract_mesh(data=4, model=1), 2)
+    parts = carve_submeshes(abstract_mesh(data=5, model=2), 2)
+    assert [p.index for p in parts] == [0, 1]
+    assert [p.mesh.shape for p in parts] == [{"data": 2, "model": 2},
+                                            {"data": 3, "model": 2}]
+    assert all(p.mesh.device_mesh is None for p in parts)
+    assert len(carve_submeshes(abstract_mesh(data=2, model=2), 8)) == 2
+
+
+def test_carve_four_ranks_and_a_tensor_parallel_step_in_a_partition():
+    """A (2, 2) mesh of 4 gloo ranks carved into 2 partitions along
+    ``data``: each a (1, 2) mesh over ranks [0, 1] and [2, 3]; each rank
+    takes a tensor-parallel step of stablelm-3b's f32 smoke config on its
+    partition, equal to the one-rank step within tests/test_torch_train.py's
+    1e-4 (loss relative; updated leaves relative to each leaf's largest)."""
+    from torch_ranks import carved_tp_step_on_ranks, run_ranks
+    out = run_ranks(carved_tp_step_on_ranks, 4, "stablelm-3b", timeout=180)
+    for rank, (parts, index, loss, one_rank, gap) in enumerate(out):
+        assert parts == [(0, {"data": 1, "model": 2}, [[0, 1]]),
+                         (1, {"data": 1, "model": 2}, [[2, 3]])]
+        assert index == rank // 2
+        assert abs(loss - one_rank) <= 1e-4 * abs(one_rank)
+        assert gap < 1e-4
+    assert out[0][2] != out[2][2]          # each partition its own batch
 
 
 # ---------------------------------------------------------- launch counts

@@ -195,3 +195,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         M.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "chatglm3-6b", "--smoke"])
+
+
+def test_serve_lm_twin_cli(capsys):
+    """``launch/serve_lm.py``, the twin of examples/serve_lm.py, on the CPU:
+    its two lines, and the tokens of ``serve_batch`` on its config."""
+    from repro_torch.launch import serve_lm
+    stats = serve_lm.main(["--arch", "mamba2-130m", "--requests", "2",
+                           "--prompt-len", "8", "--max-new-tokens", "4",
+                           "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.startswith("[serve_lm] mamba2-130m (reduced config, ")
+    assert out.rstrip().endswith("tokens/s")
+    want = serve.serve_batch(get_smoke_config("mamba2-130m"), n_requests=2,
+                             prompt_len=8, max_new_tokens=4, quiet=True,
+                             device="cpu")
+    assert torch.equal(stats["tokens"], want["tokens"])

@@ -170,3 +170,263 @@ def train_on_ranks(rank, world, arch, runs):
         out.append((r["losses"], {p: t.numpy() for p, t in
                                   T.flatten(r["params"])}))
     return out
+
+
+def play_launches():
+    """Route CPU tensors to the kernel wrappers' launches and put each
+    kernel's plain version in its launch's place, counted (what
+    tests/test_torch_train.py does with monkeypatch, for a spawned rank).
+    Returns the wrapper modules by kernel name."""
+    import torch
+    from repro_torch.kernels import _grad
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    def launch(mod):
+        def run(*args, **static):
+            with torch.no_grad():
+                out = mod.plain(*args, **static)
+            mod.launches += 1
+            return out
+        return run
+    _grad.KERNEL_DEVICE = "cpu"
+    mods = {"flash_attention": fa_ops, "fused_rmsnorm": rn_ops,
+            "ssd": ssd_ops}
+    for mod in mods.values():
+        mod._launch = launch(mod)
+    return mods
+
+
+def collectives_on_ranks(rank, world, xs, a):
+    """``copy_to_tp`` and ``reduce_from_tp`` over a (1, world) mesh: each
+    one's forward and the gradient of sum(out * a[rank]) as numpy."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as TPm
+    from repro_torch.launch.mesh import make_mesh
+    tp = TPm.model_group(make_mesh((1, world), ("data", "model"),
+                                   device="cpu"))
+    weight = torch.from_numpy(a[rank])
+    out = {}
+    for name, fn, x in (("copy", TPm.copy_to_tp, xs[0]),
+                        ("reduce", TPm.reduce_from_tp, xs[rank])):
+        t = torch.from_numpy(x).requires_grad_()
+        y = fn(t, tp)
+        (g,) = torch.autograd.grad((y * weight).sum(), t)
+        out[name] = (y.detach().numpy(), g.numpy())
+    return out
+
+
+def vocab_ops_on_ranks(rank, world, table, tokens, logits, labels):
+    """``vocab_embed`` and ``vocab_parallel_ce`` on this rank's vocab rows
+    of ``table`` and columns of ``logits`` over a (1, world) mesh: (the
+    embeddings, per-token losses, the gradient of their mean with respect
+    to this rank's logit columns)."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as TPm
+    from repro_torch.launch.mesh import make_mesh
+    tp = TPm.model_group(make_mesh((1, world), ("data", "model"),
+                                   device="cpu"))
+    n = table.shape[0] // world
+    rows = torch.from_numpy(table[rank * n:(rank + 1) * n].copy())
+    emb = TPm.vocab_embed(rows, torch.from_numpy(tokens), tp)
+    v = logits.shape[-1] // world
+    cols = torch.from_numpy(
+        logits[..., rank * v:(rank + 1) * v].copy()).requires_grad_()
+    ce = TPm.vocab_parallel_ce(cols, torch.from_numpy(labels), tp)
+    (g,) = torch.autograd.grad(ce.mean(), cols)
+    return emb.numpy(), ce.detach().numpy(), g.numpy()
+
+
+def tp_step_on_ranks(rank, world, arch, mesh_shape, params, batch, opt,
+                     compress=False):
+    """One tensor-parallel ``make_train_step`` of the f32 smoke config of
+    ``arch`` on a (data, model) mesh of ``mesh_shape``, from the whole
+    weights ``params`` (numpy), with each kernel launch played by its plain
+    version. Returns numpy and plain values: the metrics; the gradients and
+    updated parameters and moments gathered whole; this rank's gradients
+    of the leaves whole on every rank; each moment's local shape beside
+    the shape of its ``local_slices(zero1_spec)`` block; the launches."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch import tree as T
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import train_step as TS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    mods = play_launches()
+    cfg = get_smoke_config(arch, dtype="float32")
+    mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device="cpu")
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    B = tb["tokens"].shape[0]
+    step = TS.make_train_step(cfg, adamw.OptimizerConfig(**opt), mesh=mesh,
+                              dp_axes=SH.batch_axes(mesh, cfg, B),
+                              grad_compression="int8" if compress else None)
+    layout = step.layout
+    local = layout.shard_params(bridge.to_torch(params, device="cpu"))
+    state = adamw.init(local, layout)
+    grads, _ = step.grad_fn(local, tb)
+    for mod in mods.values():
+        mod.launches = 0
+    new, state, metrics = step(local, state, tb)
+    launches = {name: mod.launches for name, mod in mods.items()}
+
+    def numpy(tree):
+        return {p: t.numpy().copy() for p, t in T.flatten(tree)}
+    shapes = {}
+    for path, m in T.flatten(state.mu):
+        full = layout.shapes[path]
+        want = SH.local_slices(layout.moment_specs[path], full, mesh)
+        shapes[path] = (tuple(m.shape),
+                        tuple(s.stop - s.start for s in want))
+    return {"coord": mesh.coordinate(),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": numpy(layout.gather_params(grads)),
+            "params": numpy(layout.gather_params(new)),
+            "mu": numpy(layout.gather_moments(state.mu)),
+            "nu": numpy(layout.gather_moments(state.nu)),
+            "whole_grads": {p: g.numpy().copy() for p, g in T.flatten(grads)
+                            if not layout.split_over_model(p)},
+            "moment_shapes": shapes, "launches": launches}
+
+
+def tp_train_on_ranks(rank, world, arch, mesh_shape, params, runs):
+    """``launch.train.train`` of the f32 smoke config of ``arch`` on a
+    (data, model) mesh of ``mesh_shape``, from the whole weights ``params``
+    (numpy) where given, once per kwargs of ``runs``: [(losses, {path:
+    final parameter, gathered})]."""
+    from repro_torch import bridge
+    from repro_torch import tree as T
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import tensor_parallel as TPm
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    cfg = get_smoke_config(arch, dtype="float32")
+    mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device="cpu")
+    if params is not None:
+        train_mod.M.init_params = (lambda cfg, seed=0, device="cpu":
+                                   bridge.to_torch(params, device=device))
+    layout = TPm.train_layout(cfg, mesh)
+    out = []
+    for kw in runs:
+        r = train_mod.train(cfg, device="cpu", quiet=True, mesh=mesh, **kw)
+        final = layout.gather_params(r["params"]) if layout else r["params"]
+        out.append((r["losses"], {p: t.numpy() for p, t in
+                                  T.flatten(final)}))
+    return out
+
+
+def carved_tp_step_on_ranks(rank, world, arch):
+    """A (2, world / 2) mesh carved into 2 partitions along ``data``; each
+    rank takes one tensor-parallel step of the f32 smoke config of ``arch``
+    on its partition's mesh and the one-rank step on the same weights and
+    batch. Returns (each partition's ranks and shape, this rank's
+    partition, the two losses, the largest gap between the gathered
+    updated parameters and the one-rank ones relative to each leaf's
+    largest value)."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.partition import carve_submeshes
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import train_step as TS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg = get_smoke_config(arch, dtype="float32")
+    parts = carve_submeshes(make_mesh((2, world // 2), ("data", "model"),
+                                      device="cpu"), 2)
+    mine = [p for p in parts if rank in p.mesh.device_mesh.mesh.flatten()
+            .tolist()][0]
+    gen = torch.Generator().manual_seed(mine.index)
+    tok = torch.randint(0, cfg.vocab_size, (2, 17), generator=gen,
+                        dtype=torch.int32)
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous(),
+             "positions": torch.arange(16, dtype=torch.int32)[None].expand(
+                 2, 16)}
+    opt = adamw.OptimizerConfig(total_steps=10, warmup_steps=1)
+    whole = M.init_params(cfg, seed=0, device="cpu")
+    one = TS.make_train_step(cfg, opt)
+    want = T.tree_map(torch.clone, whole)
+    want, _, m1 = one(want, adamw.init(want), batch)
+    step = TS.make_train_step(cfg, opt, mesh=mine.mesh,
+                              dp_axes=SH.batch_axes(mine.mesh, cfg, 2))
+    local = step.layout.shard_params(whole)
+    new, _, m = step(local, adamw.init(local, step.layout), batch)
+    got = step.layout.gather_params(new)
+    gap = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(T.leaves(got), T.leaves(want)))
+    return ([(p.index, p.mesh.shape, p.mesh.device_mesh.mesh.tolist())
+             for p in parts], mine.index, float(m["loss"]),
+            float(m1["loss"]), gap)
+
+
+def dryrun_cell_on_ranks(rank, world, arch, overrides, mesh_shape, B, S):
+    """The dry-run's train cell of ``arch`` (``overrides`` on its config)
+    on a (data, model) mesh of ``mesh_shape``, run on real CPU tensors on
+    these gloo ranks: (matmul FLOPs, collective bytes by kind)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import abstract_mesh, make_mesh
+    data, model = mesh_shape
+    cell, _ = D.lower_cell(arch, None, False, overrides,
+                           shape=ShapeConfig(f"train_{B}x{S}", S, B, "train"),
+                           mesh=abstract_mesh(data=data, model=model))
+    prof = cell.run(fake=False, mesh=make_mesh(
+        (data, model), ("data", "model"), device="cpu"))
+    return prof.matmul_flops, prof.collective_bytes()
+
+
+def tp_step_on_card(rank, world, arch):
+    """A tensor-parallel step of the f32 smoke config of ``arch`` on a
+    (1, world) mesh of ranks that share CUDA card 0 over gloo, in its two
+    parts, the kernels launched on the card; rank 0 also takes the
+    one-rank step's gradients on the card and the one-rank AdamW update on
+    the gathered gradients. Returns (this rank's launches, loss, and on
+    rank 0: the one-rank loss, the largest gradient gap and the largest
+    updated-leaf gap, each relative to the leaf's largest value)."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import train_step as TS
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import _positions
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_smoke_config(arch, dtype="float32")
+    mesh = make_mesh((1, world), ("data", "model"), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tok = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen,
+                        device=dev, dtype=torch.int32)
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous(),
+             "positions": _positions(cfg, 2, 64, device=dev)}
+    opt = adamw.OptimizerConfig(total_steps=10, warmup_steps=1)
+    step = TS.make_train_step(cfg, opt, mesh=mesh)
+    whole = M.init_params(cfg, seed=0, device=dev)
+    local = step.layout.shard_params(whole)
+    state = adamw.init(local, step.layout)
+    before = (fa_ops.launches, rn_ops.launches)
+    grads, m = step.grad_fn(local, batch)
+    adamw.update(opt, state, grads, local, step.layout)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa_ops.launches - before[0],
+                "fused_rmsnorm": rn_ops.launches - before[1]}
+    grads = step.layout.gather_params(grads)
+    new = step.layout.gather_params(local)
+    if rank:
+        return launches, float(m["loss"]), None
+    rg, rm = TS.make_grad_fn(cfg)(whole, batch)
+    g_gap = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(T.leaves(grads), T.leaves(rg)))
+    adamw.update(opt, adamw.init(whole), grads, whole)
+    p_gap = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(T.leaves(new), T.leaves(whole)))
+    return launches, float(m["loss"]), (float(rm["loss"]), g_gap, p_gap)
