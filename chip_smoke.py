@@ -103,21 +103,31 @@ Phases, each printing its lines; any failed check exits non-zero:
      time to recover).
  12. tensor parallelism over ``model`` and ZeRO-1 over ``data``
      (``distributed/tensor_parallel.py``), on ranks spawned on this card and
-     joined over gloo: (a) f32, full width and 2 layers, one step against
-     the one-rank kernel-path step (chatglm3-6b on (1, 4), its 2 kv heads
-     under the replicated-KV rule; stablelm-3b on (2, 2); deepseek's dense
-     layer and one MoE layer on (1, 4)): the loss, every gathered gradient,
-     updated leaf and moment, and each rank's kernel launches; (b) bf16
-     stablelm-3b at full width and depth on (1, 2), three steps of phase
-     7's batch beside phase 7's losses, with step time, tokens/s, each
+     joined over gloo: first the RMSNorm kernel's split-row mode (the row
+     sums, then the scaling from the summed row) against its plain versions
+     at zamba2-7b's gated norm on two ranks, f32 and bf16, and its device
+     times beside their bound; (a) f32 at full width, one step against the
+     one-rank kernel-path step (chatglm3-6b on (1, 4), its 2 kv heads under
+     the replicated-KV rule; stablelm-3b on (2, 2); deepseek's dense layer
+     and one MoE layer on (1, 4), each 2 layers; zamba2-7b at 7 layers, a
+     group of 6 Mamba2 layers, the shared block and a tail layer, on (1, 4)
+     and (2, 2), its gated norms in the split mode; mamba2-130m at full size
+     under dp_all on (2, 2), its vocabulary split over ranks holding other
+     rows): the loss, every gathered gradient, updated leaf and moment, and
+     each rank's kernel launches; (b) bf16 at full width, three steps of
+     phase 7's batch on (1, 2): stablelm-3b at full depth beside phase 7's
+     losses, zamba2-7b at 13 layers (two groups and a tail) beside a
+     one-rank run of the same weights, with step time, tokens/s, each
      rank's peak memory and the seconds in collectives (gloo through host
-     memory, not NCCL).
+     memory, not NCCL). The cases of (a) run in one spawn of 4 ranks, those
+     of (b) in one of 2: each spawn takes seconds to reach the card.
 No serving path is cut to fit the time limit: the whole script takes a few
 minutes on an H100.
 The line before the last is the ``{"kernels": [...]}`` summary (with each
 kernel's launches per serve_batch, per train step, per driver step, per
-part of phases 10 and 11 and per rank of each phase 12 step); the last is
-``{"ok": true, "device": {...}}``.
+part of phases 10 and 11 and per rank of each phase 12 step; the RMSNorm
+kernel's split-row launches, phase 12's, as an entry of their own); the
+last is ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import dataclasses
@@ -277,17 +287,27 @@ FAULT_AT = 0.5
 # within GRAD_LEAF_TOL of the one-rank AdamW update on the same gradients
 # (against the independent one-rank step Adam's first update m/(sqrt(v)+eps)
 # turns rounding-level differences of gradients near eps into differences
-# up to the learning rate). (b) bf16 stablelm-3b at full width and depth on
-# (1, 2), phase 7's batch and optimizer, TP_STEPS steps: losses within
-# TP_LOSS_GAP of phase 7's first ones (first set at 0.02; the first run read
-# at most 4.9e-4 relative, H100 80GB HBM3, 700 W).
+# up to the learning rate). zamba2-7b (its gated norms in the RMSNorm
+# kernel's split-row mode) at TP_DEPTH_OF's depth: one group of 6 Mamba2
+# layers, the shared block, a tail layer (0.98 B parameters; a one-rank
+# reference of full depth would not fit beside its ranks on one card);
+# mamba2-130m at full size under dp_all with a row a rank, so the ranks of a
+# model group hold other rows. (b) bf16 at full width on (1, 2), phase 7's
+# batch and optimizer, TP_STEPS steps: stablelm-3b at full depth, losses
+# within TP_LOSS_GAP of phase 7's first ones (first set at 0.02; the first
+# run read at most 4.9e-4 relative, H100 80GB HBM3, 700 W); zamba2-7b at 13
+# layers (two groups and a tail, 1.45 B), held against a one-rank run of the
+# same weights within TP_LOSS_GAP.
 TP_CASES = (("chatglm3-6b", (1, 4)), ("stablelm-3b", (2, 2)),
-            ("deepseek-v2-lite-16b", (1, 4)))
+            ("deepseek-v2-lite-16b", (1, 4)), ("zamba2-7b", (1, 4)),
+            ("zamba2-7b", (2, 2)), ("mamba2-130m", (2, 2)))
 TP_DEPTH, TP_BATCH = 2, 2
-TP_BF16 = ("stablelm-3b", (1, 2))
+TP_DEPTH_OF = {"zamba2-7b": 7, "mamba2-130m": 24}
+TP_BATCH_OF = {"mamba2-130m": 4}
+TP_BF16 = (("stablelm-3b", (1, 2), None), ("zamba2-7b", (1, 2), 13))
 TP_STEPS = 3
 TP_LOSS_GAP = 2e-3
-TP_TIMEOUT_S = 420
+TP_TIMEOUT_S = 900
 
 
 def check(ok, msg):
@@ -1056,8 +1076,8 @@ def main():
     torch.cuda.empty_cache()
 
     # ------------------------------ 12. tensor parallelism and ZeRO-1
-    tp_launches = tensor_parallel_on_card(torch, card,
-                                          trained["stablelm-3b"][2])
+    tp_launches, split_entry = tensor_parallel_on_card(
+        torch, card, trained["stablelm-3b"][2])
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- result
@@ -1107,6 +1127,18 @@ def main():
                                "flops", "bytes", "dtype", "max_abs_err", "ms",
                                "plain_ms", "bound_ms", "bound_by",
                                "library_ms")}})
+    # the RMSNorm kernel's split-row mode, launched by phase 12 alone
+    by_tp = {case: [n["fused_rmsnorm_split"] for n in ranks]
+             for case, ranks in tp_launches.items()}
+    summary.append({"name": "fused_rmsnorm_split", "route": "cuda",
+                    "source": "src/repro_torch/kernels/fused_rmsnorm/csrc/"
+                              "fused_rmsnorm.cu",
+                    "replaces": "src/repro/kernels/fused_rmsnorm/"
+                                "fused_rmsnorm.py:13",
+                    "launches": sum(map(sum, by_tp.values())),
+                    "launches_per_tp_rank_step": by_tp,
+                    **{k: v for k, v in split_entry.items()
+                       if k not in ("bytes",)}})
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
@@ -3016,14 +3048,30 @@ def _rank_ops():
             "fused_rmsnorm": rn_ops, "ssd": ssd_ops}
 
 
-def tp_parity_rank(rank, world, arch, mesh_shape):
-    """Phase 12 (a) on one rank: the tensor-parallel step in its two parts
-    (gradients, then the sharded AdamW update), its launches counted. Rank
-    0 first takes the one-rank kernel-path gradients on the whole weights;
-    then every gathered leaf (a collective) is compared on rank 0 and
-    dropped on the others (the ranks share one card): the gradients against
-    the one-rank ones, the updated leaves and moments against the one-rank
-    AdamW update on the gathered gradients."""
+def tp_parity_rank(rank, world, cases):
+    """Phase 12 (a) on one rank: ``tp_parity_case`` for each (arch,
+    mesh_shape) of ``cases`` in turn, in one spawn of the ranks (each spawn
+    takes seconds to reach the card), the card's cache emptied between
+    them; each case's seconds on this rank added to its reading."""
+    import torch
+    out = []
+    for arch, mesh_shape in cases:
+        t0 = time.perf_counter()
+        r = tp_parity_case(rank, world, arch, tuple(mesh_shape))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out.append({**r, "case_s": time.perf_counter() - t0})
+    return out
+
+
+def tp_parity_case(rank, world, arch, mesh_shape):
+    """One case of phase 12 (a) on one rank: the tensor-parallel step in
+    its two parts (gradients, then the sharded AdamW update), its launches
+    counted. Rank 0 first takes the one-rank kernel-path gradients on the
+    whole weights; then every gathered leaf (a collective) is compared on
+    rank 0 and dropped on the others (the ranks share one card): the
+    gradients against the one-rank ones, the updated leaves and moments
+    against the one-rank AdamW update on the gathered gradients."""
     import torch
     from repro_torch import tree as T
     from repro_torch.configs import get_config
@@ -3034,12 +3082,15 @@ def tp_parity_rank(rank, world, arch, mesh_shape):
     from repro_torch.optim import adamw
     ops_of = _rank_ops()
     dev = torch.device("cuda")
-    cfg = get_config(arch, dtype="float32", num_layers=TP_DEPTH)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch, dtype="float32",
+                     num_layers=TP_DEPTH_OF.get(arch, TP_DEPTH))
     mesh = make_mesh(mesh_shape, ("data", "model"), device=dev)
-    batch = train_batch(torch, cfg, dev, TP_BATCH)
+    rows = TP_BATCH_OF.get(arch, TP_BATCH)
+    batch = train_batch(torch, cfg, dev, rows)
     opt_cfg = adamw.OptimizerConfig(warmup_steps=1, total_steps=10)
     step = TS.make_train_step(cfg, opt_cfg, mesh=mesh,
-                              dp_axes=SH.batch_axes(mesh, cfg, TP_BATCH))
+                              dp_axes=SH.batch_axes(mesh, cfg, rows))
     layout = step.layout
     whole = M.init_params(cfg, seed=SEED, device=dev)
     local = layout.shard_params(whole)
@@ -3051,9 +3102,11 @@ def tp_parity_rank(rank, world, arch, mesh_shape):
     state = adamw.init(local, layout)
     for ops in ops_of.values():
         ops.launches = 0
+    ops_of["fused_rmsnorm"].split_launches = 0
     grads, m = step.grad_fn(local, batch)
     local, state, _ = adamw.update(opt_cfg, state, grads, local, layout)
     mine = {"launches": {name: ops.launches for name, ops in ops_of.items()},
+            "split_launches": ops_of["fused_rmsnorm"].split_launches,
             "loss": m["loss"].item(),
             "n_local": sum(t.numel() for t in T.leaves(local)),
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -3084,11 +3137,26 @@ def tp_parity_rank(rank, world, arch, mesh_shape):
             "upd_rel": upd_rel}
 
 
-def tp_bf16_rank(rank, world, arch, mesh_shape, steps):
-    """Phase 12 (b) on one rank: ``steps`` tensor-parallel steps of the
-    full bf16 model on phase 7's batch, each one's time, launches and the
-    seconds spent in the collectives (each timed between two device
-    synchronizations), and the rank's peak memory over the steps."""
+def tp_bf16_rank(rank, world, cases, steps):
+    """Phase 12 (b) on one rank: ``tp_bf16_case`` for each (arch,
+    mesh_shape, depth) of ``cases`` in turn, in one spawn of the ranks,
+    each case's seconds on this rank added to its reading."""
+    import torch
+    out = []
+    for arch, mesh_shape, depth in cases:
+        t0 = time.perf_counter()
+        r = tp_bf16_case(rank, world, arch, tuple(mesh_shape), steps, depth)
+        torch.cuda.empty_cache()
+        out.append({**r, "case_s": time.perf_counter() - t0})
+    return out
+
+
+def tp_bf16_case(rank, world, arch, mesh_shape, steps, depth):
+    """One case of phase 12 (b) on one rank: ``steps`` tensor-parallel
+    steps of the bf16 model at full width (``depth`` layers, or all) on
+    phase 7's batch, each one's time, launches and the seconds spent in the
+    collectives (each timed between two device synchronizations), and the
+    rank's peak memory over the steps."""
     import torch
     import torch.distributed as dist
     from repro_torch import tree as T
@@ -3101,7 +3169,7 @@ def tp_bf16_rank(rank, world, arch, mesh_shape, steps):
     from repro_torch.optim import adamw
     ops_of = _rank_ops()
     dev = torch.device("cuda")
-    cfg = get_config(arch)
+    cfg = get_config(arch, **({"num_layers": depth} if depth else {}))
     mesh = make_mesh(mesh_shape, ("data", "model"), device=dev)
     batch = train_batch(torch, cfg, dev)
     step = TS.make_train_step(cfg, adamw.OptimizerConfig(warmup_steps=1,
@@ -3122,15 +3190,17 @@ def tp_bf16_rank(rank, world, arch, mesh_shape, steps):
             spent[0] += time.perf_counter() - t
             return out
         return run
-    dist.all_reduce = timed(dist.all_reduce)
-    TP._all_gather = timed(TP._all_gather)
+    real = (dist.all_reduce, TP._all_gather)
+    dist.all_reduce, TP._all_gather = timed(real[0]), timed(real[1])
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     losses, step_s, coll_s, launches = [], [], [], []
+    split = []
     for _ in range(steps):
         for ops in ops_of.values():
             ops.launches = 0
+        ops_of["fused_rmsnorm"].split_launches = 0
         spent[0] = 0.0
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, batch)
@@ -3139,36 +3209,173 @@ def tp_bf16_rank(rank, world, arch, mesh_shape, steps):
         step_s.append(time.perf_counter() - t0)
         coll_s.append(spent[0])
         launches.append({name: ops.launches for name, ops in ops_of.items()})
+        split.append(ops_of["fused_rmsnorm"].split_launches)
+    dist.all_reduce, TP._all_gather = real
     return {"losses": losses, "step_s": step_s, "coll_s": coll_s,
-            "launches": launches,
+            "launches": launches, "split_launches": split,
             "n_local": sum(t.numel() for t in T.leaves(params)),
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def split_norm_on_card(torch, card, timer):
+    """Phase 12's kernel check: the RMSNorm kernel's split-row mode at
+    zamba2-7b's gated norm on two model ranks (8 x 1,024 rows, 3,584 of
+    the 7,168 columns a rank), the row sums of both column blocks added
+    and each block scaled: each pass against its plain version, f32 and
+    bf16, and the two blocks against the unsplit plain norm of the whole
+    row. Then, in bf16, the device time of the two passes of one rank
+    beside their plain versions and the bound: the bytes of both passes
+    (the row read by each, the sums written and read, the output written)
+    over the card's rate. Returns the summary's entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
+    from repro_torch.kernels.fused_rmsnorm import ref as rn_ref
+    cfg = get_config("zamba2-7b")
+    rows, full, eps = TRAIN_BATCH * TRAIN_SEQ, cfg.ssm_d_inner, cfg.norm_eps
+    d = full // 2
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for dtype, tol in (("float32", NORM_TOL["float32"]),
+                       ("bfloat16", NORM_TOL["bfloat16"])):
+        dt = getattr(torch, dtype)
+        x, gate = (torch.randn((rows, full), generator=gen, device="cuda")
+                   .to(dt) for _ in range(2))
+        w = (torch.randn(full, generator=gen, device="cuda") * 0.1).to(dt)
+        blocks = [(x[:, k * d:(k + 1) * d].contiguous(),
+                   gate[:, k * d:(k + 1) * d].contiguous(),
+                   w[k * d:(k + 1) * d].contiguous()) for k in range(2)]
+        n0 = rn_ops.split_launches
+        sums = [rn_ops.row_sumsq(xk, gk) for xk, gk, _ in blocks]
+        ss_err = max(rel_err(s_, rn_ref.row_sumsq_ref(xk, gk))
+                     for s_, (xk, gk, _) in zip(sums, blocks))
+        total = sums[0] + sums[1]
+        got = [rn_ops.rmsnorm(xk, wk, eps=eps, gate=gk, row_ss=total,
+                              width=full) for xk, gk, wk in blocks]
+        torch.cuda.synchronize()
+        check(rn_ops.split_launches - n0 == 4, "the split RMSNorm launched "
+              f"{rn_ops.split_launches - n0} times, not 4")
+        plain = [rn_ref.rmsnorm_ref(xk, wk, eps=eps, gate=gk, row_ss=total,
+                                    width=full) for xk, gk, wk in blocks]
+        want = rn_ref.rmsnorm_ref(x, w, eps=eps, gate=gate)
+        whole = torch.cat(got, dim=-1)
+        # the gated bf16 outputs reach 8 and more: one bf16 step of |want|
+        bound = torch.full_like(want, tol, dtype=torch.float32)
+        if dtype == "bfloat16":
+            bound = torch.maximum(bound, want.float().abs() * 2.0 ** -7)
+        scale_err = max(((a.float() - b.float()).abs()
+                         / bound[:, k * d:(k + 1) * d]).max().item()
+                        for k, (a, b) in enumerate(zip(got, plain)))
+        whole_err = ((whole.float() - want.float()).abs() / bound).max().item()
+        out[dtype] = {"sumsq_rel_err": ss_err, "scale_err_of_bound": scale_err,
+                      "whole_err_of_bound": whole_err,
+                      "max_abs_err": max(max_err(a, b)
+                                         for a, b in zip(got, plain))}
+        print(f"[tp] split RMSNorm {dtype}, zamba2-7b's gated norm, {rows} "
+              f"rows over 2 ranks of {d} columns: row sums vs plain max "
+              f"rel {ss_err:.3e} (tol 1e-5); scaling vs plain "
+              f"{scale_err:.3f} of the bound, both blocks vs the unsplit "
+              f"norm {whole_err:.3f} of the bound (tol {tol}, bf16 also one "
+              f"bf16 step)", flush=True)
+        check(ss_err < 1e-5 and scale_err < 1 and whole_err < 1,
+              f"split RMSNorm {dtype} disagrees with its plain version: "
+              f"{out[dtype]}")
+    # device times of one rank's two passes, bf16
+    xk, gk, wk = blocks[0]
+    n = xk.numel()
+    t_sum = timer(lambda: rn_ops.row_sumsq(xk, gk), 50)
+    t_scale = timer(lambda: rn_ops.rmsnorm(xk, wk, eps=eps, gate=gk,
+                                           row_ss=total, width=full), 50)
+    plain_ms = timer(lambda: rn_ref.rmsnorm_ref(
+        xk, wk, eps=eps, gate=gk, row_ss=rn_ref.row_sumsq_ref(xk, gk),
+        width=full), 20)
+    sum_bytes = 2 * 2 * n + 4 * rows               # x, gate; the sums
+    scale_bytes = 3 * 2 * n + 2 * d + 4 * rows     # x, gate, out; w; sums
+    r = {"ms": t_sum + t_scale, "sumsq_ms": t_sum, "scale_ms": t_scale,
+         "plain_ms": plain_ms, "library_ms": None,
+         "bytes": sum_bytes + scale_bytes,
+         "sumsq_bound_ms": sum_bytes / PEAK_BYTES_PER_S * 1e3,
+         "scale_bound_ms": scale_bytes / PEAK_BYTES_PER_S * 1e3,
+         "bound_ms": (sum_bytes + scale_bytes) / PEAK_BYTES_PER_S * 1e3,
+         "bound_by": "bytes", "max_abs_err": out["bfloat16"]["max_abs_err"],
+         "checks": out, "shape": [rows, d], "width": full}
+    print(f"[time] split RMSNorm bf16 at zamba2-7b's gated norm on one of 2 "
+          f"ranks ({rows} x {d} of {full}): row sums {t_sum:.4f} ms (bound "
+          f"{r['sumsq_bound_ms']:.4f} ms, {r['sumsq_bound_ms'] / t_sum:.1%}), "
+          f"scaling {t_scale:.4f} ms (bound {r['scale_bound_ms']:.4f} ms, "
+          f"{r['scale_bound_ms'] / t_scale:.1%}); both {r['ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+          f"{r['bytes'] / 1e6:.1f} MB; {r['bound_ms'] / r['ms']:.1%}); plain "
+          f"{plain_ms:.4f} ms; no library call computes a split row  "
+          f"[{card}]", flush=True)
+    return r
+
+
+def one_rank_bf16(torch, arch, depth, steps):
+    """The one-rank reference of a phase 12 (b) case: ``steps`` steps of
+    the same bf16 weights (the script's seed) on phase 7's batch, in this
+    process. Returns the losses and step times."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import train_step as TS
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    dev = torch.device("cuda")
+    cfg = get_config(arch, **({"num_layers": depth} if depth else {}))
+    step = TS.make_train_step(cfg, adamw.OptimizerConfig(warmup_steps=1,
+                                                         total_steps=10))
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    opt = adamw.init(params)
+    batch = train_batch(torch, cfg, dev)
+    losses, step_s = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"].item())
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return losses, step_s, peak
+
+
 def tensor_parallel_on_card(torch, card, phase7_losses):
     """Phase 12 (see the module docstring). Returns each step's kernel
-    launches per rank, by case."""
+    launches per rank, by case (the split-row RMSNorm's as
+    ``fused_rmsnorm_split``), and the split mode's kernel entry."""
     from repro_torch.configs import get_config
-    from repro_torch.distributed.train_step import kernel_launches
+    from repro_torch.distributed.train_step import (kernel_launches,
+                                                    split_norm_launches)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()              # the ranks share this card
     print(f"[tp] this process holds {torch.cuda.memory_allocated() / 1e9:.2f}"
           f" GB of the card as phase 12 starts", flush=True)
+    timer = Timer(torch)
+    split_entry = split_norm_on_card(torch, card, timer)
+    del timer
+    torch.cuda.empty_cache()
     launches = {}
-    for arch, shape in TP_CASES:
-        world = shape[0] * shape[1]
-        t0 = time.perf_counter()
-        out = on_card_ranks(tp_parity_rank, world, arch, shape)
-        case_s = time.perf_counter() - t0
+    world = 4                     # every case of (a): one spawn of its ranks
+    t0 = time.perf_counter()
+    runs = on_card_ranks(tp_parity_rank, world, TP_CASES)
+    print(f"[tp] (a) {len(TP_CASES)} cases on {world} ranks in one spawn "
+          f"took {time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+    for i, (arch, shape) in enumerate(TP_CASES):
+        check(shape[0] * shape[1] == world, f"{arch} {shape} is not on "
+              f"{world} ranks")
+        out = [ranks[i] for ranks in runs]
+        depth = TP_DEPTH_OF.get(arch, TP_DEPTH)
+        rows = TP_BATCH_OF.get(arch, TP_BATCH)
+        case_s = out[0]["case_s"]
         r0 = out[0]
-        want = kernel_launches(get_config(arch, dtype="float32",
-                                          num_layers=TP_DEPTH))
+        cfg = get_config(arch, dtype="float32", num_layers=depth)
+        want = kernel_launches(cfg, model_ranks=shape[1])
+        want_split = split_norm_launches(cfg, shape[1])
         loss_rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
         g_worst = max(r0["grad_rel"], key=r0["grad_rel"].get)
         u_worst = max(r0["upd_rel"], key=r0["upd_rel"].get)
-        print(f"[tp] {arch} f32, {TP_DEPTH} layers at full width, (data, "
+        print(f"[tp] {arch} f32, {depth} layers at full width, (data, "
               f"model) {shape} on {world} ranks sharing the card over gloo, "
-              f"batch {TP_BATCH} x {TRAIN_SEQ}: loss {r0['loss']:.7f} vs "
+              f"batch {rows} x {TRAIN_SEQ}: loss {r0['loss']:.7f} vs "
               f"one rank {r0['ref_loss']:.7f} (rel {loss_rel:.3e}, tol "
               f"{GRAD_LOSS_TOL}); gathered gradients vs the one-rank kernel "
               f"path, max|diff|/max|grad| per leaf: max "
@@ -3179,7 +3386,8 @@ def tensor_parallel_on_card(torch, card, phase7_losses):
               f"{GRAD_LEAF_TOL}); per rank: parameters "
               f"{[r['n_local'] for r in out]}, peak "
               f"{[round(r['peak_gb'], 2) for r in out]} GB; launches "
-              f"{out[0]['launches']}; the case took {case_s:.1f} s  "
+              f"{out[0]['launches']}, of which split-row RMSNorm "
+              f"{out[0]['split_launches']}; the case took {case_s:.1f} s  "
               f"[{card}]", flush=True)
         check(all(r["loss"] == r0["loss"] for r in out),
               f"{arch} {shape}: the ranks' losses differ")
@@ -3190,54 +3398,84 @@ def tensor_parallel_on_card(torch, card, phase7_losses):
         check(r0["upd_rel"][u_worst] < GRAD_LEAF_TOL,
               f"{arch} {shape} updated leaves differ: {r0['upd_rel']}")
         for rank, r in enumerate(out):
-            check(r["launches"] == want, f"{arch} {shape} rank {rank} "
-                  f"launches {r['launches']} != {want}")
-        launches[f"{arch} {shape[0]}x{shape[1]}"] = [r["launches"]
-                                                     for r in out]
+            check(r["launches"] == want and r["split_launches"] == want_split,
+                  f"{arch} {shape} rank {rank} launches {r['launches']} "
+                  f"(split {r['split_launches']}) != {want} (split "
+                  f"{want_split})")
+        launches[f"{arch} {shape[0]}x{shape[1]}"] = [
+            {**r["launches"], "fused_rmsnorm_split": r["split_launches"]}
+            for r in out]
 
-    arch, shape = TP_BF16
-    world = shape[0] * shape[1]
-    t0 = time.perf_counter()
-    out = on_card_ranks(tp_bf16_rank, world, arch, shape, TP_STEPS)
-    case_s = time.perf_counter() - t0
-    cfg = get_config(arch)
-    want = kernel_launches(cfg)
-    losses = out[0]["losses"]
-    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, phase7_losses)]
-    med = statistics.median(out[0]["step_s"][1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"[tp] {arch} bf16 at full width and depth ({cfg.num_layers} "
-          f"layers), (data, model) {shape} on {world} ranks sharing the card "
-          f"over gloo, {TP_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
-          f"tokens (phase 7's batch): losses "
-          f"{[round(x, 6) for x in losses]}, phase 7's first "
-          f"{[round(x, 6) for x in phase7_losses[:TP_STEPS]]}, relative gaps "
-          f"{[f'{g:.3e}' for g in gaps]} (tol {TP_LOSS_GAP})  [{card}]",
-          flush=True)
-    print(f"[tp] {arch} {shape} per step, gloo through host memory on one "
-          f"card (not NCCL): step "
-          f"{[round(x, 4) for x in out[0]['step_s']]} s (median of steps "
-          f"2-{TP_STEPS} {med:.4f} s, {tokens / med:.0f} tokens/s), seconds "
-          f"in collectives by rank "
-          f"{[[round(x, 4) for x in r['coll_s']] for r in out]}; parameters "
-          f"{[r['n_local'] for r in out]} and peak memory "
-          f"{[round(r['peak_gb'], 2) for r in out]} GB by rank; launches per "
-          f"step {out[0]['launches'][0]}; the case took {case_s:.1f} s  "
-          f"[{card}]", flush=True)
-    for rank, r in enumerate(out):
-        check(r["losses"] == losses, f"{arch} rank {rank} losses "
-              f"{r['losses']} != rank 0's {losses}")
-        for i, got in enumerate(r["launches"]):
-            check(got == want, f"{arch} bf16 rank {rank} step {i} launches "
-                  f"{got} != {want}")
-    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
-          f"{arch} bf16 tensor-parallel losses not finite and falling: "
-          f"{losses}")
-    check(max(gaps) <= TP_LOSS_GAP, f"{arch} bf16 tensor-parallel losses "
-          f"{losses} more than {TP_LOSS_GAP} from phase 7's {phase7_losses}")
-    launches[f"{arch} bf16 {shape[0]}x{shape[1]}"] = [r["launches"][0]
-                                                      for r in out]
-    return launches
+    refs = {}
+    for arch, shape, depth in TP_BF16:
+        if depth:                 # the one-rank run of the same weights
+            t0 = time.perf_counter()
+            ref_losses, ref_s, ref_peak = one_rank_bf16(torch, arch, depth,
+                                                        TP_STEPS)
+            print(f"[tp] {arch} bf16 at {depth} layers on one rank: losses "
+                  f"{[round(x, 6) for x in ref_losses]}, step "
+                  f"{[round(x, 4) for x in ref_s]} s, peak {ref_peak:.2f} "
+                  f"GB (this process's, the earlier phases' tensors "
+                  f"included); took {time.perf_counter() - t0:.1f} s  "
+                  f"[{card}]", flush=True)
+            refs[arch] = ref_losses, "the one-rank run's"
+        else:
+            refs[arch] = phase7_losses, "phase 7's first"
+    world = 2                     # every case of (b): one spawn of its ranks
+    t0 = time.perf_counter()
+    runs = on_card_ranks(tp_bf16_rank, world, TP_BF16, TP_STEPS)
+    print(f"[tp] (b) {len(TP_BF16)} cases on {world} ranks in one spawn "
+          f"took {time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+    for i, (arch, shape, depth) in enumerate(TP_BF16):
+        check(shape[0] * shape[1] == world, f"{arch} {shape} is not on "
+              f"{world} ranks")
+        out = [ranks[i] for ranks in runs]
+        ref_losses, against = refs[arch]
+        case_s = out[0]["case_s"]
+        cfg = get_config(arch, **({"num_layers": depth} if depth else {}))
+        want = kernel_launches(cfg, model_ranks=shape[1])
+        want_split = split_norm_launches(cfg, shape[1])
+        losses = out[0]["losses"]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        med = statistics.median(out[0]["step_s"][1:])
+        print(f"[tp] {arch} bf16 at full width, {cfg.num_layers} layers, "
+              f"(data, model) {shape} on {world} ranks sharing the card over "
+              f"gloo, {TP_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+              f"(phase 7's batch): losses {[round(x, 6) for x in losses]}, "
+              f"{against} {[round(x, 6) for x in ref_losses[:TP_STEPS]]}, "
+              f"relative gaps {[f'{g:.3e}' for g in gaps]} (tol "
+              f"{TP_LOSS_GAP})  [{card}]", flush=True)
+        print(f"[tp] {arch} {shape} per step, gloo through host memory on "
+              f"one card (not NCCL): step "
+              f"{[round(x, 4) for x in out[0]['step_s']]} s (median of steps "
+              f"2-{TP_STEPS} {med:.4f} s, {tokens / med:.0f} tokens/s), "
+              f"seconds in collectives by rank "
+              f"{[[round(x, 4) for x in r['coll_s']] for r in out]}; "
+              f"parameters {[r['n_local'] for r in out]} and peak memory "
+              f"{[round(r['peak_gb'], 2) for r in out]} GB by rank; launches "
+              f"per step {out[0]['launches'][0]}, of which split-row RMSNorm "
+              f"{out[0]['split_launches'][0]}; the case took {case_s:.1f} s  "
+              f"[{card}]", flush=True)
+        for rank, r in enumerate(out):
+            check(r["losses"] == losses, f"{arch} rank {rank} losses "
+                  f"{r['losses']} != rank 0's {losses}")
+            for i, got in enumerate(r["launches"]):
+                check(got == want and r["split_launches"][i] == want_split,
+                      f"{arch} bf16 rank {rank} step {i} launches {got} "
+                      f"(split {r['split_launches'][i]}) != {want} (split "
+                      f"{want_split})")
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0],
+              f"{arch} bf16 tensor-parallel losses not finite and falling: "
+              f"{losses}")
+        check(max(gaps) <= TP_LOSS_GAP, f"{arch} bf16 tensor-parallel losses "
+              f"{losses} more than {TP_LOSS_GAP} from {against} "
+              f"{ref_losses}")
+        launches[f"{arch} bf16 {shape[0]}x{shape[1]}"] = [
+            {**r["launches"][0], "fused_rmsnorm_split": r["split_launches"][0]}
+            for r in out]
+    return launches, split_entry
 
 
 if __name__ == "__main__":

@@ -14,7 +14,7 @@ mesh's group of those axes (NCCL on the card, gloo on the CPU).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -86,7 +86,9 @@ def fp32_mean(g: torch.Tensor, group, n_shards: int) -> torch.Tensor:
 def make_local_grad_fn(grad_fn: Callable, mesh: Mesh,
                        dp_axes: Tuple[str, ...],
                        batch_dim_map: Dict[str, int],
-                       compress: bool = True) -> Callable:
+                       compress: bool = True,
+                       group_loss: Optional[Callable[[str], bool]] = None
+                       ) -> Callable:
     """grads(params, batch) with an explicit (optionally int8) DP reduction.
 
     ``batch`` is the global batch, the same on every rank; the rank keeps
@@ -95,10 +97,28 @@ def make_local_grad_fn(grad_fn: Callable, mesh: Mesh,
     metrics)`` on them (the mean over its rows: ``train_step.make_grad_fn``,
     whose accumulation composes with this; JAX's version takes the loss and
     applies ``jax.grad``), then the mean of the gradients over ``dp_axes``,
-    in f32, and of the metrics."""
+    in f32, and of the metrics.
+
+    ``group_loss`` (dp_all with the vocabulary split over ``model``, whose
+    ranks hold other rows: a path -> whether the leaf is split over
+    ``model``): each rank's loss is its model group's mean, so a leaf split
+    over ``model`` has the group loss's whole gradient of its block, to be
+    averaged over the other axes of ``dp_axes`` alone; any other leaf has
+    its rows' part of it, to be summed over ``model``: the mean over
+    ``dp_axes`` times the size of ``model``."""
     n = mesh.axes_size(dp_axes)
     group = mesh.group(dp_axes)
     mean = int8_psum_mean if compress else fp32_mean
+    split_mean = None
+    if group_loss is not None:
+        other = tuple(a for a in dp_axes if a != SH.MODEL_AXIS)
+        n_other, n_model = mesh.axes_size(other), mesh.shape[SH.MODEL_AXIS]
+        group_other = mesh.group(other)
+
+        def split_mean(path, g):
+            if group_loss(path):
+                return mean(g, group_other, n_other)
+            return mean(g, group, n) * n_model
 
     def local_grads(params, batch):
         rows = {}
@@ -107,7 +127,11 @@ def make_local_grad_fn(grad_fn: Callable, mesh: Mesh,
             spec[batch_dim_map.get(k, 0)] = tuple(dp_axes)
             rows[k] = v[SH.local_slices(tuple(spec), v.shape, mesh)]
         grads, metrics = grad_fn(params, rows)
-        grads = T.tree_map(lambda x: mean(x, group, n), grads)
+        if split_mean is None:
+            grads = T.tree_map(lambda x: mean(x, group, n), grads)
+        else:
+            grads = T.unflatten(grads, [split_mean(p, g) for p, g
+                                        in T.flatten(grads)])
         keys = sorted(metrics)
         packed = torch.stack([metrics[k].float() for k in keys])
         packed = fp32_mean(packed, group, n)

@@ -20,13 +20,12 @@ by its name/rank, with leading layer-stack dims padded with None.
 ``kv_heads < TP`` triggers the replicated-KV rule.
 
 The port executes them: ``batch_axes`` gives each rank's rows of the batch;
-under tp16 a rank holds the ``local_slices`` block of every parameter
-(``shard_tree``; ``gather_tree`` is the inverse) and of every AdamW moment
-(``zero1_spec``), and the model runs tensor-parallel over ``model``
-(``distributed/tensor_parallel.py``). Under dp_all the parameters stay
-whole on every rank (the vocab matrices too: the same arithmetic as JAX's
-split). ``placements`` gives a spec's DTensor placements, against which the
-tests hold ``local_slices``.
+under either policy a rank holds the ``local_slices`` block of every
+parameter (``shard_tree``; ``gather_tree`` is the inverse) and of every
+AdamW moment (``zero1_spec``). Under tp16 the model runs tensor-parallel
+over ``model``, under dp_all only the vocabulary is split there
+(``distributed/tensor_parallel.py``). ``placements`` gives a spec's DTensor
+placements, against which the tests hold ``local_slices``.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Tensor parallelism over a mesh's ``model`` axis and the ZeRO-1 layout of a
-train step: what GSPMD derives for the JAX package from the tp16 specs of
+train step: what GSPMD derives for the JAX package from the specs of
 ``distributed/sharding.py``, written out as Megatron-LM does it.
 
 The pieces:
-  * ``TP``: the model group of a ``Mesh`` (its size, this rank's index),
+  * ``TP``: the model group of a ``Mesh`` (its size, this rank's index,
+    whether its ranks hold different rows of the batch),
     ``model_group(mesh)`` (None when the axis has one rank);
   * the two collectives it runs (``all_reduce``, ``all_gather_dim``), which
     gloo and NCCL both implement, gloo on CUDA tensors too;
@@ -11,23 +12,40 @@ The pieces:
     all-reduce of the gradient backward), where a replicated activation
     enters a computation split over the ranks, and ``reduce_from_tp``
     (all-reduce forward, identity backward), after a row-parallel product;
-  * ``row_parallel``, ``vocab_embed`` (a masked lookup into this rank's rows
-    of the table), ``vocab_parallel_ce`` (the cross entropy of logits split
-    over the vocabulary) and ``local_kv`` (the replicated-KV rule);
+    and ``sum_over_tp`` (all-reduce both ways), for a sum that every rank
+    reads for its own part (the gated norm's row sum of squares);
+  * ``row_parallel``, ``split_rmsnorm`` (an RMSNorm of rows whose columns
+    are split over the ranks), ``vocab_embed`` (a masked lookup into this
+    rank's rows of the table), ``vocab_parallel_ce`` (the cross entropy of
+    logits split over the vocabulary) and ``local_kv`` (the replicated-KV
+    rule, also the rule of a Mamba2 layer's B/C groups);
   * ``TrainLayout``: every leaf's block on this rank, the parameters by
-    their tp16 specs and the AdamW moments by ``zero1_spec``.
+    their specs and the AdamW moments by ``zero1_spec``.
 
-Which tensors are split: column-parallel products (QKV, MLP in, MLA's
-per-head up-projections, each rank's experts) produce this rank's part;
-row-parallel ones (attention out, MLP out, the experts' partial sums)
-produce a partial sum that ``reduce_from_tp`` completes. Everything else
-(the residual stream, norms, the router, MLA's latents, K/V under the
-replicated-KV rule) is computed whole on every rank, and every leaf used
-that way gets the whole gradient on every rank: a replicated tensor that a
-split computation reads goes through ``copy_to_tp`` first.
+Which tensors are split under tp16: column-parallel products (QKV, MLP in,
+MLA's per-head up-projections, each rank's experts, a Mamba2 layer's z and
+x projections and its conv over x: its heads) produce this rank's part;
+row-parallel ones (attention out, MLP out, the experts' partial sums,
+Mamba2's out-projection) produce a partial sum that ``reduce_from_tp``
+completes. Everything else (the residual stream, norms, the router, MLA's
+latents, K/V under the replicated-KV rule, Mamba2's B, C and dt and its
+per-head leaves) is computed whole on every rank, and every leaf used that
+way gets the whole gradient on every rank: a replicated tensor that a split
+computation reads goes through ``copy_to_tp`` first.
+
+Under dp_all (mamba2-130m) only the vocabulary is split over ``model``, and
+the ranks of a model group hold different rows of the batch
+(``TP.split_rows``): the embedding gathers the group's tokens, looks them
+up in this rank's rows of the table and sums the rows back to their ranks
+(``scatter_rows``); the logits are those of the group's gathered hidden
+rows (``gather_rows``) over this rank's vocabulary, and the loss is the
+group's mean. Each rank's gradient of a leaf whole on every rank is then
+its rows' part of the group loss's, summed over the group by the gradient
+mean (``compression.make_local_grad_fn``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
@@ -37,15 +55,20 @@ import torch.distributed as dist
 
 from repro_torch import tree as T
 from repro_torch.distributed import sharding as SH
+from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
+from repro_torch.kernels.fused_rmsnorm import ref as rn_ref
 
 
 @dataclass(frozen=True)
 class TP:
     """The ranks of one model group: ``group`` (a process group), ``size``
-    and this rank's ``rank`` in it."""
+    and this rank's ``rank`` in it. ``split_rows``: the ranks hold
+    different rows of the batch (dp_all), which the vocabulary ops gather
+    (see the module docstring)."""
     group: Any
     size: int
     rank: int
+    split_rows: bool = False
 
 
 def model_group(mesh) -> Optional[TP]:
@@ -110,6 +133,50 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None
 
 
+class _SumOverTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return all_reduce(x.contiguous().clone(), tp.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.tp.group), None
+
+
+def _own_rows(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """This rank's block of dim 0 of x (n blocks, in rank order)."""
+    m = x.shape[0] // tp.size
+    return x[tp.rank * m:(tp.rank + 1) * m]
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return all_gather_dim(x, 0, tp.group, tp.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the sum over the ranks of their gradients of this rank's rows: a
+        # reduce-scatter, run as an all-reduce and this rank's rows, as the
+        # ZeRO-1 mean is (ROADMAP.md, item 12e)
+        g = all_reduce(g.contiguous().clone(), ctx.tp.group)
+        return _own_rows(g, ctx.tp).contiguous(), None
+
+
+class _ScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        x = all_reduce(x.contiguous().clone(), tp.group)
+        return _own_rows(x, tp).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, 0, ctx.tp.group, ctx.tp.size), None
+
+
 def copy_to_tp(x: torch.Tensor, tp: TP) -> torch.Tensor:
     """Identity forward; backward, the gradient summed over the model
     group. For a replicated tensor that a split computation reads."""
@@ -120,6 +187,53 @@ def reduce_from_tp(x: torch.Tensor, tp: TP) -> torch.Tensor:
     """The sum of every rank's ``x`` forward; identity backward. For the
     partial sums of a row-parallel product."""
     return _ReduceFromTP.apply(x, tp)
+
+
+def sum_over_tp(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """The sum of every rank's ``x`` forward, and of every rank's gradient
+    backward: for a sum every rank reads for its own part of a split
+    computation, so that the gradient of a rank's term is the sum of what
+    each rank's reading gives it."""
+    return _SumOverTP.apply(x, tp)
+
+
+def gather_rows(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 in rank order; backward,
+    each rank's block of the gradient summed over the ranks."""
+    return _GatherRows.apply(x, tp)
+
+
+def scatter_rows(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """This rank's block of dim 0 of the sum of every rank's ``x`` (n
+    blocks); backward, the gradients of every rank's block gathered."""
+    return _ScatterRows.apply(x, tp)
+
+
+def split_rmsnorm(p, y: torch.Tensor, gate, eps: float, use_pallas: bool,
+                  tp: TP) -> torch.Tensor:
+    """``layers.rmsnorm(p, y, eps, gate=gate)`` of rows whose columns are
+    split over the model group: ``y``, ``gate`` and ``p["scale"]`` are this
+    rank's columns. Each row's sum of squares (of ``y * silu(gate)`` where
+    gated, rounded as the fused kernel rounds it) on this rank's columns,
+    summed over the ranks (``sum_over_tp``), then this rank's columns
+    scaled by the mean over the full width: with ``use_pallas`` the two
+    passes of the RMSNorm kernel's split mode, else their plain versions."""
+    w = p["scale"]
+    width = y.shape[-1] * tp.size
+    if use_pallas:
+        ss = sum_over_tp(rn_ops.row_sumsq(y, gate), tp)
+        return rn_ops.rmsnorm(y, w, eps=eps, gate=gate, row_ss=ss,
+                              width=width)
+    ss = sum_over_tp(rn_ref.row_sumsq_ref(y, gate), tp)
+    return rn_ref.rmsnorm_ref(y, w, eps=eps, gate=gate, row_ss=ss,
+                              width=width)
+
+
+def local_heads(t: torch.Tensor, dim: int, n: int, tp: TP) -> torch.Tensor:
+    """This rank's ``n`` heads (``rank * n`` on) along ``dim`` of a tensor
+    whole on every rank, after ``copy_to_tp`` (the gradient of each head
+    whole on the rank that reads it, zero on the others, summed)."""
+    return copy_to_tp(t, tp).narrow(dim, tp.rank * n, n)
 
 
 def row_parallel(p, h: torch.Tensor, tp: TP) -> torch.Tensor:
@@ -143,10 +257,16 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, tp: TP
                 ) -> torch.Tensor:
     """``F.embedding(tokens, full table)`` from this rank's rows of the
     table: a masked lookup, summed over the model group (one rank adds the
-    row, the others zeros)."""
+    row, the others zeros). Where the group's ranks hold different rows of
+    the batch (``tp.split_rows``) the lookup is of the group's tokens,
+    gathered, and each rank keeps the sum of its own rows
+    (``scatter_rows``)."""
+    if tp.split_rows:
+        tokens = all_gather_dim(tokens, 0, tp.group, tp.size)
     local, mine = _local_ids(tokens, table.shape[0], tp)
     x = torch.nn.functional.embedding(local, table)
-    return reduce_from_tp(x.masked_fill(~mine[..., None], 0), tp)
+    x = x.masked_fill(~mine[..., None], 0)
+    return scatter_rows(x, tp) if tp.split_rows else reduce_from_tp(x, tp)
 
 
 def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, tp: TP
@@ -186,11 +306,12 @@ def local_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, groups: int,
 
 # -------------------------------------------------------- train layout
 class TrainLayout:
-    """How the ranks of ``mesh`` hold a tp16 model's train state: each
-    parameter leaf's block by its spec (``sharding.params_pspec``: split
-    over ``model``, replicated over ``data``), each AdamW moment's block by
-    ``sharding.zero1_spec`` (ZeRO-1: also split over ``data`` where a free
-    dim divides), and this rank's model group (``tp``)."""
+    """How the ranks of ``mesh`` hold a model's train state: each parameter
+    leaf's block by its spec (``sharding.params_pspec``: under tp16 split
+    over ``model``, under dp_all only the vocabulary; replicated over
+    ``data``), each AdamW moment's block by ``sharding.zero1_spec`` (ZeRO-1:
+    also split over ``data`` where a free dim divides), and this rank's
+    model group (``tp``)."""
 
     def __init__(self, cfg, mesh):
         from repro_torch.models.model import init_params   # models imports us
@@ -244,15 +365,24 @@ class TrainLayout:
 
 def unsupported(cfg, mesh) -> Optional[str]:
     """Why the port cannot run ``cfg`` tensor-parallel over ``mesh``'s
-    ``model`` axis, or None (also for one rank or the dp_all policy)."""
+    ``model`` axis, or None (also for one rank)."""
     n = mesh.shape.get(SH.MODEL_AXIS, 1)
-    if n == 1 or SH.policy_for(cfg) != "tp16":
+    if n == 1:
+        return None
+    if cfg.vocab_tp and cfg.padded_vocab % n:
+        return (f"{cfg.name}: the vocabulary of {cfg.padded_vocab} rows does "
+                f"not divide over {n} model ranks")
+    if SH.policy_for(cfg) != "tp16":
         return None
     if cfg.family == "hybrid":
-        return (f"{cfg.name}: tensor parallelism of the hybrid family over "
-                f"{n} model ranks needs the gated norm's sum of squares "
-                f"reduced across ranks inside the fused RMSNorm kernel "
-                f"(ROADMAP.md, item 12c)")
+        H, G = cfg.ssm_heads, cfg.ssm_groups
+        if H % n:
+            return (f"{cfg.name}: {H} SSD heads do not divide over {n} model "
+                    f"ranks")
+        per_group, mine = H // G, H // n
+        if mine % per_group and per_group % mine:
+            return (f"{cfg.name}: {mine} SSD heads a rank straddle the "
+                    f"{G} B/C groups of {per_group} heads")
     if cfg.num_heads % n:
         return (f"{cfg.name}: {cfg.num_heads} query heads do not divide over "
                 f"{n} model ranks (the port splits whole heads)")
@@ -260,15 +390,25 @@ def unsupported(cfg, mesh) -> Optional[str]:
 
 
 def train_layout(cfg, mesh) -> Optional[TrainLayout]:
-    """The ``TrainLayout`` of ``cfg`` on ``mesh`` under the tp16 policy on
-    more than one rank; None for one rank or the dp_all policy (whose
-    parameters and moments stay whole on every rank). Raises
-    NotImplementedError where ``unsupported`` says why."""
-    if (mesh is None or SH.policy_for(cfg) != "tp16"
-            or math.prod(mesh.shape.get(a, 1)
-                         for a in (SH.DATA_AXIS, SH.MODEL_AXIS)) == 1):
+    """The ``TrainLayout`` of ``cfg`` on ``mesh`` (either policy) over more
+    than one rank; None for one rank. Raises NotImplementedError where
+    ``unsupported`` says why."""
+    if (mesh is None or math.prod(mesh.shape.get(a, 1) for a in
+                                  (SH.DATA_AXIS, SH.MODEL_AXIS)) == 1):
         return None
     why = unsupported(cfg, mesh)
     if why:
         raise NotImplementedError(why)
     return TrainLayout(cfg, mesh)
+
+
+def step_group(cfg, layout: Optional[TrainLayout], dp_axes
+               ) -> Optional[TP]:
+    """The model group a train step's forward runs over: ``layout.tp``, and
+    under dp_all, where the batch is split over ``model`` too
+    (``dp_axes``), the same group with ``split_rows``."""
+    tp = layout.tp if layout is not None else None
+    if (tp is not None and SH.policy_for(cfg) == "dp_all"
+            and SH.MODEL_AXIS in dp_axes):
+        tp = dataclasses.replace(tp, split_rows=True)
+    return tp

@@ -10,8 +10,9 @@ carries over from one step to the next. With ``cfg.use_pallas`` (the port's
 default) the forward on the card runs the CUDA kernels and the backward the
 vector-Jacobian products of their plain versions (the kernels' wrappers).
 ``cfg.remat`` selects the activation checkpointing (``models.model``).
-Under the tp16 policy on a mesh of several ranks the step is tensor-parallel
-and ZeRO-1 (``distributed/tensor_parallel.py``).
+On a mesh of several ranks the step is ZeRO-1 over ``data`` and splits the
+model over ``model`` (``distributed/tensor_parallel.py``): under tp16 the
+layers and the vocabulary, under dp_all the vocabulary alone.
 
 The update is ``optim.adamw.update``, which writes the new parameters and
 moments into the trees it is given: ``train_step`` returns the caller's
@@ -38,12 +39,15 @@ def make_loss_fn(cfg: ModelConfig, tp=None):
     """loss_fn(params, batch) -> (loss, metrics). With ``tp`` the forward
     runs tensor-parallel and, where the vocabulary is split, the cross
     entropy is the vocab-parallel one (``tensor_parallel.vocab_parallel_ce``,
-    the same arithmetic)."""
+    the same arithmetic); where the group's ranks hold other rows
+    (``tp.split_rows``) it is the mean over the group's rows, gathered."""
     vtp = M.vocab_group(cfg, tp)
 
     def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         logits, aux, _ = M.forward(params, cfg, batch, mode="train", tp=tp)
         labels = batch["labels"].long()
+        if vtp is not None and vtp.split_rows:
+            labels = TP.all_gather_dim(labels, 0, vtp.group, vtp.size)
         if vtp is not None:
             ce = torch.mean(TP.vocab_parallel_ce(logits, labels, vtp))
             loss = ce + aux
@@ -121,7 +125,8 @@ def make_grad_fn(cfg: ModelConfig, *, accum_steps: int = 1,
     return grad_fn
 
 
-def kernel_launches(cfg: ModelConfig) -> Dict[str, int]:
+def kernel_launches(cfg: ModelConfig, model_ranks: int = 1
+                    ) -> Dict[str, int]:
     """The CUDA kernel launches of one ``make_grad_fn(cfg)`` pass (one step
     at ``accum_steps=1``) with ``cfg.use_pallas``, by kernel. Each layer's
     forward launches its kernels once, and once more in its recompute under
@@ -133,11 +138,14 @@ def kernel_launches(cfg: ModelConfig) -> Dict[str, int]:
     norm; the hybrid's shared block runs once per group, never under remat
     (as in the reference). A rank of a tensor-parallel step launches as
     many: each kernel runs once a layer whatever the rank's share of the
-    heads, and every norm runs whole on every rank."""
+    heads, and every norm runs whole on every rank, but for the gated norm
+    of a Mamba2 layer split over ``model_ranks`` > 1 ranks, which runs in
+    two launches (``tensor_parallel.split_rmsnorm``)."""
     L, runs = cfg.num_layers, 1 if cfg.remat == "none" else 2
     shared = 0                          # the hybrid's shared-block calls
     if cfg.family in ("ssm", "hybrid"):
-        flash, norms, scans = 0, 2 * L, L
+        split = cfg.family == "hybrid" and model_ranks > 1
+        flash, norms, scans = 0, (3 if split else 2) * L, L
         if cfg.family == "hybrid":
             shared = L // cfg.attn_every
     else:
@@ -145,6 +153,16 @@ def kernel_launches(cfg: ModelConfig) -> Dict[str, int]:
     return {"flash_attention": runs * flash + shared, "decode_attention": 0,
             "fused_rmsnorm": runs * norms + 2 * shared + 1,
             "ssd": runs * scans}
+
+
+def split_norm_launches(cfg: ModelConfig, model_ranks: int) -> int:
+    """The split-row RMSNorm launches among ``kernel_launches(cfg,
+    model_ranks)["fused_rmsnorm"]``: the two passes of each Mamba2 layer's
+    gated norm and forward run, where the hybrid family is split over more
+    than one model rank; else none."""
+    if cfg.family != "hybrid" or model_ranks == 1:
+        return 0
+    return 2 * cfg.num_layers * (1 if cfg.remat == "none" else 2)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig, *,
@@ -162,25 +180,31 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig, *,
     in f32); grad_compression='int8' makes that mean the two-phase int8 one,
     on any number of ranks (one rank: the gradients quantized once).
 
-    A tp16 model on a mesh of several ranks (``tensor_parallel.train_layout``)
-    runs tensor-parallel over ``model`` and ZeRO-1 over ``data``: the step
+    On a mesh of several ranks (``tensor_parallel.train_layout``) the step
     takes this rank's blocks, ``layout.shard_params(params)`` and
-    ``adamw.init(params, layout)``, and updates them; the gradient mean over
-    ``data`` acts on the rank's blocks of the gradients. The step carries
-    its gradient function (``grad_fn``, the mean over ``data`` included)
-    and its ``layout`` (None on one rank) as attributes."""
+    ``adamw.init(params, layout)``, and updates them, ZeRO-1 over ``data``:
+    a tp16 model runs tensor-parallel over ``model``, a dp_all one splits
+    its vocabulary there (over ranks holding other rows where ``dp_axes``
+    name ``model``: ``tensor_parallel.step_group``). The gradient mean acts
+    on the rank's blocks of the gradients. The step carries its gradient
+    function (``grad_fn``, the mean included) and its ``layout`` (None on
+    one rank) as attributes."""
     if grad_compression not in (None, "int8"):
         raise ValueError(f"unknown grad_compression {grad_compression!r}")
     layout = TP.train_layout(cfg, mesh)
-    grad_fn = make_grad_fn(cfg, accum_steps=accum_steps,
-                           tp=layout.tp if layout else None)
+    tp = TP.step_group(cfg, layout, dp_axes)
+    grad_fn = make_grad_fn(cfg, accum_steps=accum_steps, tp=tp)
     compress = grad_compression == "int8"
     if compress or (mesh is not None and mesh.axes_size(dp_axes) > 1):
         if mesh is None or not dp_axes:
             raise ValueError("int8 compression needs mesh and dp_axes")
         batch_dim_map = {"positions": 1} if cfg.rope_kind == "mrope" else {}
+        group_loss = (layout.split_over_model
+                      if tp is not None and tp.split_rows
+                      and M.vocab_group(cfg, tp) is not None else None)
         grad_fn = make_local_grad_fn(grad_fn, mesh, dp_axes, batch_dim_map,
-                                     compress=compress)
+                                     compress=compress,
+                                     group_loss=group_loss)
 
     def train_step(params, opt_state, batch):
         grads, metrics = grad_fn(params, batch)

@@ -12,9 +12,10 @@ import threading
 _count_lock = threading.Lock()
 
 
-def count_launch(module: str):
-    """Add one to ``launches`` of the wrapper module named ``module`` (its
+def count_launch(module: str, counter: str = "launches"):
+    """Add one to ``counter`` (``launches``, or a count of one kind of
+    launch among them) of the wrapper module named ``module`` (its
     ``__name__``), under a lock shared by the four wrappers."""
     mod = sys.modules[module]
     with _count_lock:
-        mod.launches += 1
+        setattr(mod, counter, getattr(mod, counter) + 1)

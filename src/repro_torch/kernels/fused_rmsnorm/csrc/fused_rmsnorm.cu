@@ -36,6 +36,15 @@
 //   registers: scalar loads, the row read once for the sum and again, from
 //   the cache, for the scale.
 //
+// Split rows (tensor parallelism, a row's columns over the ranks of a model
+// group): the row's sum of squares must cross the ranks between the
+// reduction and the scaling, so the two become launches of their own, MODE
+// SUMSQ (each row's f32 sum of squares of x or g, rounded as above, written
+// to ss) and MODE SCALE (ss read, after the caller's all-reduce, in place of
+// the reduction, and the mean taken over the full width d_full). Both read
+// the row once, the first writing 4 bytes a row and the second the output:
+// the bound is the sum of the two passes' bytes.
+//
 // The launch parameters (threads, rows a block, blocks) are chosen by
 // ops.plan from the row count, the width and the SM count.
 #include <math.h>
@@ -49,6 +58,10 @@ namespace {
 constexpr int NV = 4;              // 16-byte vectors of a row a thread holds
 constexpr int MAX_THREADS = 512;   // threads of a block (ops.MAX_THREADS)
 constexpr int LOOP_THREADS = 256;
+
+// what a launch computes: the whole norm, a row's sum of squares alone, or
+// the scaling from a given sum of squares
+enum Mode { NORM = 0, SUMSQ = 1, SCALE = 2 };
 
 // 16 bytes of T widened to f32 (4 floats or 8 bf16 values), and back
 template <typename T> __device__ __forceinline__ void widen(const uint4& r, float* f);
@@ -118,11 +131,14 @@ __device__ __forceinline__ void load_w(const T* w, uint4* wv, int nvec,
 // the row's sum, so that the row's loads go out first (at a decode step's
 // 8 rows that launch took ~10% less device time than loading w first, and
 // no prefetch code: PERF.md, Findings).
-template <typename T, bool GATED, bool PERSIST>
+// MODE SUMSQ writes each row's sum to ss and nothing else; MODE SCALE reads
+// it there and skips the reduction. The mean's divisor is d_full (d but
+// where the row is split).
+template <typename T, bool GATED, bool PERSIST, int MODE>
 __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_rows(
     const T* __restrict__ x, const T* __restrict__ gate,
-    const T* __restrict__ w, T* __restrict__ out, int rows, int d,
-    long long xs, long long gs, float eps) {
+    const T* __restrict__ w, T* __restrict__ out, float* __restrict__ ss_io,
+    int rows, int d, long long xs, long long gs, float d_full, float eps) {
   constexpr int V = 16 / sizeof(T);
   __shared__ float red[2][MAX_THREADS / 32];   // warp sums, by iteration parity
   const int threads = blockDim.x;
@@ -133,7 +149,7 @@ __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_rows(
   const int step = gridDim.x * blockDim.y;
 
   uint4 wv[NV], xv[NV], gv[NV];
-  if constexpr (PERSIST) load_w(w, wv, nvec, threads);
+  if constexpr (PERSIST && MODE != SUMSQ) load_w(w, wv, nvec, threads);
   int row = blockIdx.x * blockDim.y + threadIdx.y;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
@@ -181,20 +197,25 @@ __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_rows(
       }
     }
 
-    ss = warp_sum(ss);
-    if (nw > 1) {                    // the group's warp sums, by each warp
-      const int lane = threadIdx.x & 31;
-      float* r = red[it & 1];
-      if (lane == 0) r[first + (threadIdx.x >> 5)] = ss;
-      __syncthreads();
-      ss = warp_sum(lane < nw ? r[first + lane] : 0.0f);
+    if constexpr (MODE == SCALE) {
+      ss = live ? ss_io[row] : 0.0f;
+    } else {
+      ss = warp_sum(ss);
+      if (nw > 1) {                  // the group's warp sums, by each warp
+        const int lane = threadIdx.x & 31;
+        float* r = red[it & 1];
+        if (lane == 0) r[first + (threadIdx.x >> 5)] = ss;
+        __syncthreads();
+        ss = warp_sum(lane < nw ? r[first + lane] : 0.0f);
+      }
+      if (MODE == SUMSQ && live && threadIdx.x == 0) ss_io[row] = ss;
     }
-    const float inv = rsqrtf(ss / (float)d + eps);
-    if constexpr (!PERSIST) load_w(w, wv, nvec, threads);
+    const float inv = rsqrtf(ss / d_full + eps);
+    if constexpr (!PERSIST && MODE != SUMSQ) load_w(w, wv, nvec, threads);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int v = threadIdx.x + i * threads;
-      if (live && v < nvec) {
+      if (MODE != SUMSQ && live && v < nvec) {
         float f[V], wf[V];
         widen<T>(xv[i], f);
         widen<T>(wv[i], wf);
@@ -212,29 +233,37 @@ __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_rows(
 }
 
 // One block of LOOP_THREADS a row, scalar loads: the row is read for the sum
-// and again (from L1/L2) for the scale.
-template <typename T, bool GATED>
+// and again (from L1/L2) for the scale. MODE as rmsnorm_rows'.
+template <typename T, bool GATED, int MODE>
 __global__ void __launch_bounds__(LOOP_THREADS) rmsnorm_loop(
     const T* __restrict__ x, const T* __restrict__ gate,
-    const T* __restrict__ w, T* __restrict__ out, int d, long long xs,
-    long long gs, float eps) {
+    const T* __restrict__ w, T* __restrict__ out, float* __restrict__ ss_io,
+    int d, long long xs, long long gs, float d_full, float eps) {
   __shared__ float red[LOOP_THREADS / 32];
   const T* xr = x + (long long)blockIdx.x * xs;
   const T* gr = gate + (long long)blockIdx.x * gs;
   T* orow = out + (long long)blockIdx.x * d;
   float ss = 0.0f;
-  for (int c = threadIdx.x; c < d; c += LOOP_THREADS) {
-    float v = to_f32(xr[c]);
-    if (GATED) v = gated<T>(v, to_f32(gr[c]));
-    ss += v * v;
-  }
-  ss = warp_sum(ss);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = ss;
-  __syncthreads();
-  ss = 0.0f;
+  if constexpr (MODE == SCALE) {
+    ss = ss_io[blockIdx.x];
+  } else {
+    for (int c = threadIdx.x; c < d; c += LOOP_THREADS) {
+      float v = to_f32(xr[c]);
+      if (GATED) v = gated<T>(v, to_f32(gr[c]));
+      ss += v * v;
+    }
+    ss = warp_sum(ss);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = ss;
+    __syncthreads();
+    ss = 0.0f;
 #pragma unroll
-  for (int i = 0; i < LOOP_THREADS / 32; ++i) ss += red[i];
-  const float inv = rsqrtf(ss / (float)d + eps);
+    for (int i = 0; i < LOOP_THREADS / 32; ++i) ss += red[i];
+    if constexpr (MODE == SUMSQ) {
+      if (threadIdx.x == 0) ss_io[blockIdx.x] = ss;
+      return;
+    }
+  }
+  const float inv = rsqrtf(ss / d_full + eps);
   for (int c = threadIdx.x; c < d; c += LOOP_THREADS) {
     float v = to_f32(xr[c]);
     if (GATED) v = gated<T>(v, to_f32(gr[c]));
@@ -242,24 +271,66 @@ __global__ void __launch_bounds__(LOOP_THREADS) rmsnorm_loop(
   }
 }
 
-template <typename T, bool GATED>
-int launch(const void* x, const void* gate, const void* w, void* out, int rows,
-           int d, long long xs, long long gs, float eps,
-           int threads, int rows_per_block, int blocks, cudaStream_t s) {
+template <typename T, bool GATED, int MODE>
+int launch(const void* x, const void* gate, const void* w, void* out,
+           float* ss, int rows, int d, long long xs, long long gs,
+           float d_full, float eps, int threads, int rows_per_block,
+           int blocks, cudaStream_t s) {
   const T* xp = static_cast<const T*>(x);
   const T* gp = static_cast<const T*>(gate);
   const T* wp = static_cast<const T*>(w);
   T* op = static_cast<T*>(out);
   if (threads == 0)
-    rmsnorm_loop<T, GATED><<<rows, LOOP_THREADS, 0, s>>>(xp, gp, wp, op, d,
-                                                         xs, gs, eps);
+    rmsnorm_loop<T, GATED, MODE><<<rows, LOOP_THREADS, 0, s>>>(
+        xp, gp, wp, op, ss, d, xs, gs, d_full, eps);
   else if (blocks < (rows + rows_per_block - 1) / rows_per_block)
-    rmsnorm_rows<T, GATED, true><<<blocks, dim3(threads, rows_per_block), 0, s>>>(
-        xp, gp, wp, op, rows, d, xs, gs, eps);
+    rmsnorm_rows<T, GATED, true, MODE>
+        <<<blocks, dim3(threads, rows_per_block), 0, s>>>(
+            xp, gp, wp, op, ss, rows, d, xs, gs, d_full, eps);
   else
-    rmsnorm_rows<T, GATED, false><<<blocks, dim3(threads, rows_per_block), 0, s>>>(
-        xp, gp, wp, op, rows, d, xs, gs, eps);
+    rmsnorm_rows<T, GATED, false, MODE>
+        <<<blocks, dim3(threads, rows_per_block), 0, s>>>(
+            xp, gp, wp, op, ss, rows, d, xs, gs, d_full, eps);
   return (int)cudaGetLastError();
+}
+
+// The checks every entry point makes of its launch; 0 where they pass.
+int bad_launch(int dtype, int rows, int d, int threads, int rows_per_block,
+               int blocks) {
+  if (rows <= 0 || d <= 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (threads != 0) {
+    const int vec = dtype == 0 ? 4 : 8;
+    if (d % vec || threads % 32 || threads > MAX_THREADS ||
+        rows_per_block < 1 || threads * rows_per_block > MAX_THREADS ||
+        blocks < 1 || threads * NV < d / vec)
+      return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+template <int MODE>
+int dispatch(const void* x, const void* gate, const void* w, void* out,
+             float* ss, int dtype, int rows, int d, long long xs,
+             long long gs, float d_full, float eps, int threads,
+             int rows_per_block, int blocks, void* stream) {
+  const int bad = bad_launch(dtype, rows, d, threads, rows_per_block, blocks);
+  if (bad) return bad;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool g = gate != nullptr;
+  if (dtype == 0)
+    return g ? launch<float, true, MODE>(x, gate, w, out, ss, rows, d, xs, gs,
+                                         d_full, eps, threads, rows_per_block,
+                                         blocks, s)
+             : launch<float, false, MODE>(x, gate, w, out, ss, rows, d, xs,
+                                          gs, d_full, eps, threads,
+                                          rows_per_block, blocks, s);
+  return g ? launch<__nv_bfloat16, true, MODE>(x, gate, w, out, ss, rows, d,
+                                               xs, gs, d_full, eps, threads,
+                                               rows_per_block, blocks, s)
+           : launch<__nv_bfloat16, false, MODE>(x, gate, w, out, ss, rows, d,
+                                                xs, gs, d_full, eps, threads,
+                                                rows_per_block, blocks, s);
 }
 
 }  // namespace
@@ -275,24 +346,35 @@ extern "C" int fused_rmsnorm_fwd(const void* x, const void* gate, const void* w,
                                  long long xs, long long gs,
                                  float eps, int threads, int rows_per_block,
                                  int blocks, void* stream) {
-  if (rows <= 0 || d <= 0 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if (threads != 0) {
-    const int vec = dtype == 0 ? 4 : 8;
-    if (d % vec || threads % 32 || threads > MAX_THREADS ||
-        rows_per_block < 1 || threads * rows_per_block > MAX_THREADS ||
-        blocks < 1 || threads * NV < d / vec)
-      return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool g = gate != nullptr;
-  if (dtype == 0)
-    return g ? launch<float, true>(x, gate, w, out, rows, d, xs, gs, eps,
-                                   threads, rows_per_block, blocks, s)
-             : launch<float, false>(x, gate, w, out, rows, d, xs, gs, eps,
-                                    threads, rows_per_block, blocks, s);
-  return g ? launch<__nv_bfloat16, true>(x, gate, w, out, rows, d, xs, gs,
-                                         eps, threads, rows_per_block, blocks, s)
-           : launch<__nv_bfloat16, false>(x, gate, w, out, rows, d, xs, gs,
-                                          eps, threads, rows_per_block, blocks, s);
+  return dispatch<NORM>(x, gate, w, out, nullptr, dtype, rows, d, xs, gs,
+                        (float)d, eps, threads, rows_per_block, blocks,
+                        stream);
+}
+
+// The split row's first pass: ss (rows,) f32 gets each row's sum of squares
+// of x, or of g = x * silu(gate) rounded to x's dtype. Arguments as
+// fused_rmsnorm_fwd's.
+extern "C" int fused_rmsnorm_sumsq(const void* x, const void* gate, float* ss,
+                                   int dtype, int rows, int d, long long xs,
+                                   long long gs, int threads,
+                                   int rows_per_block, int blocks,
+                                   void* stream) {
+  return dispatch<SUMSQ>(x, gate, nullptr, nullptr, ss, dtype, rows, d, xs,
+                         gs, 1.0f, 0.0f, threads, rows_per_block, blocks,
+                         stream);
+}
+
+// The split row's second pass: out = g * rsqrt(ss / d_full + eps) * (1 + w)
+// from ss (rows,) f32, the row's sum of squares over its full width d_full
+// (every rank's columns); x, the gate, w and out this rank's d columns.
+extern "C" int fused_rmsnorm_scale(const void* x, const void* gate,
+                                   const void* w, const float* ss, void* out,
+                                   int dtype, int rows, int d, long long xs,
+                                   long long gs, int d_full, float eps,
+                                   int threads, int rows_per_block,
+                                   int blocks, void* stream) {
+  if (d_full < d) return (int)cudaErrorInvalidValue;
+  return dispatch<SCALE>(x, gate, w, out, const_cast<float*>(ss), dtype, rows,
+                         d, xs, gs, (float)d_full, eps, threads,
+                         rows_per_block, blocks, stream);
 }

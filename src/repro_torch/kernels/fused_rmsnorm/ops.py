@@ -14,10 +14,17 @@ of the host's, so the CUDA path of ``rmsnorm`` is kept short: the C entry
 point, the SM count and the plans are cached, the checks are the kernel's
 needs only, one output is allocated and one ``ctypes`` call launches.
 
-A CPU tensor takes the plain version (``ref.rmsnorm_ref``); a CUDA tensor
-launches the kernel or raises. ``launches`` counts kernel launches. Under
-grad the gradient is the vector-Jacobian product of ``ref.rmsnorm_ref``,
-gated or not (``kernels._grad``).
+Split rows (tensor parallelism: each rank holds some columns of a row,
+``distributed/tensor_parallel.split_rmsnorm``) take two launches with the
+caller's all-reduce between them: ``row_sumsq`` (each row's f32 sum of
+squares, gated or not) and ``rmsnorm(..., row_ss=, width=)`` (the scaling
+from the summed row, the mean over the full ``width``).
+
+A CPU tensor takes the plain version (``ref.rmsnorm_ref``,
+``ref.row_sumsq_ref``); a CUDA tensor launches the kernel or raises.
+``launches`` counts kernel launches, ``split_launches`` those of the two
+split-row passes among them. Under grad the gradient is the
+vector-Jacobian product of the plain version (``kernels._grad``).
 """
 from __future__ import annotations
 
@@ -31,11 +38,16 @@ from .. import _build, _grad, count_launch
 from . import ref
 
 launches = 0
+split_launches = 0
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 _SIGNATURES = {"fused_rmsnorm_fwd":
-               [_P] * 4 + [_I] * 3 + [_L] * 2 + [ctypes.c_float] + [_I] * 3
-               + [_P]}
+               [_P] * 4 + [_I] * 3 + [_L] * 2 + [_F] + [_I] * 3 + [_P],
+               "fused_rmsnorm_sumsq":
+               [_P] * 3 + [_I] * 3 + [_L] * 2 + [_I] * 3 + [_P],
+               "fused_rmsnorm_scale":
+               [_P] * 5 + [_I] * 3 + [_L] * 2 + [_I, _F] + [_I] * 3 + [_P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LOADS = 4            # 16-byte vectors of a row a thread holds (NV) at most
 MAX_THREADS = 512    # threads of a block
@@ -87,27 +99,77 @@ def _load():
     return _fwd
 
 
-def rmsnorm(x, w, *, eps: float = 1e-6, gate=None):
+def _check_gate(x, gate):
+    if gate is None:
+        return
+    if gate.shape != x.shape:
+        raise ValueError(f"gate {tuple(gate.shape)} is not x's shape "
+                         f"{tuple(x.shape)}")
+    if gate.dtype != x.dtype:
+        raise TypeError(f"gate is {gate.dtype}, x {x.dtype}")
+    if gate.device != x.device:
+        raise ValueError("x and gate must be on one device")
+
+
+def rmsnorm(x, w, *, eps: float = 1e-6, gate=None, row_ss=None, width=None):
     """x (..., d), w (d,) -> x's shape and dtype. With ``gate`` (x's shape,
-    dtype and device) it normalizes ``x * silu(gate)``."""
+    dtype and device) it normalizes ``x * silu(gate)``. With ``row_ss``
+    (x.shape[:-1], f32, on x's device: each row's sum of squares over the
+    full row, of which x holds d columns) and ``width`` (the full row's
+    width) it scales by ``rsqrt(row_ss / width + eps)``."""
+    _check_gate(x, gate)
+    if row_ss is None:
+        return _grad.call(_launch, plain, x, w, gate, eps=eps)
+    if (row_ss.shape != x.shape[:-1] or row_ss.dtype != torch.float32
+            or row_ss.device != x.device):
+        raise ValueError(f"row_ss must be an f32 {tuple(x.shape[:-1])} "
+                         f"tensor on x's device, got {row_ss.dtype} "
+                         f"{tuple(row_ss.shape)} on {row_ss.device}")
+    if width is None or width < x.shape[-1]:
+        raise ValueError(f"width {width} is not a full row of at least "
+                         f"{x.shape[-1]} columns")
+    return _grad.call(_launch, plain, x, w, gate, row_ss, eps=eps,
+                      width=int(width))
+
+
+def row_sumsq(x, gate=None):
+    """Each row's sum of squares of x (..., d), or of ``x * silu(gate)``
+    rounded to x's dtype, in f32: x.shape[:-1]."""
+    _check_gate(x, gate)
+    return _grad.call(_launch_sumsq, plain_sumsq, x, gate)
+
+
+def plain(x, w, gate, row_ss=None, *, eps: float, width=None):
+    """``ref.rmsnorm_ref``, gated where ``gate`` is not None, from
+    ``row_ss`` where given."""
+    return ref.rmsnorm_ref(x, w, eps=eps, gate=gate, row_ss=row_ss,
+                           width=width)
+
+
+def plain_sumsq(x, gate):
+    """``ref.row_sumsq_ref``."""
+    return ref.row_sumsq_ref(x, gate)
+
+
+def _geometry(x, gate, dtype: int, wp: int = 0):
+    """(x's row stride, the gate's pointer (0 without one) and row stride,
+    the elements in a 16-byte vector, and whether every row starts 16-byte
+    aligned at a width of whole vectors, w's pointer ``wp`` too)."""
+    d = x.shape[-1]
+    xs = d if x.is_contiguous() else _row_stride(x, d, "x")
+    gp = gs = 0
     if gate is not None:
-        if gate.shape != x.shape:
-            raise ValueError(f"gate {tuple(gate.shape)} is not x's shape "
-                             f"{tuple(x.shape)}")
-        if gate.dtype != x.dtype:
-            raise TypeError(f"gate is {gate.dtype}, x {x.dtype}")
-        if gate.device != x.device:
-            raise ValueError("x and gate must be on one device")
-    return _grad.call(_launch, plain, x, w, gate, eps=eps)
+        gp = gate.data_ptr()
+        gs = d if gate.is_contiguous() else _row_stride(gate, d, "gate")
+    vec = 8 if dtype else 4            # elements in 16 bytes
+    aligned = not (d % vec or xs % vec or gs % vec
+                   or (x.data_ptr() | wp | gp) & 15)
+    return xs, gp, gs, vec, aligned
 
 
-def plain(x, w, gate, *, eps: float):
-    """``ref.rmsnorm_ref``, gated where ``gate`` is not None."""
-    return ref.rmsnorm_ref(x, w, eps=eps, gate=gate)
-
-
-def _launch(x, w, gate, *, eps):
-    """Launch the CUDA kernel; a new output, outside autograd."""
+def _launch(x, w, gate, row_ss=None, *, eps, width=None):
+    """Launch the CUDA kernel (the scaling pass of a split row where
+    ``row_ss`` is given); a new output, outside autograd."""
     dtype = _DTYPES.get(x.dtype)
     if dtype is None or w.dtype != x.dtype:
         raise TypeError(f"rmsnorm takes float32 or bfloat16 x and w of one "
@@ -117,29 +179,52 @@ def _launch(x, w, gate, *, eps):
     if w.shape != (d,) or w.get_device() != dev or not w.is_contiguous():
         raise ValueError(f"w must be a contiguous ({d},) vector on x's device,"
                          f" got {tuple(w.shape)} on {w.device}")
-    if x.is_contiguous():
-        xs = d
-        out = torch.empty_like(x)
-    else:
-        xs = _row_stride(x, d, "x")
-        out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    gp = gs = 0
-    if gate is not None:
-        gp = gate.data_ptr()
-        gs = d if gate.is_contiguous() else _row_stride(gate, d, "gate")
+    wp = w.data_ptr()
+    xs, gp, gs, vec, aligned = _geometry(x, gate, dtype, wp)
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
     n = out.numel()
     if n == 0:
         return out
-    xp, wp = x.data_ptr(), w.data_ptr()
-    vec = 8 if dtype else 4            # elements in 16 bytes
-    aligned = not (d % vec or xs % vec or gs % vec or (xp | wp | gp) & 15)
     threads, rows_per_block, blocks = plan(n // d, d, vec, aligned,
                                            sm_count(dev), gp != 0)
-    err = (_fwd or _load())(xp, gp, wp, out.data_ptr(), dtype, n // d, d, xs,
-                            gs, eps, threads, rows_per_block, blocks,
-                            stream_ptr(dev))
+    if row_ss is None:
+        err = (_fwd or _load())(x.data_ptr(), gp, wp, out.data_ptr(), dtype,
+                                n // d, d, xs, gs, eps, threads,
+                                rows_per_block, blocks, stream_ptr(dev))
+    else:
+        row_ss = row_ss.contiguous()
+        err = _build.load("fused_rmsnorm", _SIGNATURES).fused_rmsnorm_scale(
+            x.data_ptr(), gp, wp, row_ss.data_ptr(), out.data_ptr(), dtype,
+            n // d, d, xs, gs, width, eps, threads, rows_per_block, blocks,
+            stream_ptr(dev))
     if err:
         _build.check(_build.load("fused_rmsnorm", _SIGNATURES),
                      "fused_rmsnorm", err)
     count_launch(__name__)
+    if row_ss is not None:
+        count_launch(__name__, "split_launches")
+    return out
+
+
+def _launch_sumsq(x, gate):
+    """Launch the CUDA kernel's row-sum pass; a new f32 (x.shape[:-1])
+    tensor, outside autograd."""
+    dtype = _DTYPES.get(x.dtype)
+    if dtype is None:
+        raise TypeError(f"rmsnorm takes float32 or bfloat16 x, got {x.dtype}")
+    d = x.shape[-1]
+    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    if out.numel() == 0 or d == 0:
+        return out.zero_()
+    xs, gp, gs, vec, aligned = _geometry(x, gate, dtype)
+    dev = x.get_device()
+    threads, rows_per_block, blocks = plan(out.numel(), d, vec, aligned,
+                                           sm_count(dev), gp != 0)
+    lib = _build.load("fused_rmsnorm", _SIGNATURES)
+    err = lib.fused_rmsnorm_sumsq(x.data_ptr(), gp, out.data_ptr(), dtype,
+                                  out.numel(), d, xs, gs, threads,
+                                  rows_per_block, blocks, stream_ptr(dev))
+    _build.check(lib, "fused_rmsnorm", err)
+    count_launch(__name__)
+    count_launch(__name__, "split_launches")
     return out

@@ -15,8 +15,10 @@ rank's own batch, the global batch over the size of ``sharding.batch_axes``:
     batch, of which the rank keeps its rows: the exact per-rank program the
     port runs, its gradient mean's all-reduces included. A tp16 cell's rank
     holds its blocks of the parameters and of the ZeRO-1 moments and runs
-    the tensor-parallel step (``distributed/tensor_parallel.py``): its
-    FLOPs, bytes and collectives are that rank's own;
+    the tensor-parallel step (``distributed/tensor_parallel.py``), the
+    hybrid family's too; a dp_all cell's rank holds its block of the
+    vocabulary and its ZeRO-1 moments. Its FLOPs, bytes and collectives
+    are that rank's own;
   * prefill and decode cells run their step on the rank's rows (the port's
     serve steps run no collective).
 
@@ -31,9 +33,11 @@ What the record holds, per device:
     the bytes of every op's inputs and outputs (unfused: an upper bound on
     XLA's post-fusion "bytes accessed");
   * ``collectives``: what the step ran, by kind (``dp_all`` cells,
-    mamba2-130m: the gradient mean over all 256 ranks; tp16 cells: the
-    tensor-parallel all-reduces, the gradient mean over ``data`` and the
-    ZeRO-1 all-gathers);
+    mamba2-130m: the model group's tokens, labels and hidden rows gathered
+    for the split vocabulary, the loss's all-reduces, the gradient mean
+    over all 256 ranks (the vocabulary's over ``data``) and the ZeRO-1
+    all-gathers; tp16 cells: the tensor-parallel all-reduces, the gradient
+    mean over ``data`` and the ZeRO-1 all-gathers);
   * ``roofline``: ``roofline.derive`` in H100 terms.
 
 Serving cells run the one-rank step on the rank's rows: the port serves
@@ -41,8 +45,8 @@ without a mesh (as the JAX package's ``generate``, which takes one and never
 uses it), so their counts are a whole model's. Sequence-parallel decode (the
 long_500k cell's cache sharded over ``data``) is not executed either. A
 train cell whose tensor-parallel program the port lacks is skipped, with
-the reason (``tensor_parallel.unsupported``: the hybrid family, ROADMAP item
-12c; query heads that do not divide over the ``model`` axis).
+the reason (``tensor_parallel.unsupported``: query heads or SSD heads that
+do not divide over the ``model`` axis, ROADMAP item 12f).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-7b --shape train_4k --mesh single

@@ -12,17 +12,16 @@ host) and keeps its rows inside the step (``distributed/compression.py``,
 by ``sharding.batch_axes``), so the global batch at a step is the same at
 any world size; a batch that does not divide goes to every rank whole.
 
-Under the tp16 policy on a mesh of several ranks the parameters and AdamW
-moments are laid out as JAX's ``params_pspec``/``opt_state_pspec`` shard
-them (``distributed/tensor_parallel.TrainLayout``): tensor parallelism over
-``model``, ZeRO-1 over ``data``. Every rank builds the whole tree from the
-seed and keeps its blocks, so a run starts from the same weights on any
-mesh; a checkpoint holds the whole tree, gathered before rank 0 writes it
-(the JAX package's format), and a restore takes each rank's blocks of it,
-on whatever mesh it runs (elastic restart). The hybrid family on a
-``model`` axis of several ranks is refused (ROADMAP.md, item 12c). Under
-the dp_all policy the parameters, the vocab matrices JAX splits over
-``model`` included, stay whole on every rank (the same arithmetic).
+On a mesh of several ranks the parameters and AdamW moments are laid out
+as JAX's ``params_pspec``/``opt_state_pspec`` shard them
+(``distributed/tensor_parallel.TrainLayout``), ZeRO-1 over ``data``: under
+tp16 tensor parallelism over ``model`` (the hybrid family's Mamba2 heads
+too), under dp_all (mamba2-130m) the vocabulary split over ``model``,
+whose ranks hold other rows of the batch. Every rank builds the whole tree
+from the seed and keeps its blocks, so a run starts from the same weights
+on any mesh; a checkpoint holds the whole tree, gathered before rank 0
+writes it (the JAX package's format), and a restore takes each rank's
+blocks of it, on whatever mesh it runs (elastic restart).
 
 On the card (the default) ranks use NCCL; with ``--device cpu``, gloo.
 
@@ -113,9 +112,9 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
     Returns JAX's dict (``losses``, ``params``, ``opt_state``,
     ``final_loss``, ``steps``) and ``step_s``: each step's seconds, from
     taking its batch to reading its loss. Rank 0 writes the checkpoints and
-    the log. On a mesh of several ranks under tp16 ``params`` and
-    ``opt_state`` are this rank's blocks (``TP.train_layout(cfg,
-    mesh).gather_params`` makes them whole)."""
+    the log. On a mesh of several ranks ``params`` and ``opt_state`` are
+    this rank's blocks (``TP.train_layout(cfg, mesh).gather_params`` makes
+    them whole)."""
     dev = resolve_device(device)
     mesh = mesh if mesh is not None else make_host_mesh(device=dev)
     layout = TP.train_layout(cfg, mesh)
@@ -225,7 +224,7 @@ def main(argv=None):
                     help="cuda (NCCL between ranks) or cpu (gloo)")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="ranks of the mesh's model axis (tensor parallelism "
-                         "under tp16)")
+                         "under tp16, the vocabulary under dp_all)")
     args = ap.parse_args(argv)
 
     if args.smoke:

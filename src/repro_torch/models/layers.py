@@ -94,9 +94,11 @@ def embed(p, tokens, cfg: ModelConfig, tp=None):
 def unembed(p, x, cfg: ModelConfig, tp=None):
     """Project to (padded) vocab logits. ``p`` is the embedding table when
     tied. With ``tp`` the weights are this rank's vocab columns (rows of a
-    tied table), and so are the logits."""
+    tied table), and so are the logits; where the group's ranks hold other
+    rows of the batch (``tp.split_rows``) they are the logits of the
+    group's rows, gathered in rank order."""
     if tp is not None:
-        x = TP.copy_to_tp(x, tp)
+        x = TP.gather_rows(x, tp) if tp.split_rows else TP.copy_to_tp(x, tp)
     return x @ p["table"].T if "table" in p else x @ p["w"]
 
 

@@ -36,11 +36,13 @@ the reference:
 The serving path runs none of this: without a parameter that requires grad
 the loop and its ops are the plain ones.
 
-Tensor parallelism (``forward``'s ``tp``, train mode, the dense and MoE
-stacks): each layer's weights are this rank's blocks, and the layer's
-collectives (``distributed/tensor_parallel.py``) run inside its remat
-region, so a recompute reruns its forward all-reduces, the same on every
-rank.
+Tensor parallelism (``forward``'s ``tp``, train mode): under tp16 (the
+dense, MoE and hybrid stacks, the hybrid's shared block too) each layer's
+weights are this rank's blocks, and the layer's collectives
+(``distributed/tensor_parallel.py``) run inside its remat region, so a
+recompute reruns its forward all-reduces, in the same order on every rank.
+Under dp_all (the ssm family) the stack runs whole on this rank's rows and
+only the vocabulary is split over the group.
 
 Modes: ``forward(..., mode='train')`` full logits; ``mode='prefill'`` last-token
 logits + filled caches; ``decode(...)`` single-token step against caches,
@@ -209,9 +211,12 @@ def init_ssm_block(gen, cfg: ModelConfig, dtype, device, lead=()):
             "ssm": ssm.init_mamba2(gen, cfg, dtype, device, lead)}
 
 
-def ssm_block_full(p, x, cfg: ModelConfig, *, return_cache: bool):
+def ssm_block_full(p, x, cfg: ModelConfig, *, return_cache: bool, tp=None):
+    """Returns (out, cache or None); with ``tp`` the Mamba2 layer runs
+    tensor-parallel on this rank's weights (``ssm.mamba2_full``)."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, cfg.use_pallas)
-    h, cache = ssm.mamba2_full(p["ssm"], h, cfg, return_cache=return_cache)
+    h, cache = ssm.mamba2_full(p["ssm"], h, cfg, return_cache=return_cache,
+                               tp=tp)
     return x + h, cache
 
 
@@ -221,13 +226,14 @@ def ssm_block_decode(p, x, cfg: ModelConfig, cache):
     return x + h, cache
 
 
-def _ssm_stack_full(stacked, x, cfg: ModelConfig, prefill: bool, grad: bool):
+def _ssm_stack_full(stacked, x, cfg: ModelConfig, prefill: bool, grad: bool,
+                    tp=None):
     """The mamba2 blocks of a stack in order; their prefill caches stacked
     (or None)."""
     block = _remat(cfg, ssm_block_full, grad)
     caches = []
     for lp in _unbind(stacked):
-        x, c = block(lp, x, cfg, return_cache=prefill)
+        x, c = block(lp, x, cfg, return_cache=prefill, tp=tp)
         caches.append(c)
     return x, (_stack(caches) if prefill else None)
 
@@ -357,21 +363,18 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     mode='train':   returns (logits (B,S,V), aux_loss, None)
     mode='prefill': returns (last-token logits (B,1,V), aux_loss, cache)
 
-    ``tp`` (``tensor_parallel.TP``, train only, dense and MoE families):
-    ``params`` are this rank's blocks under the tp16 specs and the stacks
-    run tensor-parallel; the logits are this rank's vocab columns where
-    ``cfg.vocab_tp`` (else whole).
+    ``tp`` (``tensor_parallel.TP``, train only): ``params`` are this rank's
+    blocks under the specs of ``distributed/sharding.py``. Under tp16 the
+    stacks run tensor-parallel; under dp_all (the ssm family) only the
+    vocabulary is split, over ranks that hold other rows of the batch where
+    ``tp.split_rows`` (whose logits are then those of the group's rows).
+    The logits are this rank's vocab columns where ``cfg.vocab_tp`` (else
+    whole). Prefill (and ``decode``) run no tensor parallelism.
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill', got {mode!r}")
-    if tp is not None:
-        if mode != "train":
-            raise ValueError("tensor parallelism runs mode='train' only")
-        if cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) runs no tensor parallelism: the "
-                f"ssm family takes dp_all, the hybrid family waits for the "
-                f"gated norm's cross-rank sum (ROADMAP.md, item 12c)")
+    if tp is not None and mode != "train":
+        raise ValueError("tensor parallelism runs mode='train' only")
     prefill = mode == "prefill"
     grad = _needs_grad(params)
     positions = batch["positions"]
@@ -380,7 +383,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: Dict[str, Any] = {}
 
-    if cfg.family == "ssm":
+    if cfg.family == "ssm":               # dp_all: the stack runs whole
         x, caches["layers"] = _ssm_stack_full(params["layers"], x, cfg,
                                               prefill, grad)
     elif cfg.family == "hybrid":
@@ -388,16 +391,16 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         shared = params["shared_attn"]
         ssm_caches, ks, vs = [], [], []
         for grp in _unbind(params["ssm_groups"]):
-            x, c = _ssm_stack_full(grp, x, cfg, prefill, grad)
+            x, c = _ssm_stack_full(grp, x, cfg, prefill, grad, tp)
             x, kv, _ = dense_block_full(shared, x, cfg, positions,
-                                        return_kv=prefill)
+                                        return_kv=prefill, tp=tp)
             if prefill:
                 ssm_caches.append(c)
                 ks.append(kv[0])
                 vs.append(kv[1])
         if tail:
             x, tail_c = _ssm_stack_full(params["ssm_tail"], x, cfg, prefill,
-                                        grad)
+                                        grad, tp)
         if prefill:
             caches["ssm_groups"] = _stack(ssm_caches)
             if tail:

@@ -12,6 +12,16 @@ gated norm ``rmsnorm(y * silu(z))`` the RMSNorm kernel with its gate fused in
 ``ssd_step``, as the JAX package does. ``mamba2_decode`` writes the conv
 windows and the state into the caller's cache tensors in place, as the
 attention decode writes its K/V rows.
+
+Tensor parallelism (``mamba2_full``'s ``tp``, train only) splits a layer's
+heads over the model group, as the JAX package's tp16 specs split
+``d_inner``: ``wz``, ``wx``, ``conv_x``, the gated norm's scale and
+``w_out``'s rows are this rank's blocks. B, C and dt are computed whole on
+every rank (their projections and convs are whole) and enter the split scan
+through ``copy_to_tp``, and so do the per-head leaves ``A_log``, ``D`` and
+``dt_bias``: each rank's gradient of them is the whole one. The gated
+norm's row sum crosses the ranks (``tensor_parallel.split_rmsnorm``) and
+the out-projection is row-parallel. Prefill and decode run unsplit.
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_step
 from repro_torch.models import layers as L
@@ -89,14 +100,21 @@ def _ssd_dispatch(cfg: ModelConfig, x4, dt, A, B4, C4):
                        use_pallas=cfg.use_pallas, precision=cfg.ssd_precision)
 
 
-def mamba2_full(p, x, cfg: ModelConfig, *, return_cache: bool = False):
-    """Full-sequence SSD block. x (B, S, d) -> (y, cache or None)."""
+def mamba2_full(p, x, cfg: ModelConfig, *, return_cache: bool = False,
+                tp=None):
+    """Full-sequence SSD block. x (B, S, d) -> (y, cache or None). With
+    ``tp`` (``tensor_parallel.TP``) the weights are this rank's (see the
+    module docstring) and the cache is not returned."""
     B, S, _ = x.shape
-    H, P, G, N, K = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
-                     cfg.ssm_state, cfg.ssm_conv)
-    di = cfg.ssm_d_inner
-    z = L.linear(p["wz"], x)
-    xin_raw = L.linear(p["wx"], x)
+    P, G, N, K = (cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state,
+                  cfg.ssm_conv)
+    if tp is not None and return_cache:
+        raise ValueError("tensor parallelism runs the train path only")
+    # the split products read x through copy_to_tp; B, C and dt read it
+    # whole (their gradient of x is whole on every rank already)
+    xs = x if tp is None else TP.copy_to_tp(x, tp)
+    z = L.linear(p["wz"], xs)
+    xin_raw = L.linear(p["wx"], xs)
     B_raw = L.linear(p["wB"], x)
     C_raw = L.linear(p["wC"], x)
     dt_raw = L.linear(p["wdt"], x)
@@ -106,17 +124,28 @@ def mamba2_full(p, x, cfg: ModelConfig, *, return_cache: bool = False):
     Cc = F.silu(causal_conv(C_raw, p["conv_C"]))
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
 
+    di = xin.shape[-1]                    # this rank's columns of d_inner
+    H = di // P
     x4 = xin.reshape(B, S, H, P)
     B4 = Bc.reshape(B, S, G, N)
     C4 = Cc.reshape(B, S, G, N)
-    A = -torch.exp(p["A_log"])
+    A_log, D = p["A_log"], p["D"]
+    if tp is not None:                    # this rank's heads of the whole
+        dt, A_log, D = (TP.local_heads(t, -1, H, tp) for t in (dt, A_log, D))
+        B4, C4 = TP.local_kv(B4, C4, H, cfg.ssm_heads // G, tp)
+    A = -torch.exp(A_log)
 
     y4, h_final = _ssd_dispatch(cfg, x4, dt, A, B4, C4)
-    y4 = y4 + (p["D"][None, None, :, None] * x4.float()).to(y4.dtype)
+    y4 = y4 + (D[None, None, :, None] * x4.float()).to(y4.dtype)
 
     y = y4.reshape(B, S, di)
-    y = L.rmsnorm(p["norm"], y, cfg.norm_eps, cfg.use_pallas, gate=z)
-    out = L.linear(p["w_out"], y)
+    if tp is None:
+        y = L.rmsnorm(p["norm"], y, cfg.norm_eps, cfg.use_pallas, gate=z)
+        out = L.linear(p["w_out"], y)
+    else:
+        y = TP.split_rmsnorm(p["norm"], y, z, cfg.norm_eps, cfg.use_pallas,
+                             tp)
+        out = TP.row_parallel(p["w_out"], y, tp)
 
     cache = None
     if return_cache:

@@ -31,6 +31,7 @@ from repro.launch import specs as JSP
 from repro_torch import tree as T
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, get_smoke_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.launch import costmodel as CM
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import opprof
@@ -217,13 +218,34 @@ def test_run_cell_per_family(family, shape, multi_pod):
                                        terms["collective_s"])
     coll = rec["collectives"]
     if family == "ssm":
-        # dp_all: the gradient mean over (data, model) as the port runs it,
-        # an f32 all-reduce of every gradient leaf and one of the 3 metrics
+        # dp_all as the port runs it: the vocabulary split over the 16 model
+        # ranks, each holding one row of the batch. The group's tokens and
+        # labels gathered (int32, int64), the embeddings summed to their
+        # rows (an all-reduce) and the hidden rows gathered, each again in
+        # the backward (bf16); the loss's three f32 all-reduces; the
+        # gradient mean in f32, the vocabulary's block over data, every
+        # other leaf over (data, model); the 3 metrics; the norm's split
+        # part; the ZeRO-1 all-gathers over data of each leaf a free dim of
+        # which divides (bf16, the rank's block)
         cfg = get_config(arch, **smoke(arch))
+        mesh = make_production_mesh(multi_pod=True)
         params = SP.params_struct(cfg)
-        n = sum(t.numel() for t in T.leaves(params))
-        assert coll == {"all-reduce": 4 * n + 12, "count":
-                        len(T.leaves(params)) + 1, "total": 4 * n + 12}
+        leaves = T.flatten(params)
+        n = sum(t.numel() for _, t in leaves)
+        m, S, d = 16, SHAPES[shape].seq_len, cfg.d_model
+        vocab = cfg.padded_vocab * d
+        rows = m * S                        # the model group's tokens
+        specs = SH.params_pspec(cfg, mesh, params)
+        zero1 = [t.numel() // mesh.axes_size([a for e in specs[p]
+                                              for a in SH._axes_of(e)]) * 2
+                 for p, t in leaves
+                 if "data" in SH.zero1_spec(specs[p], tuple(t.shape), mesh)]
+        reduce = (2 * rows * d * 2 + 3 * rows * 4
+                  + 4 * (n - vocab + vocab // m) + 12 + 4)
+        gather = rows * 4 + rows * 8 + 2 * rows * d * 2 + sum(zero1)
+        assert coll == {"all-reduce": reduce, "all-gather": gather,
+                        "count": 5 + len(leaves) + 2 + 4 + len(zero1),
+                        "total": reduce + gather}
         assert rec["rows_per_rank"] == 1
     elif SHAPES[shape].kind == "train":
         # the rank's own tensor-parallel program: its all-reduces (the
@@ -258,14 +280,43 @@ def test_tp16_cell_matmul_flops_on_the_fake_group_equal_real_ranks():
 
 def test_run_cell_skips_what_the_port_cannot_split():
     """Train cells whose tensor-parallel program the port lacks are skipped
-    with the reason: the hybrid family (item 12c), and 28 heads over 16
-    model ranks."""
-    rec = D.run_cell("zamba2-7b", "train_4k", False, smoke("zamba2-7b"),
-                     verbose=False)
-    assert rec["status"] == "skipped" and "item 12c" in rec["why"]
+    with the reason: 28 heads over 16 model ranks, SSD heads that do not
+    divide. The hybrid family's tp16 train cell runs (its heads, 16 SSD and
+    16 attention heads at this width, split over the 16 model ranks) with
+    the split gated norm's collectives."""
+    over = smoke("zamba2-7b", d_model=128, num_heads=16, num_kv_heads=16)
+    rec = D.run_cell("zamba2-7b", "train_4k", False, over, verbose=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    coll = rec["collectives"]
+    assert coll["all-reduce"] > 0 and coll["all-gather"] > 0
+    whole = D.run_cell("zamba2-7b", "train_4k", False, smoke("zamba2-7b"),
+                       verbose=False)
+    assert whole["status"] == "skipped" and "8 SSD heads" in whole["why"]
     rec = D.run_cell("qwen2-vl-7b", "train_4k", False,
                      smoke("qwen2-vl-7b", num_heads=28), verbose=False)
     assert rec["status"] == "skipped" and "28 query heads" in rec["why"]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m"])
+def test_split_cells_on_the_fake_group_equal_real_ranks(arch):
+    """The hybrid family's tensor-parallel train cell and dp_all's split
+    vocabulary (smoke configs, 4 x 16 tokens, a (2, 2) mesh): the per-rank
+    program's matmul FLOPs and collective bytes on rank 0 of the fake
+    process group equal ``opprof``'s count of the same program on 4 real
+    gloo ranks (every rank's)."""
+    from torch_ranks import dryrun_cell_on_ranks, run_ranks
+    over = smoke(arch)
+    c, _ = D.lower_cell(arch, None, False, over,
+                        shape=ShapeConfig("train_4x16", 16, 4, "train"),
+                        mesh=abstract_mesh(data=2, model=2))
+    fake = c.run()
+    coll = fake.collective_bytes()
+    assert coll["all-reduce"] > 0 and coll["all-gather"] > 0
+    real = run_ranks(dryrun_cell_on_ranks, 4, arch, over, (2, 2), 4, 16,
+                     timeout=180)
+    for flops, coll in real:
+        assert flops == fake.matmul_flops
+        assert coll == fake.collective_bytes()
 
 
 def test_run_cell_skips_long_context_on_full_attention():

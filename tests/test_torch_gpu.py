@@ -339,6 +339,63 @@ def test_rmsnorm_kernel_too_wide_for_the_registers(cuda, gated):
         assert _norm_err(got, x, w, gate) < 1
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("rows,d,parts", [
+    (8192, 3584, 2), (8, 1792, 4), (37, 768, 2), (5, 77, 1), (9, 100, 2),
+    (4, 20000, 2)])
+def test_rmsnorm_split_kernels_vs_plain(cuda, rows, d, parts, gated, dtype):
+    """The split row's two passes (``row_sumsq``, then ``rmsnorm`` from the
+    summed row): each pass against its plain version on the same inputs,
+    and the row split into ``parts`` column blocks (the ranks of a model
+    group), their sums added, each block scaled over the full width,
+    against the whole row's ``rmsnorm_ref``. Widths that are a multiple of
+    16 bytes take the vector kernel, d = 77 and 100 in bf16 and the
+    20,000-wide row the scalar one."""
+    x, w, gate = _norm_case(cuda, rows, d * parts, dtype, gated, seed=8)
+    n0, s0 = rn_ops.launches, rn_ops.split_launches
+    blocks, total = [], None
+    for k in range(parts):
+        cols = slice(k * d, (k + 1) * d)
+        xk = x[:, cols].contiguous()
+        gk = None if gate is None else gate[:, cols].contiguous()
+        ss = rn_ops.row_sumsq(xk, gk)
+        want = rn_ref.row_sumsq_ref(xk, gk)
+        assert ss.dtype == torch.float32 and ss.shape == (rows,)
+        assert ((ss - want).abs() / want.abs().clamp_min(1e-30)).max() < 1e-5
+        total = ss if total is None else total + ss
+        blocks.append((xk, gk, w[cols].contiguous()))
+    outs = []
+    for xk, gk, wk in blocks:
+        got = rn_ops.rmsnorm(xk, wk, eps=1e-5, gate=gk, row_ss=total,
+                             width=d * parts)
+        want = rn_ref.rmsnorm_ref(xk, wk, eps=1e-5, gate=gk, row_ss=total,
+                                  width=d * parts)
+        tol = NORM_TOL["float32" if x.dtype == torch.float32 else "bfloat16"]
+        bound = torch.full_like(want.float(), tol)
+        if gk is not None and x.dtype == torch.bfloat16:
+            bound = torch.maximum(bound, want.float().abs() * 2.0 ** -7)
+        assert ((got.float() - want.float()).abs() / bound).max() < 1
+        outs.append(got)
+    torch.cuda.synchronize()
+    assert rn_ops.launches - n0 == rn_ops.split_launches - s0 == 2 * parts
+    assert _norm_err(torch.cat(outs, dim=-1), x, w, gate) < 1
+
+
+def test_rmsnorm_split_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(4, 64, device=cuda)
+    w = torch.zeros(64, device=cuda)
+    ss = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError):           # width below the block's
+        rn_ops.rmsnorm(x, w, row_ss=ss, width=32)
+    with pytest.raises(ValueError):           # row_ss not f32
+        rn_ops.rmsnorm(x, w, row_ss=ss.double(), width=128)
+    with pytest.raises(ValueError):           # row_ss of another shape
+        rn_ops.rmsnorm(x, w, row_ss=ss[:3], width=128)
+    with pytest.raises(TypeError):
+        rn_ops.row_sumsq(x.half())
+
+
 def test_rmsnorm_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.zeros(4, 64, device=cuda)
     with pytest.raises(TypeError):            # w in another dtype than x
@@ -710,7 +767,8 @@ def test_dryrun_counts_equal_the_card(cuda, arch, kind):
 
 
 @pytest.mark.parametrize("arch,world", [("stablelm-3b", 2),
-                                        ("chatglm3-6b", 4)])
+                                        ("chatglm3-6b", 4),
+                                        ("zamba2-7b", 2)])
 def test_tensor_parallel_step_on_ranks_sharing_the_card(cuda, arch, world):
     """A tensor-parallel step on gloo ranks that share the card (chatglm3-6b
     on 4: its 2 kv heads under the replicated-KV rule, a strided K/V view
@@ -721,7 +779,7 @@ def test_tensor_parallel_step_on_ranks_sharing_the_card(cuda, arch, world):
     from repro_torch.distributed.train_step import kernel_launches
     from torch_ranks import run_ranks, tp_step_on_card
     cfg = get_smoke_config(arch, dtype="float32")
-    want = kernel_launches(cfg)
+    want = kernel_launches(cfg, model_ranks=world)
     out = run_ranks(tp_step_on_card, world, arch, timeout=300)
     ref_loss, g_gap, p_gap = out[0][2]
     for launches, loss, _ in out:

@@ -207,12 +207,31 @@ def test_elastic_restart_two_ranks_then_one(two_ranks):
 
 
 def test_tp16_refused_on_a_model_axis():
-    """The hybrid family (zamba2-7b) on a model axis of 2: its gated norm's
-    cross-rank sum is not ported; the dense and MoE families run (below)."""
-    cfg = get_smoke_config("zamba2-7b")
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    """What the port cannot split over a model axis is refused with the
+    reason: the hybrid family's 6 SSD heads (d_model 48) over 4 ranks (the
+    port splits whole heads). Its heads that divide, and the dense and MoE
+    families, run (below)."""
+    cfg = get_smoke_config("zamba2-7b", d_model=48)
+    with pytest.raises(NotImplementedError, match="6 SSD heads"):
         train_mod.train(cfg, steps=1, global_batch=2, seq_len=8,
-                        mesh=abstract_mesh(data=1, model=2), device="cpu")
+                        mesh=abstract_mesh(data=1, model=4), device="cpu")
+
+
+@pytest.mark.parametrize("arch,mesh_shape", [("zamba2-7b", (2, 2)),
+                                             ("mamba2-130m", (1, 4))])
+def test_split_families_train_matches_a_jax_loop(arch, mesh_shape):
+    """``train()`` of the hybrid family tensor-parallel (zamba2-7b on (2,
+    2)) and of dp_all's split vocabulary (mamba2-130m on (1, 4), a row a
+    rank) from JAX's weights: the losses of 6 steps against a loop of
+    JAX's unsharded step on its pipeline's batches, and the final
+    parameters, gathered, the same on every rank."""
+    host, want = _jax_run(arch, 6)
+    run = dict(RUN, steps=6, opt_cfg=adamw.OptimizerConfig(**OPT))
+    out = run_ranks(tp_train_on_ranks, mesh_shape[0] * mesh_shape[1], arch,
+                    mesh_shape, host, [run], timeout=240)
+    for losses, final in (r[0] for r in out):
+        np.testing.assert_allclose(losses, want, rtol=1e-4)
+        _close_params(final, out[0][0][1], 0.0)
 
 
 # ------------------------------------------ tensor parallel and ZeRO-1

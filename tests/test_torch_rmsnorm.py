@@ -145,6 +145,41 @@ def test_cpu_tensor_never_launches(gated):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("parts", [2, 4])
+def test_split_row_against_jax_gated_norm(parts, dtype):
+    """The split mode's two plain passes through the wrapper (CPU tensors:
+    ``row_sumsq``, the sums of the ``parts`` column blocks added, then
+    ``rmsnorm(..., row_ss=, width=)`` of each block) concatenated, against
+    JAX's ``rmsnorm(p, y * silu(z))`` on the whole row, at the tolerances
+    of the unsplit norm; no launch on CPU tensors."""
+    rows, d = 7, 32 * parts
+    (jy, y), (jz, z), (jw, w) = _inputs([(rows, d), (rows, d), (d,)], dtype,
+                                        seed=parts)
+    want = jL.rmsnorm({"scale": jw}, jy * jax.nn.silu(jz), EPS)
+    n0 = rn_ops.launches
+    cols = [slice(k * 32, (k + 1) * 32) for k in range(parts)]
+    total = sum(rn_ops.row_sumsq(y[:, c], z[:, c]) for c in cols)
+    assert total.dtype == torch.float32 and total.shape == (rows,)
+    got = torch.cat([rn_ops.rmsnorm(y[:, c], w[c], eps=EPS, gate=z[:, c],
+                                    row_ss=total, width=d) for c in cols], -1)
+    assert rn_ops.launches == n0
+    assert got.dtype == y.dtype
+    assert _err(got, want) < TOL[dtype]
+    unsplit = rn_ref.rmsnorm_ref(y, w, eps=EPS, gate=z)
+    assert _err(got, unsplit.float().numpy()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "device", "width"])
+def test_wrapper_refuses_a_row_sum_it_cannot_take(bad):
+    x, w = torch.zeros(4, 32), torch.zeros(32)
+    ss = {"shape": torch.ones(3), "dtype": torch.ones(4, dtype=torch.float64),
+          "device": torch.ones(4, device="meta"),
+          "width": torch.ones(4)}[bad]
+    with pytest.raises(ValueError):
+        rn_ops.rmsnorm(x, w, row_ss=ss, width=16 if bad == "width" else 64)
+
+
 # (rows, d, itemsize, gated) -> (threads, rows per block, blocks) on 132
 # SMs: every norm of the three main paths (chatglm3-6b d_model 4,096;
 # zamba2-7b 3,584 and the gated d_inner 7,168; mamba2-130m 768 and the gated

@@ -43,7 +43,9 @@ from repro.models import model as jM
 from repro.optim import adamw as jadamw
 from repro_torch.configs import get_smoke_config
 from repro_torch.distributed import train_step as TS
-from torch_ranks import (collectives_on_ranks, run_ranks, tp_step_on_ranks,
+from repro_torch.kernels.fused_rmsnorm import ref as rn_ref
+from torch_ranks import (collectives_on_ranks, row_collectives_on_ranks,
+                         run_ranks, split_norm_on_ranks, tp_step_on_ranks,
                          vocab_ops_on_ranks)
 
 OPT = dict(total_steps=10, warmup_steps=1)
@@ -52,7 +54,9 @@ CASES = [("stablelm-3b", (1, 2)), ("stablelm-3b", (2, 2)),
          ("stablelm-3b", (1, 4)), ("chatglm3-6b", (1, 2)),
          ("chatglm3-6b", (1, 4)), ("gemma-7b", (1, 2)),
          ("deepseek-v2-lite-16b", (1, 2)), ("deepseek-v2-lite-16b", (1, 4)),
-         ("phi3.5-moe-42b-a6.6b", (1, 2)), ("phi3.5-moe-42b-a6.6b", (1, 4))]
+         ("phi3.5-moe-42b-a6.6b", (1, 2)), ("phi3.5-moe-42b-a6.6b", (1, 4)),
+         ("zamba2-7b", (1, 2)), ("zamba2-7b", (2, 2)), ("zamba2-7b", (1, 4)),
+         ("mamba2-130m", (2, 2)), ("mamba2-130m", (1, 4))]
 IDS = [f"{arch}-{d}x{m}" for arch, (d, m) in CASES]
 
 
@@ -115,6 +119,70 @@ def test_collectives_forward_and_backward_against_one_process(world):
         y, g = got["reduce"]               # summed; gradient identity
         np.testing.assert_array_equal(y, xs.sum(0))
         np.testing.assert_array_equal(g, a[rank])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_row_collectives_forward_and_backward_against_one_process(world):
+    """``sum_over_tp`` sums both ways: every rank reads the sum for its own
+    part, so the gradient of a rank's term is the sum of every rank's
+    gradient of the sum. ``gather_rows`` concatenates the ranks' rows and
+    sums each rank's block of the gradients back to it; ``scatter_rows``
+    is its mirror. Exact (sums of at most 4 small integers)."""
+    rng = np.random.default_rng(world + 10)
+    xs = rng.integers(-5, 6, (world, 2 * world, 3)).astype(np.float32)
+    a = {"sum": rng.integers(-3, 4, (world, 2 * world, 3)),
+         "gather": rng.integers(-3, 4, (world, 2 * world * world, 3)),
+         "scatter": rng.integers(-3, 4, (world, 2, 3))}
+    a = {k: v.astype(np.float32) for k, v in a.items()}
+    out = run_ranks(row_collectives_on_ranks, world, xs, a, timeout=120)
+    rows = lambda t, r: t[2 * r:2 * (r + 1)]            # noqa: E731
+    for rank, got in enumerate(out):
+        y, g = got["sum"]
+        np.testing.assert_array_equal(y, xs.sum(0))
+        np.testing.assert_array_equal(g, a["sum"].sum(0))
+        y, g = got["gather"]
+        np.testing.assert_array_equal(y, np.concatenate(list(xs)))
+        np.testing.assert_array_equal(
+            g, a["gather"].sum(0)[rank * 2 * world:(rank + 1) * 2 * world])
+        y, g = got["scatter"]
+        np.testing.assert_array_equal(y, rows(xs.sum(0), rank))
+        np.testing.assert_array_equal(
+            g, np.concatenate([a["scatter"][r] for r in range(world)]))
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("gated", [False, True])
+def test_split_rmsnorm_equals_the_whole_row(world, gated):
+    """The gated norm's row split over the model ranks
+    (``tensor_parallel.split_rmsnorm``: each rank's sum of squares, summed
+    over the ranks, then its columns scaled), through the kernel's wrapper
+    (its plain versions on the CPU) and the plain path: each rank's columns
+    of ``rmsnorm_ref`` on the whole row, and of its gradients with respect
+    to x, the gate and w, f32 within 1e-6 relative (the same sums split
+    over the ranks). w's gradient is this rank's columns of the whole one:
+    a (1 + w) column is read by this rank only."""
+    rng = np.random.default_rng(3 + world)
+    B, S, d = 2, 5, 24 * world
+    x = (rng.standard_normal((B, S, d)) * 2).astype(np.float32)
+    w = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    gate = rng.standard_normal((B, S, d)).astype(np.float32) if gated \
+        else None
+    a = rng.standard_normal((B, S, d)).astype(np.float32)
+    eps = 1e-5
+    ins = [torch.from_numpy(t).requires_grad_()
+           for t in (x, w) + (() if gate is None else (gate,))]
+    want = rn_ref.rmsnorm_ref(ins[0], ins[1], eps=eps,
+                              gate=ins[2] if gated else None)
+    wgrads = torch.autograd.grad((want * torch.from_numpy(a)).sum(), ins)
+    out = run_ranks(split_norm_on_ranks, world, x, w, gate, a, eps,
+                    timeout=120)
+    n = d // world
+    for rank, got in enumerate(out):
+        cols = slice(rank * n, (rank + 1) * n)
+        for use_pallas, (y, grads) in got.items():
+            assert _rel(y, want.detach().numpy()[..., cols]) < 1e-6
+            for g, wg in zip(grads, wgrads):
+                assert _rel(g, wg.numpy()[..., cols]) < 1e-6, use_pallas
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -202,10 +270,21 @@ def test_zero1_moments_are_local_slices_of_zero1_spec(arch, mesh_shape):
 def test_kernel_launches_per_rank(arch, mesh_shape):
     """Each rank of a tensor-parallel step launches what one rank's step
     does (``train_step.kernel_launches``): a kernel runs once a layer
-    whatever the rank's share of the heads."""
-    want = TS.kernel_launches(get_smoke_config(arch, dtype="float32"))
+    whatever the rank's share of the heads, but for the hybrid's gated
+    norm, split over the model ranks into two launches a Mamba2 layer and
+    forward run (the row sums, then the scaling)."""
+    cfg = get_smoke_config(arch, dtype="float32")
+    want = TS.kernel_launches(cfg, model_ranks=mesh_shape[1])
+    split = TS.split_norm_launches(cfg, mesh_shape[1])
+    runs = 1 if cfg.remat == "none" else 2
+    assert split == (2 * runs * cfg.num_layers if cfg.family == "hybrid"
+                     else 0)
+    assert want["fused_rmsnorm"] == (TS.kernel_launches(cfg)["fused_rmsnorm"]
+                                     + split // 2)
     for r in _ranks(arch, mesh_shape):
-        assert r["launches"] == {k: want[k] for k in r["launches"]}
+        got = dict(r["launches"])
+        assert got.pop("fused_rmsnorm split") == split
+        assert got == {k: want[k] for k in got}
 
 
 def test_int8_gradients_over_data_on_two_by_two():

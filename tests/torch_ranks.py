@@ -183,18 +183,22 @@ def play_launches():
     from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
 
-    def launch(mod):
+    def launch(mod, plain, split=False):
         def run(*args, **static):
             with torch.no_grad():
-                out = mod.plain(*args, **static)
+                out = plain(*args, **static)
             mod.launches += 1
+            if split or static.get("width") is not None:
+                mod.split_launches += 1
             return out
         return run
     _grad.KERNEL_DEVICE = "cpu"
     mods = {"flash_attention": fa_ops, "fused_rmsnorm": rn_ops,
             "ssd": ssd_ops}
     for mod in mods.values():
-        mod._launch = launch(mod)
+        mod._launch = launch(mod, mod.plain)
+    # the split-row RMSNorm's row-sum pass
+    rn_ops._launch_sumsq = launch(rn_ops, rn_ops.plain_sumsq, split=True)
     return mods
 
 
@@ -214,6 +218,54 @@ def collectives_on_ranks(rank, world, xs, a):
         y = fn(t, tp)
         (g,) = torch.autograd.grad((y * weight).sum(), t)
         out[name] = (y.detach().numpy(), g.numpy())
+    return out
+
+
+def row_collectives_on_ranks(rank, world, xs, a):
+    """``sum_over_tp``, ``gather_rows`` and ``scatter_rows`` over a (1,
+    world) mesh, each on this rank's ``xs[rank]``: the forward and the
+    gradient of sum(out * weight) as numpy, the weight this rank's
+    ``a[rank]`` (of the output's shape)."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as TPm
+    from repro_torch.launch.mesh import make_mesh
+    tp = TPm.model_group(make_mesh((1, world), ("data", "model"),
+                                   device="cpu"))
+    out = {}
+    for name, fn in (("sum", TPm.sum_over_tp), ("gather", TPm.gather_rows),
+                     ("scatter", TPm.scatter_rows)):
+        t = torch.from_numpy(xs[rank].copy()).requires_grad_()
+        y = fn(t, tp)
+        (g,) = torch.autograd.grad((y * torch.from_numpy(a[name][rank]))
+                                   .sum(), t)
+        out[name] = (y.detach().numpy(), g.numpy())
+    return out
+
+
+def split_norm_on_ranks(rank, world, x, w, gate, a, eps):
+    """``tensor_parallel.split_rmsnorm`` of this rank's columns of x (and
+    of the gate, where given) over a (1, world) mesh, by the kernel's
+    wrapper (its plain versions on the CPU) and by the plain path: for
+    each, the output and the gradients of sum(out * a's columns) with
+    respect to this rank's columns of x, the gate and w."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as TPm
+    from repro_torch.launch.mesh import make_mesh
+    tp = TPm.model_group(make_mesh((1, world), ("data", "model"),
+                                   device="cpu"))
+    n = x.shape[-1] // world
+    cols = slice(rank * n, (rank + 1) * n)
+    out = {}
+    for use_pallas in (True, False):
+        ins = [torch.from_numpy(t[..., cols].copy()).requires_grad_()
+               for t in (x, w) + (() if gate is None else (gate,))]
+        y = TPm.split_rmsnorm({"scale": ins[1]}, ins[0],
+                              ins[2] if gate is not None else None, eps,
+                              use_pallas, tp)
+        grads = torch.autograd.grad(
+            (y * torch.from_numpy(a[..., cols].copy())).sum(), ins)
+        out[use_pallas] = (y.detach().numpy(),
+                           [g.numpy() for g in grads])
     return out
 
 
@@ -246,7 +298,8 @@ def tp_step_on_ranks(rank, world, arch, mesh_shape, params, batch, opt,
     version. Returns numpy and plain values: the metrics; the gradients and
     updated parameters and moments gathered whole; this rank's gradients
     of the leaves whole on every rank; each moment's local shape beside
-    the shape of its ``local_slices(zero1_spec)`` block; the launches."""
+    the shape of its ``local_slices(zero1_spec)`` block; the launches (and
+    the split-row RMSNorm's among them, ``fused_rmsnorm split``)."""
     import torch
     from repro_torch import bridge
     from repro_torch import tree as T
@@ -269,8 +322,10 @@ def tp_step_on_ranks(rank, world, arch, mesh_shape, params, batch, opt,
     grads, _ = step.grad_fn(local, tb)
     for mod in mods.values():
         mod.launches = 0
+    mods["fused_rmsnorm"].split_launches = 0
     new, state, metrics = step(local, state, tb)
     launches = {name: mod.launches for name, mod in mods.items()}
+    launches["fused_rmsnorm split"] = mods["fused_rmsnorm"].split_launches
 
     def numpy(tree):
         return {p: t.numpy().copy() for p, t in T.flatten(tree)}
