@@ -1,5 +1,10 @@
 """Serving-step factories: prefill (prompt -> last-token logits + caches) and
-decode (one token against caches), plus greedy/temperature sampling."""
+decode (one token against caches), plus greedy/temperature sampling. Both
+steps take ``tp`` (``tensor_parallel.TP``, the model group of a
+``ServeLayout``): they then run a rank's tensor-parallel program on its
+blocks of the parameters and caches, and their logits are its vocab
+columns (``tensor_parallel.gather_vocab`` makes them whole for
+``sample``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -13,7 +18,8 @@ from repro_torch.models import model as M
 _SEQ_CACHE_LEAVES = ("k", "v", "c_kv", "k_rope")
 
 
-def kernel_launches(cfg: ModelConfig, new_tokens: int) -> Dict[str, int]:
+def kernel_launches(cfg: ModelConfig, new_tokens: int, tp=None
+                    ) -> Dict[str, int]:
     """The CUDA kernel launches of one ``launch.serve.generate`` (a prefill
     and ``new_tokens - 1`` decode steps) with ``cfg.use_pallas``, by kernel.
     Every step runs RMSNorm twice per attention block (three times with
@@ -21,31 +27,44 @@ def kernel_launches(cfg: ModelConfig, new_tokens: int) -> Dict[str, int]:
     gated norms), and once at the end; the prefill runs flash attention per
     attention block and the SSD scan per Mamba2 layer; every decode step
     runs decode attention per GQA block (MLA decodes through einsums, as
-    the reference does). The hybrid's shared block runs once per group."""
+    the reference does). The hybrid's shared block runs once per group.
+
+    ``tp`` (the size of the model group, or None for one rank): each
+    rank's launches, which are as many, each kernel once a layer whatever
+    the rank's share of the heads, but for the gated norm of a Mamba2 layer
+    of the hybrid family split over more than one rank: two launches, the
+    row sums and the scaling (``tensor_parallel.split_rmsnorm``). With
+    ``tp`` the split-row launches among the RMSNorm's are an entry of their
+    own, ``fused_rmsnorm_split``."""
     L = cfg.num_layers
+    split = cfg.family == "hybrid" and (tp or 1) > 1
     if cfg.family == "ssm":
         attn, norms = 0, 2 * L
     elif cfg.family == "hybrid":
         attn = L // cfg.attn_every                  # shared-block calls
-        norms = 2 * L + 2 * attn
+        norms = (3 if split else 2) * L + 2 * attn
     else:
         attn, norms = L, (3 if cfg.use_mla else 2) * L
-    return {"flash_attention": attn,
-            "decode_attention": 0 if cfg.use_mla else attn * (new_tokens - 1),
-            "fused_rmsnorm": (norms + 1) * new_tokens,
-            "ssd": L if cfg.family in ("ssm", "hybrid") else 0}
+    out = {"flash_attention": attn,
+           "decode_attention": 0 if cfg.use_mla else attn * (new_tokens - 1),
+           "fused_rmsnorm": (norms + 1) * new_tokens,
+           "ssd": L if cfg.family in ("ssm", "hybrid") else 0}
+    if tp is not None:
+        out["fused_rmsnorm_split"] = 2 * L * new_tokens if split else 0
+    return out
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, tp=None):
     def prefill_step(params, batch) -> Tuple[torch.Tensor, Any]:
-        logits, _, cache = M.forward(params, cfg, batch, mode="prefill")
+        logits, _, cache = M.forward(params, cfg, batch, mode="prefill",
+                                     tp=tp)
         return logits, cache
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, tp=None):
     def decode_step(params, batch, cache) -> Tuple[torch.Tensor, Any]:
-        return M.decode(params, cfg, batch, cache)
+        return M.decode(params, cfg, batch, cache, tp)
     return decode_step
 
 
@@ -70,7 +89,7 @@ def pad_cache(cache: Dict[str, Any], cfg: ModelConfig, max_len: int
     """Grow prefill-sized caches (seq dim == prompt len) to ``max_len`` so
     decode can append. Seq dim is axis 2 of k/v/c_kv/k_rope leaves (stacked
     over layers: (L, B, S, ...)), in every subtree (``layers``,
-    ``dense_layers``, the hybrid's ``attn``)."""
+    ``dense_layers``, the hybrid's ``attn``); a rank's block of them too."""
     def grow(name, leaf):
         if isinstance(leaf, dict):
             return {k: grow(k, v) for k, v in leaf.items()}

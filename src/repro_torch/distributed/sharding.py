@@ -262,6 +262,20 @@ def local_slices(spec: Spec, shape: Tuple[int, ...], mesh: Mesh
     return tuple(out)
 
 
+def block_shape(spec: Spec, shape: Tuple[int, ...], mesh: Mesh
+                ) -> Tuple[int, ...]:
+    """The shape of a rank's block of a tensor of ``shape`` under ``spec``
+    (``local_slices``' block), on any mesh, an abstract one too."""
+    out = []
+    for d, n in enumerate(shape):
+        k = mesh.axes_size(_axes_of(spec[d] if d < len(spec) else None))
+        if n % k:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not divide "
+                             f"over {k}")
+        out.append(n // k)
+    return tuple(out)
+
+
 def placements(spec: Spec, mesh: Mesh):
     """DTensor placements of ``spec`` on ``mesh.device_mesh``: per mesh axis
     ``Shard(d)`` where spec[d] names it, else ``Replicate()``. A dim split

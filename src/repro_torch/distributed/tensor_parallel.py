@@ -20,7 +20,18 @@ The pieces:
     logits split over the vocabulary) and ``local_kv`` (the replicated-KV
     rule, also the rule of a Mamba2 layer's B/C groups);
   * ``TrainLayout``: every leaf's block on this rank, the parameters by
-    their specs and the AdamW moments by ``zero1_spec``.
+    their specs and the AdamW moments by ``zero1_spec``; ``ServeLayout``:
+    the parameters' blocks, each decode cache leaf's block by
+    ``cache_pspec`` and the serving batch's rows; ``gather_vocab``, the
+    logits over the whole vocabulary from every rank's columns, which
+    ``serve_step.sample`` reads unchanged on every rank.
+
+Serving runs the same split as training, without gradients: the prefill
+fills, and each decode step writes, this rank's block of the cache (K/V
+of its kv heads, or whole under the replicated-KV rule, where the decode
+kernel reads only its query heads' kv heads through a view; MLA's latents
+whole; a Mamba2 layer's state and ``conv_x`` window of its heads, its
+``conv_B``/``conv_C`` whole).
 
 Which tensors are split under tp16: column-parallel products (QKV, MLP in,
 MLA's per-head up-projections, each rank's experts, a Mamba2 layer's z and
@@ -304,34 +315,81 @@ def local_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, groups: int,
     return k[:, :, first:first + n_kv], v[:, :, first:first + n_kv]
 
 
-# -------------------------------------------------------- train layout
-class TrainLayout:
-    """How the ranks of ``mesh`` hold a model's train state: each parameter
-    leaf's block by its spec (``sharding.params_pspec``: under tp16 split
-    over ``model``, under dp_all only the vocabulary; replicated over
-    ``data``), each AdamW moment's block by ``sharding.zero1_spec`` (ZeRO-1:
-    also split over ``data`` where a free dim divides), and this rank's
-    model group (``tp``)."""
+# ----------------------------------------------------------- layouts
+class ParamLayout:
+    """How the ranks of ``mesh`` hold a model's parameters: each leaf's
+    block by its spec (``sharding.params_pspec``: under tp16 split over
+    ``model``, under dp_all only the vocabulary; replicated over ``data``),
+    and this rank's model group (``tp``)."""
 
     def __init__(self, cfg, mesh):
         from repro_torch.models.model import init_params   # models imports us
         struct = init_params(cfg, device="meta")
+        self.cfg = cfg
         self.mesh = mesh
         self.tp = model_group(mesh)
         self.specs = SH.params_pspec(cfg, mesh, struct)
         self.shapes = {p: tuple(t.shape) for p, t in T.flatten(struct)}
-        self.moment_specs = {p: SH.zero1_spec(s, self.shapes[p], mesh)
-                             for p, s in self.specs.items()}
-        self.data_size = mesh.shape.get(SH.DATA_AXIS, 1)
-        self.data_group = mesh.group((SH.DATA_AXIS,))
         self._split = {p for p, spec in self.specs.items()
                        if self.tp is not None
                        and any(SH.MODEL_AXIS in SH._axes_of(e) for e in spec)}
-        self._blocks = {p: self._moment_block(p) for p in self.specs}
 
     def split_over_model(self, path: str) -> bool:
         """Whether ranks of the model group hold other parts of the leaf."""
         return path in self._split
+
+    def shard_params(self, params):
+        """This rank's block of every leaf of a whole parameter tree."""
+        return SH.shard_tree(params, self.specs, self.mesh)
+
+    def gather_params(self, params):
+        """The whole tree from every rank's blocks (collective)."""
+        return SH.gather_tree(params, self.specs, self.mesh)
+
+    def init_params(self, seed: int = 0, device="cuda"):
+        """``shard_params(model.init_params(cfg, seed=seed, device=device))``,
+        the same values, without the whole tree: each leaf that
+        ``layers.truncated_normal_init`` draws (every weight matrix) is cut
+        to this rank's block as it is drawn, so the peak is the largest
+        leaf whole beside the blocks (a model that one card does not hold,
+        phi3.5-moe at 32 layers, starts on four)."""
+        from repro_torch.models import layers as L
+        from repro_torch.models import model as M
+        drawn = []
+        with L.drawn_leaves(lambda t: drawn.append(t) or t):
+            struct = M.init_params(self.cfg, seed=seed, device="meta")
+        where = {id(t): p for p, t in T.flatten(struct)}
+        paths = iter([where.get(id(t)) for t in drawn])
+
+        def block(t):
+            path = next(paths)
+            return t if path is None else self._block(path, t)
+        with L.drawn_leaves(block):
+            params = M.init_params(self.cfg, seed=seed, device=device)
+        # the leaves drawn otherwise (zeros, the Mamba2 per-head draws) are
+        # whole yet; a block of a whole leaf is itself
+        return T.unflatten(params, [
+            self._block(p, t) if tuple(t.shape) == self.shapes[p] else t
+            for p, t in T.flatten(params)])
+
+    def _block(self, path, t):
+        sl = SH.local_slices(self.specs[path], tuple(t.shape), self.mesh)
+        return t[sl].clone(memory_format=torch.contiguous_format)
+
+
+class TrainLayout(ParamLayout):
+    """How the ranks of ``mesh`` hold a model's train state: the parameter
+    blocks of ``ParamLayout``, each AdamW moment's block by
+    ``sharding.zero1_spec`` (ZeRO-1: also split over ``data`` where a free
+    dim divides)."""
+
+    def __init__(self, cfg, mesh):
+        super().__init__(cfg, mesh)
+        self.moment_specs = {p: SH.zero1_spec(s, self.shapes[p], mesh)
+                             for p, s in self.specs.items()}
+        self.data_size = mesh.shape.get(SH.DATA_AXIS, 1)
+        self.data_group = mesh.group((SH.DATA_AXIS,))
+        self._blocks = {p: self._moment_block(p) for p in self.specs}
 
     def moment_block(self, path: str
                      ) -> Optional[Tuple[int, Tuple[slice, ...]]]:
@@ -351,16 +409,58 @@ class TrainLayout:
                           for i in range(len(local)))
         return dim, SH.local_slices(only_data, tuple(local), self.mesh)
 
-    def shard_params(self, params):
-        """This rank's block of every leaf of a whole parameter tree."""
-        return SH.shard_tree(params, self.specs, self.mesh)
-
-    def gather_params(self, params):
-        """The whole tree from every rank's blocks (collective)."""
-        return SH.gather_tree(params, self.specs, self.mesh)
-
     def gather_moments(self, tree):
         return SH.gather_tree(tree, self.moment_specs, self.mesh)
+
+
+class ServeLayout(ParamLayout):
+    """How the ranks of ``mesh`` serve a batch of ``batch`` requests: the
+    parameter blocks of ``ParamLayout`` (no moments), each decode cache
+    leaf's block by ``sharding.cache_pspec``, the batch's rows over
+    ``batch_axes(mesh, cfg, batch)`` (``rows`` a rank), and the model
+    group ``tp`` the prefill and decode steps run over: under dp_all with
+    ``split_rows`` where that serving batch splits over ``model`` too (on
+    the production mesh B = 32 and 128 drop ``model``, so a group's ranks
+    hold the same rows)."""
+
+    def __init__(self, cfg, mesh, batch: int):
+        super().__init__(cfg, mesh)
+        self.batch_axes = SH.batch_axes(mesh, cfg, batch)
+        if not self.batch_axes and mesh.shape.get(SH.DATA_AXIS, 1) > 1:
+            raise NotImplementedError(
+                f"a batch of {batch} does not divide over the data axis: "
+                f"sequence-parallel decode (the cache's sequence over "
+                f"'data') is not executed (ROADMAP item 12h)")
+        self.rows = batch // mesh.axes_size(self.batch_axes)
+        self.cache_specs = SH.cache_pspec(cfg, mesh, batch)
+        self.tp = step_group(cfg, self, self.batch_axes)
+
+    def my_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows (dim 0) of a tensor of the whole batch."""
+        i, n = self.mesh.axes_index(self.batch_axes), self.rows
+        return t[i * n:(i + 1) * n]
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole batch from every rank's rows (dim 0; collective)."""
+        group = self.mesh.group(self.batch_axes)
+        if group is None:
+            return t
+        return all_gather_dim(t, 0, group,
+                              self.mesh.axes_size(self.batch_axes))
+
+
+def gather_vocab(logits: torch.Tensor, tp: Optional[TP]) -> torch.Tensor:
+    """The logits over the whole (padded) vocabulary from this rank's
+    columns of them, so that ``serve_step.sample`` runs unchanged on every
+    rank and draws the same token there: an all-gather of the last axis
+    over the model group. Where the group's ranks hold other rows
+    (``tp.split_rows``) the logits are the group's rows, and each rank
+    keeps its own. None (one rank, or a vocabulary whole on every rank):
+    ``logits`` as they are."""
+    if tp is None:
+        return logits
+    full = all_gather_dim(logits, logits.ndim - 1, tp.group, tp.size)
+    return _own_rows(full, tp) if tp.split_rows else full
 
 
 def unsupported(cfg, mesh) -> Optional[str]:
@@ -402,9 +502,23 @@ def train_layout(cfg, mesh) -> Optional[TrainLayout]:
     return TrainLayout(cfg, mesh)
 
 
-def step_group(cfg, layout: Optional[TrainLayout], dp_axes
+def serve_layout(cfg, mesh, batch: int) -> Optional[ServeLayout]:
+    """The ``ServeLayout`` of ``cfg`` serving ``batch`` requests on ``mesh``
+    (either policy) over more than one rank; None for one rank. Raises
+    NotImplementedError where ``unsupported`` says why: a config the port
+    cannot split is never served whole instead."""
+    if (mesh is None or math.prod(mesh.shape.get(a, 1) for a in
+                                  (SH.DATA_AXIS, SH.MODEL_AXIS)) == 1):
+        return None
+    why = unsupported(cfg, mesh)
+    if why:
+        raise NotImplementedError(why)
+    return ServeLayout(cfg, mesh, batch)
+
+
+def step_group(cfg, layout: Optional[ParamLayout], dp_axes
                ) -> Optional[TP]:
-    """The model group a train step's forward runs over: ``layout.tp``, and
+    """The model group a step's forward runs over: ``layout.tp``, and
     under dp_all, where the batch is split over ``model`` too
     (``dp_axes``), the same group with ``split_rows``."""
     tp = layout.tp if layout is not None else None

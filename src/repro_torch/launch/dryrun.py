@@ -19,8 +19,17 @@ rank's own batch, the global batch over the size of ``sharding.batch_axes``:
     hybrid family's too; a dp_all cell's rank holds its block of the
     vocabulary and its ZeRO-1 moments. Its FLOPs, bytes and collectives
     are that rank's own;
-  * prefill and decode cells run their step on the rank's rows (the port's
-    serve steps run no collective).
+  * prefill and decode cells run the per-rank serving program on rank 0
+    of the fake group too (``tensor_parallel.ServeLayout``, as
+    ``launch.serve.generate(mesh=)`` serves): the rank's rows of the batch
+    (``batch_axes`` of the serving batch), its blocks of the parameters
+    and, for decode, of the cache (``model.init_cache(mesh=)`` by
+    ``cache_pspec``); under tp16 the tensor-parallel prefill or decode
+    step, under dp_all the split vocabulary. Their records carry the
+    collectives. The long_500k cells (batch 1, so the cache's sequence
+    would go over ``data``: sequence-parallel decode, ROADMAP item 12h)
+    keep the one-rank decode step on the whole batch, and say so in their
+    record (``program``).
 
 What the record holds, per device:
   * ``memory.argument_size_in_bytes``: parameters, ZeRO-1 optimizer state,
@@ -37,16 +46,15 @@ What the record holds, per device:
     for the split vocabulary, the loss's all-reduces, the gradient mean
     over all 256 ranks (the vocabulary's over ``data``) and the ZeRO-1
     all-gathers; tp16 cells: the tensor-parallel all-reduces, the gradient
-    mean over ``data`` and the ZeRO-1 all-gathers);
+    mean over ``data`` and the ZeRO-1 all-gathers; serving cells: the
+    tensor-parallel all-reduces, under dp_all the vocabulary's);
   * ``roofline``: ``roofline.derive`` in H100 terms.
 
-Serving cells run the one-rank step on the rank's rows: the port serves
-without a mesh (as the JAX package's ``generate``, which takes one and never
-uses it), so their counts are a whole model's. Sequence-parallel decode (the
-long_500k cell's cache sharded over ``data``) is not executed either. A
-train cell whose tensor-parallel program the port lacks is skipped, with
-the reason (``tensor_parallel.unsupported``: query heads or SSD heads that
-do not divide over the ``model`` axis, ROADMAP item 12f).
+A cell whose tensor-parallel program the port lacks is skipped, with the
+reason (``tensor_parallel.unsupported``: query heads or SSD heads that do
+not divide over the ``model`` axis, ROADMAP item 12f): the train, prefill
+and decode cells of qwen2-vl-7b (28 heads) and musicgen-medium (24) on
+both meshes, 12 cells, 8 of them serving cells.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-7b --shape train_4k --mesh single
@@ -82,6 +90,7 @@ from repro_torch.launch import opprof
 from repro_torch.launch import roofline as RL
 from repro_torch.launch import specs as SP
 from repro_torch.launch.mesh import Mesh, make_mesh, make_production_mesh
+from repro_torch.models.model import init_cache
 from repro_torch.optim.adamw import OptimizerConfig
 
 
@@ -133,10 +142,17 @@ class Cell:
     dp_axes: Tuple[str, ...]
     rows: int                                  # the rank's batch rows
 
+    @property
+    def per_rank(self) -> bool:
+        """Whether the step is a rank's program over the mesh (all but the
+        long_500k cells' one-rank decode: see the module docstring)."""
+        return self.mesh.size > 1 and (self.shape.kind == "train"
+                                       or bool(self.dp_axes))
+
     def inputs(self, make, layout=None):
         """The step's arguments, each leaf ``make(meta tensor)``; with the
-        train step's ``layout``, the rank's blocks of the parameters and
-        moments."""
+        step's ``layout``, the rank's blocks of the parameters, of the
+        moments (train) and of the decode cache."""
         cfg, shape = self.cfg, self.shape
         params = SP.params_struct(cfg)
         if layout is not None:
@@ -150,15 +166,23 @@ class Cell:
         if shape.kind == "prefill":
             return params, T.tree_map(make, SP.prefill_input_specs(cfg, local))
         batch, cache = SP.decode_input_specs(cfg, local)
+        if layout is not None:
+            cache = init_cache(cfg, shape.global_batch, shape.seq_len,
+                               device="meta", mesh=self.mesh)
         return params, T.tree_map(make, batch), T.tree_map(make, cache)
 
     def step(self, mesh: Mesh):
+        """The step on ``mesh``, with its ``layout`` (None on one rank)."""
         if self.shape.kind == "train":
             return make_train_step(self.cfg, OptimizerConfig(), mesh=mesh,
                                    dp_axes=self.dp_axes)
-        if self.shape.kind == "prefill":
-            return make_prefill_step(self.cfg)
-        return make_decode_step(self.cfg)
+        layout = (TP.serve_layout(self.cfg, mesh, self.shape.global_batch)
+                  if self.per_rank else None)
+        tp = layout.tp if layout is not None else None
+        step = (make_prefill_step(self.cfg, tp) if self.shape.kind ==
+                "prefill" else make_decode_step(self.cfg, tp))
+        step.layout = layout
+        return step
 
     def run(self, *, device="cpu", fake: bool = True,
             mesh: Optional[Mesh] = None) -> opprof.OpProfile:
@@ -169,8 +193,7 @@ class Cell:
         cell's shape over real ranks (each rank runs this). Returns the
         profile, with ``argument_bytes`` (the arguments' storages) and
         ``output_bytes`` (what the step returned) set."""
-        world = (self.shape.kind == "train" and self.mesh.size > 1
-                 and mesh is None)
+        world = self.per_rank and mesh is None
         with _fake_world(self.mesh) if world else contextlib.nullcontext(
                 mesh or self.mesh) as mesh:
             step = self.step(mesh)
@@ -229,13 +252,11 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     if not ok:
         return None, {"skipped": why}
     mesh = mesh or make_production_mesh(multi_pod=multi_pod)
-    if shape.kind == "train":
-        why = TP.unsupported(cfg, mesh)
-        if why:
-            return None, {"skipped": f"skip: {why}"}
-        dp_axes = SH.batch_axes(mesh, cfg)
-    else:
-        dp_axes = SH.batch_axes(mesh, cfg, shape.global_batch)
+    dp_axes = (SH.batch_axes(mesh, cfg) if shape.kind == "train" else
+               SH.batch_axes(mesh, cfg, shape.global_batch))
+    why = TP.unsupported(cfg, mesh)
+    if why and (shape.kind == "train" or dp_axes):     # long_500k aside
+        return None, {"skipped": f"skip: {why}"}
     cell = Cell(cfg, shape, mesh, dp_axes,
                 shape.global_batch // mesh.axes_size(dp_axes))
     meta = {"arch": arch, "shape": shape.name,
@@ -268,7 +289,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     cost = {"flops": prof.flops, "bytes accessed": prof.bytes,
             "matmul_flops": prof.matmul_flops}
     axes = cell.dp_axes
-    if cell.shape.kind == "train" and SH.policy_for(cfg) == "tp16":
+    if cell.per_rank and SH.policy_for(cfg) == "tp16":
         axes = (*axes, SH.MODEL_AXIS)         # the tensor-parallel ones too
     terms = RL.derive(arch, cell.shape, cfg, mesh_name, mesh.size, cost, coll,
                       peak_bytes_dev=prof.peak_bytes,
@@ -282,7 +303,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
            "collectives": {k: (round(v) if isinstance(v, float) else v)
                            for k, v in coll.items()},
            "roofline": terms.to_dict(),
-           "rows_per_rank": cell.rows, "n_ops": prof.n_ops}
+           "rows_per_rank": cell.rows, "n_ops": prof.n_ops,
+           "program": ("per rank" if cell.per_rank else
+                       "one rank, the whole batch: sequence-parallel decode "
+                       "(the cache's sequence over data) is not executed "
+                       "(ROADMAP item 12h)")}
     if verbose:
         print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: "
               f"run {run_s:.1f}s  "

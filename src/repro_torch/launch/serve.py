@@ -1,13 +1,28 @@
-"""Serving entry point: batched prefill + autoregressive decode on one device.
+"""Serving entry point: batched prefill + autoregressive decode, on one
+device or tensor-parallel over a mesh of ranks.
 
 Run: ``python -m repro_torch.launch.serve --arch chatglm3-6b [--smoke]
 [--device cpu]``. The device is the CUDA card unless ``--device cpu`` is
-given; without CUDA the default raises.
+given; without CUDA the default raises. Under ``torchrun``,
+``--model-parallel N`` serves on the mesh (world / N, N) of axes ("data",
+"model"), as ``launch/train.py`` trains: NCCL on the cards, one rank a
+card, gloo with ``--device cpu``. Rank 0 prints.
+
+On a mesh (``generate``'s ``mesh``, the mesh JAX's ``generate`` takes) the
+ranks hold the parameters and caches as JAX's ``params_pspec`` and
+``cache_pspec`` lay them out (``tensor_parallel.ServeLayout``): each data
+rank serves its rows of the batch (``sharding.batch_axes``), the model
+group runs the tensor-parallel prefill and decode steps (under dp_all only
+the vocabulary is split), every rank samples from the logits gathered over
+the vocabulary, and the tokens are gathered so that every rank returns the
+whole batch. A config that the port cannot split raises with the reason
+(``tensor_parallel.unsupported``); it is never served whole instead.
 
 JAX's ``jit`` and ``donate_argnums=(2,)`` become eager calls and an in-place
 cache update: each decode step writes its K/V rows into the caches that
 prefill filled and ``pad_cache`` grew, and nothing in the loop waits on the
-device (tokens stay on it until the caller reads them).
+device (tokens stay on it until the caller reads them; the collectives are
+issued in one order on every rank).
 """
 from __future__ import annotations
 
@@ -16,13 +31,16 @@ import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.serve_step import (make_decode_step,
                                                 make_prefill_step, pad_cache,
                                                 sample)
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
 
 
@@ -36,35 +54,132 @@ def _positions(cfg: ModelConfig, B: int, S: int, start: int = 0, *,
 
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *,
              max_new_tokens: int = 32, temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """prompts (B, S) int32 on the serving device -> (B, S + max_new_tokens)."""
+             generator: Optional[torch.Generator] = None,
+             mesh=None) -> torch.Tensor:
+    """prompts (B, S) int32 on the serving device -> (B, S + max_new_tokens).
+
+    With a ``mesh`` of several ranks (see the module docstring) ``params``
+    are this rank's blocks (``tensor_parallel.serve_layout(cfg, mesh,
+    B).shard_params`` of the whole tree, or its ``init_params``) and
+    ``prompts`` the whole batch on every rank; every rank returns the whole
+    result. Temperature sampling gives the tokens of one-rank ``generate``
+    from a generator seeded alike: every rank draws from the logits of the
+    whole batch (gathered over its axes) and keeps its rows, so no two
+    requests share their noise."""
     B, S = prompts.shape
     dev = resolve_device(prompts.device)
-    prefill = make_prefill_step(cfg)
-    decode = make_decode_step(cfg)
+    layout = TP.serve_layout(cfg, mesh, B)
+    tp = layout.tp if layout is not None else None
+    vtp = M.vocab_group(cfg, tp)
+    if layout is not None:
+        prompts = layout.my_rows(prompts)
+    b = prompts.shape[0]
+    prefill = make_prefill_step(cfg, tp)
+    decode = make_decode_step(cfg, tp)
 
-    batch = {"tokens": prompts, "positions": _positions(cfg, B, S, device=dev)}
+    def draw(logits):
+        full = TP.gather_vocab(logits, vtp)
+        if layout is None or temperature <= 0.0:
+            return sample(full, generator, temperature, cfg.vocab_size)
+        return layout.my_rows(sample(layout.gather_rows(full), generator,
+                                     temperature, cfg.vocab_size))
+
+    batch = {"tokens": prompts, "positions": _positions(cfg, b, S, device=dev)}
     logits, cache = prefill(params, batch)
     cache = pad_cache(cache, cfg, S + max_new_tokens)
-    tokens = [sample(logits, generator, temperature, cfg.vocab_size)]
+    tokens = [draw(logits)]
     for t in range(max_new_tokens - 1):
         db = {"tokens": tokens[-1],
-              "positions": _positions(cfg, B, 1, start=S + t, device=dev)}
+              "positions": _positions(cfg, b, 1, start=S + t, device=dev)}
         logits, cache = decode(params, db, cache)
-        tokens.append(sample(logits, generator, temperature, cfg.vocab_size))
-    return torch.cat([prompts] + [t.to(prompts.dtype) for t in tokens], dim=1)
+        tokens.append(draw(logits))
+    out = torch.cat([prompts] + [t.to(prompts.dtype) for t in tokens], dim=1)
+    return out if layout is None else layout.gather_rows(out)
+
+
+def teacher_forced(params, cfg: ModelConfig, tokens: torch.Tensor,
+                   prompt_len: int, *, layout=None, warm: bool = True,
+                   keep_logits: bool = True, on_warm=None, on_prefill=None):
+    """The prefill of ``tokens[:, :prompt_len]`` and the decode steps fed
+    ``tokens[:, prompt_len + t]`` at step t, as ``generate`` runs them on
+    its own samples, timed: a warm-up prefill (unless not ``warm``), the
+    timed prefill, the timed decode loop. ``tokens`` (B, S + steps) is the
+    whole batch; over a ``layout`` (a ``ServeLayout``; None: one rank) each
+    rank runs its rows.
+
+    Returns the prefill's seconds, the decode's ms a step, the logits of
+    every step over the whole padded vocabulary for the whole batch,
+    (steps, B, padded vocab) f32 on every rank (None unless
+    ``keep_logits``: then the loop gathers nothing), and the final cache
+    (this rank's blocks). ``on_warm()`` runs after the warm-up,
+    ``on_prefill(cache)`` with the prefill's cache before the decode."""
+    dev = resolve_device(tokens.device)
+    S = prompt_len
+    tp = layout.tp if layout is not None else None
+    vtp = M.vocab_group(cfg, tp)
+    rows = layout.my_rows(tokens) if layout is not None else tokens
+    b, steps = rows.shape[0], tokens.shape[1] - S
+    batch = {"tokens": rows[:, :S].contiguous(),
+             "positions": _positions(cfg, b, S, device=dev)}
+    prefill, decode = make_prefill_step(cfg, tp), make_decode_step(cfg, tp)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    if warm:
+        prefill(params, batch)
+        sync()
+    if on_warm is not None:
+        on_warm()
+    t0 = time.perf_counter()
+    lg, cache = prefill(params, batch)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    out = None
+    if keep_logits:
+        out = torch.empty((steps, b, cfg.padded_vocab), dtype=torch.float32,
+                          device=dev)
+        out[0] = TP.gather_vocab(lg, vtp)[:, 0]
+    if on_prefill is not None:
+        on_prefill(cache)
+    cache = pad_cache(cache, cfg, tokens.shape[1])
+    sync()
+    t0 = time.perf_counter()
+    for t in range(steps - 1):
+        db = {"tokens": rows[:, S + t:S + t + 1],
+              "positions": _positions(cfg, b, 1, start=S + t, device=dev)}
+        lg, cache = decode(params, db, cache)
+        if keep_logits:
+            out[t + 1] = TP.gather_vocab(lg, vtp)[:, 0]
+    sync()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / max(steps - 1, 1)
+    if keep_logits and layout is not None:
+        out = layout.gather_rows(out.transpose(0, 1).contiguous()
+                                 ).transpose(0, 1)
+    return prefill_s, decode_ms, out, cache
 
 
 def serve_batch(cfg: ModelConfig, *, n_requests: int = 8, prompt_len: int = 64,
                 max_new_tokens: int = 16, seed: int = 0, params=None,
-                quiet: bool = False, device="cuda") -> Dict[str, object]:
+                quiet: bool = False, device="cuda",
+                mesh=None) -> Dict[str, object]:
     """Batched-request serving measurement (throughput in tokens/s).
 
     Returns ``tokens_per_s`` and ``wall_s`` as the JAX version does, plus the
-    generated ``tokens`` (B, prompt_len + max_new_tokens)."""
+    generated ``tokens`` (B, prompt_len + max_new_tokens). On a ``mesh`` of
+    several ranks every rank draws the global prompts from the seed (as
+    ``launch.train.train`` draws its batch) and serves its part
+    (``generate``); ``params``, where given, is the whole tree, of which
+    each rank keeps its blocks; else each rank draws only its blocks of the
+    seed's weights (``ParamLayout.init_params``). The wall time is this
+    rank's."""
     dev = resolve_device(device)
-    params = params if params is not None else M.init_params(cfg, seed=seed,
-                                                             device=dev)
+    layout = TP.serve_layout(cfg, mesh, n_requests)
+    if params is None:
+        params = (M.init_params(cfg, seed=seed, device=dev) if layout is None
+                  else layout.init_params(seed, dev))
+    elif layout is not None:
+        params = layout.shard_params(params)
     gen = torch.Generator(device=dev).manual_seed(seed)
     prompts = torch.randint(0, cfg.vocab_size, (n_requests, prompt_len),
                             generator=gen, device=dev, dtype=torch.int32)
@@ -72,7 +187,7 @@ def serve_batch(cfg: ModelConfig, *, n_requests: int = 8, prompt_len: int = 64,
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     out = generate(params, cfg, prompts, max_new_tokens=max_new_tokens,
-                   generator=gen)
+                   generator=gen, mesh=mesh)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -94,12 +209,29 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--max-new-tokens", type=int, default=16)
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (NCCL between ranks) or cpu (gloo)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks of the mesh's model axis (tensor parallelism "
+                         "under tp16, the vocabulary under dp_all)")
     args = ap.parse_args(argv)
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
-    serve_batch(cfg, n_requests=args.requests, prompt_len=args.prompt_len,
-                max_new_tokens=args.max_new_tokens, device=args.device)
+    try:
+        mesh = make_host_mesh(args.model_parallel, device=args.device)
+        lead = not dist.is_initialized() or dist.get_rank() == 0
+        res = serve_batch(cfg, n_requests=args.requests,
+                          prompt_len=args.prompt_len,
+                          max_new_tokens=args.max_new_tokens,
+                          device=args.device, mesh=mesh, quiet=not lead)
+        if lead:
+            print(f"[serve] {mesh.shape} mesh: new tokens of request 0 "
+                  f"{res['tokens'][0, args.prompt_len:].tolist()}",
+                  flush=True)
+        return res
+    finally:
+        if dist.is_initialized():          # joined by the host mesh
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -7,9 +7,12 @@ prompts with a reduced (smoke) config of any of the 10 archs via --arch.
       --requests 16 --device cpu
 
 It serves on the CUDA card unless ``--device cpu`` is given; without CUDA
-the default raises. The example's mesh (its caches sharded over a host
-mesh) has no counterpart: the JAX ``generate`` takes a mesh and never uses
-it, and the port serves on one device.
+the default raises. The example speaks of caches sharded over a host mesh,
+which its run never builds (it serves in one process, and JAX's
+``generate`` takes a mesh and never uses it); the twin serves in one
+process too. Serving over a mesh of ranks, the caches split by
+``cache_pspec``, is ``launch/serve.py``'s (``--model-parallel`` under
+``torchrun``).
 """
 from __future__ import annotations
 

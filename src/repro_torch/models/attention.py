@@ -10,6 +10,13 @@ Entry modes, as in the JAX package:
     512-dim latent space, only (c_kv, k_rope) cached, written in place. Its
     f32 einsums are the reference's: attention through no kernel there
     either.
+
+Every entry takes ``tp`` (``tensor_parallel.TP``): the weights are then
+this rank's heads, and the head counts are read off their widths, never
+off the config; the out-projection is row-parallel. The caches are this
+rank's blocks by ``sharding.cache_pspec``: K/V of its kv heads, or whole
+under the replicated-KV rule (``tensor_parallel.local_kv`` then views the
+kv heads its query heads read), MLA's latents whole.
 """
 from __future__ import annotations
 
@@ -101,45 +108,63 @@ def gqa_full(p, x, cfg: ModelConfig, positions, *, return_kv: bool = False,
     B, S, _ = x.shape
     hd = cfg.head_dim
     xq = x if tp is None else TP.copy_to_tp(x, tp)
-    kv_split = tp is not None and (p["wk"]["w"].shape[-1]
-                                   < cfg.num_kv_heads * hd)
+    kv_split = _kv_split(p, cfg, tp)
     xkv = xq if kv_split else x
     q = linear(p["wq"], xq).reshape(B, S, -1, hd)
     k = linear(p["wk"], xkv).reshape(B, S, -1, hd)
     v = linear(p["wv"], xkv).reshape(B, S, -1, hd)
     q, k = gqa_rope(cfg, q, k, positions)
-    ka, va = k, v
-    if tp is not None and not kv_split:
-        ka, va = TP.local_kv(k, v, q.shape[2],
-                             cfg.num_heads // cfg.num_kv_heads, tp)
+    ka, va = _rank_kv(k, v, q.shape[2], kv_split, cfg, tp)
     o = attn_core(q, ka, va, scale=1.0 / math.sqrt(hd),
                   use_pallas=cfg.use_pallas).reshape(B, S, -1)
-    out = (linear(p["wo"], o) if tp is None
-           else TP.row_parallel(p["wo"], o, tp))
-    return out, ((k, v) if return_kv else None)
+    return _out(p, o, tp), ((k, v) if return_kv else None)
 
 
-def gqa_decode(p, x, cfg: ModelConfig, positions, k_cache, v_cache, index):
+def _kv_split(p, cfg: ModelConfig, tp) -> bool:
+    """Whether this rank's K/V are its own kv heads (else, under ``tp``,
+    the replicated-KV rule: whole on every rank)."""
+    return tp is not None and (p["wk"]["w"].shape[-1]
+                               < cfg.num_kv_heads * cfg.head_dim)
+
+
+def _rank_kv(k, v, n_heads: int, kv_split: bool, cfg: ModelConfig, tp):
+    """The K/V (B, S, KV, hd) this rank's ``n_heads`` query heads read:
+    ``k``/``v`` themselves, or under the replicated-KV rule a view of the
+    kv heads they read (no copy: the kernels read through strides)."""
+    if tp is None or kv_split:
+        return k, v
+    return TP.local_kv(k, v, n_heads, cfg.num_heads // cfg.num_kv_heads, tp)
+
+
+def _out(p, o, tp):
+    """The out-projection: row-parallel under ``tp``."""
+    return linear(p["wo"], o) if tp is None else TP.row_parallel(p["wo"], o,
+                                                                  tp)
+
+
+def gqa_decode(p, x, cfg: ModelConfig, positions, k_cache, v_cache, index,
+               tp=None):
     """Single-token decode. x (B,1,d); caches (B,Smax,KV,hd); index = #tokens
     already cached, a 0-dim int32 tensor on the device.
 
     The new row is written into ``k_cache``/``v_cache`` in place at ``index``
     (an ``index_copy_`` driven by the device tensor: no host sync). Returns
-    (out, k_cache, v_cache)."""
+    (out, k_cache, v_cache). With ``tp`` the caches are this rank's blocks
+    (see the module docstring)."""
     B = x.shape[0]
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = linear(p["wq"], x).reshape(B, 1, H, hd)
-    k = linear(p["wk"], x).reshape(B, 1, KV, hd)
-    v = linear(p["wv"], x).reshape(B, 1, KV, hd)
+    hd = cfg.head_dim
+    q = linear(p["wq"], x).reshape(B, 1, -1, hd)
+    k = linear(p["wk"], x).reshape(B, 1, -1, hd)
+    v = linear(p["wv"], x).reshape(B, 1, -1, hd)
     q, k = gqa_rope(cfg, q, k, positions)
     row = index.reshape(1).long()
     k_cache.index_copy_(1, row, k.to(k_cache.dtype))
     v_cache.index_copy_(1, row, v.to(v_cache.dtype))
-    o = attn_core(q, k_cache, v_cache, scale=1.0 / math.sqrt(hd),
-                  q_offset=index, kv_valid_len=index + 1,
-                  use_pallas=cfg.use_pallas)
-    out = linear(p["wo"], o.reshape(B, 1, H * hd))
-    return out, k_cache, v_cache
+    ka, va = _rank_kv(k_cache, v_cache, q.shape[2], _kv_split(p, cfg, tp),
+                      cfg, tp)
+    o = attn_core(q, ka, va, scale=1.0 / math.sqrt(hd), q_offset=index,
+                  kv_valid_len=index + 1, use_pallas=cfg.use_pallas)
+    return _out(p, o.reshape(B, 1, -1), tp), k_cache, v_cache
 
 
 # ================================================================== MLA layer
@@ -201,29 +226,31 @@ def mla_full(p, x, cfg: ModelConfig, positions, *, return_kv: bool = False,
     qf = torch.cat([q_nope, q_rope], -1)
     o = attn_core(qf, k, v, scale=1.0 / math.sqrt(nope + rope_d),
                   use_pallas=cfg.use_pallas).reshape(B, S, H * vdim)
-    out = (linear(p["wo"], o) if tp is None
-           else TP.row_parallel(p["wo"], o, tp))
-    return out, ((c_kv, k_rope[:, :, 0, :]) if return_kv else None)
+    return _out(p, o, tp), ((c_kv, k_rope[:, :, 0, :]) if return_kv
+                            else None)
 
 
 def mla_decode(p, x, cfg: ModelConfig, positions, ckv_cache, krope_cache,
-               index):
+               index, tp=None):
     """Absorbed-weight MLA decode.
 
     scores[h, s] = q_nope[h] @ W_uk[h]^T @ c_kv[s]  +  q_rope[h] @ k_rope[s]
     out[h]       = (sum_s w[h,s] c_kv[s]) @ W_uv[h]
     Caches: ckv_cache (B,Smax,r), krope_cache (B,Smax,rope_d); the new rows
     are written in place at ``index`` (a 0-dim int32 tensor on the device).
-    Returns (out, ckv_cache, krope_cache).
+    Returns (out, ckv_cache, krope_cache). With ``tp`` the per-head weights
+    (``wq``, ``w_uk``, ``w_uv``, ``wo``'s rows) are this rank's heads, H
+    read off ``wq``'s width; the latents and their caches are whole.
     """
     B = x.shape[0]
-    H, nope, rope_d, vdim, r = _mla_dims(cfg)
+    _, nope, rope_d, vdim, r = _mla_dims(cfg)
     c_kv, k_rope, (cos, sin) = mla_latents(p, x, cfg, positions)
     row = index.reshape(1).long()
     ckv_cache.index_copy_(1, row, c_kv.to(ckv_cache.dtype))
     krope_cache.index_copy_(1, row, k_rope[:, :, 0, :].to(krope_cache.dtype))
 
-    q = linear(p["wq"], x).reshape(B, 1, H, nope + rope_d)
+    q = linear(p["wq"], x).reshape(B, 1, -1, nope + rope_d)
+    H = q.shape[2]                        # this rank's heads under tp
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, cos, sin)
     w_uk = p["w_uk"]["w"].reshape(r, H, nope)
@@ -242,5 +269,5 @@ def mla_decode(p, x, cfg: ModelConfig, positions, ckv_cache, krope_cache,
     ctx_lat = torch.einsum("bhqs,bsr->bqhr", w, ckv)
     w_uv = p["w_uv"]["w"].reshape(r, H, vdim)
     o = torch.einsum("bqhr,rhv->bqhv", ctx_lat, w_uv.float())
-    out = linear(p["wo"], o.reshape(B, 1, H * vdim).to(x.dtype))
-    return out, ckv_cache, krope_cache
+    return _out(p, o.reshape(B, 1, H * vdim).to(x.dtype), tp), ckv_cache, \
+        krope_cache

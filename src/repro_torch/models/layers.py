@@ -12,7 +12,9 @@ per-layer leaves in one draw.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -23,13 +25,51 @@ from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
 
 
+# A leaf of more than _DRAW_WHOLE elements is drawn in f32 a slice of dim 0
+# of at most _DRAW_SLICE elements at a time: the f32 draw of phi3.5-moe's
+# stacked experts at 32 layers (54 GB) would not fit beside the leaf on one
+# card. Every leaf of a model one card holds is smaller, and is drawn whole:
+# a slice draws other values from the generator than the whole draw.
+_DRAW_WHOLE, _DRAW_SLICE = 1 << 33, 1 << 28
+_drawn = threading.local()     # .fn: ``drawn_leaves``'s, on this thread
+
+
+@contextlib.contextmanager
+def drawn_leaves(fn):
+    """Within, on this thread: every leaf ``truncated_normal_init`` draws
+    is replaced by ``fn(leaf)`` (``tensor_parallel.ParamLayout.init_params``
+    keeps this rank's block of each one as it is drawn)."""
+    before = getattr(_drawn, "fn", None)
+    _drawn.fn = fn
+    try:
+        yield
+    finally:
+        _drawn.fn = before
+
+
 def truncated_normal_init(gen: torch.Generator, shape, stddev: float, dtype,
                           device) -> torch.Tensor:
-    """N(0, stddev^2) truncated at +-2 stddev, drawn in f32, cast to dtype."""
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, stddev, -2.0 * stddev, 2.0 * stddev,
-                                generator=gen)
-    return t.to(dtype)
+    """N(0, stddev^2) truncated at +-2 stddev, drawn in f32, cast to dtype
+    (above ``_DRAW_WHOLE`` elements, a slice of dim 0 at a time)."""
+    shape = tuple(shape)
+    row = math.prod(shape[1:])
+    if not shape or math.prod(shape) <= _DRAW_WHOLE:
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(t, 0.0, stddev, -2.0 * stddev,
+                                    2.0 * stddev, generator=gen)
+        t = t.to(dtype)
+    else:
+        t = torch.empty(shape, dtype=dtype, device=device)
+        step = max(1, _DRAW_SLICE // max(row, 1))
+        for i in range(0, shape[0], step):
+            part = torch.empty((min(step, shape[0] - i), *shape[1:]),
+                               dtype=torch.float32, device=device)
+            torch.nn.init.trunc_normal_(part, 0.0, stddev, -2.0 * stddev,
+                                        2.0 * stddev, generator=gen)
+            t[i:i + part.shape[0]] = part
+            del part
+    fn = getattr(_drawn, "fn", None)
+    return t if fn is None else fn(t)
 
 
 def init_linear(gen, d_in: int, d_out: int, dtype, device, *, bias: bool = False,

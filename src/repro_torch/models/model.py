@@ -36,13 +36,17 @@ the reference:
 The serving path runs none of this: without a parameter that requires grad
 the loop and its ops are the plain ones.
 
-Tensor parallelism (``forward``'s ``tp``, train mode): under tp16 (the
-dense, MoE and hybrid stacks, the hybrid's shared block too) each layer's
-weights are this rank's blocks, and the layer's collectives
-(``distributed/tensor_parallel.py``) run inside its remat region, so a
-recompute reruns its forward all-reduces, in the same order on every rank.
-Under dp_all (the ssm family) the stack runs whole on this rank's rows and
-only the vocabulary is split over the group.
+Tensor parallelism (the ``tp`` of ``forward`` in both modes and of
+``decode``): under tp16 (the dense, MoE and hybrid stacks, the hybrid's
+shared block too) each layer's weights are this rank's blocks, and the
+layer's collectives (``distributed/tensor_parallel.py``) run inside its
+remat region, so a recompute reruns its forward all-reduces, in the same
+order on every rank. Under dp_all (the ssm family) the stack runs whole on
+this rank's rows and only the vocabulary is split over the group. A
+prefill returns, and a decode step writes, this rank's block of the caches
+(``sharding.cache_pspec``; ``init_cache(..., mesh=)`` allocates one), and
+the logits are this rank's vocab columns where ``cfg.vocab_tp``
+(``tensor_parallel.gather_vocab`` makes them whole).
 
 Modes: ``forward(..., mode='train')`` full logits; ``mode='prefill'`` last-token
 logits + filled caches; ``decode(...)`` single-token step against caches,
@@ -170,22 +174,23 @@ def dense_block_full(p, x, cfg: ModelConfig, positions, *, return_kv: bool,
     return x + h, kv, aux
 
 
-def dense_block_decode(p, x, cfg: ModelConfig, positions, cache, index):
+def dense_block_decode(p, x, cfg: ModelConfig, positions, cache, index,
+                       tp=None):
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, cfg.use_pallas)
     if cfg.use_mla:
         h, c1, c2 = attn.mla_decode(p["attn"], h, cfg, positions,
-                                    cache["c_kv"], cache["k_rope"], index)
+                                    cache["c_kv"], cache["k_rope"], index, tp)
         new_cache = {"c_kv": c1, "k_rope": c2}
     else:
         h, ck, cv = attn.gqa_decode(p["attn"], h, cfg, positions,
-                                    cache["k"], cache["v"], index)
+                                    cache["k"], cache["v"], index, tp)
         new_cache = {"k": ck, "v": cv}
     x = x + h
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, cfg.use_pallas)
     if "moe" in p:
-        h, _ = moe_lib.moe_apply(p["moe"], h, cfg)
+        h, _ = moe_lib.moe_apply(p["moe"], h, cfg, tp)
     else:
-        h = L.mlp(p["mlp"], h, cfg)
+        h = L.mlp(p["mlp"], h, cfg, tp)
     return x + h, new_cache
 
 
@@ -220,9 +225,9 @@ def ssm_block_full(p, x, cfg: ModelConfig, *, return_cache: bool, tp=None):
     return x + h, cache
 
 
-def ssm_block_decode(p, x, cfg: ModelConfig, cache):
+def ssm_block_decode(p, x, cfg: ModelConfig, cache, tp=None):
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, cfg.use_pallas)
-    h, cache = ssm.mamba2_decode(p["ssm"], h, cfg, cache)
+    h, cache = ssm.mamba2_decode(p["ssm"], h, cfg, cache, tp)
     return x + h, cache
 
 
@@ -284,11 +289,21 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
 
 # ======================================================================= cache
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda") -> Dict[str, Any]:
+               device="cuda", mesh=None) -> Dict[str, Any]:
     """Preallocated decoding caches (stacked over layers), plus ``index``
     (a 0-dim int32 tensor on the device, as in JAX). Mamba2 layers keep
     their last K-1 conv inputs and an f32 state; attention keeps K/V, MLA
-    its latent ``c_kv`` and ``k_rope``."""
+    its latent ``c_kv`` and ``k_rope``. With a ``mesh`` each leaf is a
+    rank's block of it by ``sharding.cache_pspec(cfg, mesh, batch)`` (the
+    global ``batch``): its shape alone, so an abstract mesh will do."""
+    if mesh is not None:
+        from repro_torch.distributed import sharding as SH
+        specs = SH.cache_pspec(cfg, mesh, batch)
+        whole = init_cache(cfg, batch, max_len, device="meta")
+        return T.unflatten(whole, [
+            torch.zeros(SH.block_shape(specs[p], tuple(t.shape), mesh),
+                        dtype=t.dtype, device=resolve_device(device))
+            for p, t in T.flatten(whole)])
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
 
@@ -363,18 +378,17 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     mode='train':   returns (logits (B,S,V), aux_loss, None)
     mode='prefill': returns (last-token logits (B,1,V), aux_loss, cache)
 
-    ``tp`` (``tensor_parallel.TP``, train only): ``params`` are this rank's
-    blocks under the specs of ``distributed/sharding.py``. Under tp16 the
-    stacks run tensor-parallel; under dp_all (the ssm family) only the
-    vocabulary is split, over ranks that hold other rows of the batch where
+    ``tp`` (``tensor_parallel.TP``): ``params`` are this rank's blocks
+    under the specs of ``distributed/sharding.py``. Under tp16 the stacks
+    run tensor-parallel; under dp_all (the ssm family) only the vocabulary
+    is split, over ranks that hold other rows of the batch where
     ``tp.split_rows`` (whose logits are then those of the group's rows).
     The logits are this rank's vocab columns where ``cfg.vocab_tp`` (else
-    whole). Prefill (and ``decode``) run no tensor parallelism.
+    whole), and a prefill's caches this rank's blocks by
+    ``sharding.cache_pspec``.
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill', got {mode!r}")
-    if tp is not None and mode != "train":
-        raise ValueError("tensor parallelism runs mode='train' only")
     prefill = mode == "prefill"
     grad = _needs_grad(params)
     positions = batch["positions"]
@@ -431,18 +445,22 @@ def _kv_dict(cfg, kvs):
 
 # ====================================================================== decode
 def decode(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-           cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+           cache: Dict[str, Any], tp=None
+           ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step. batch: tokens (B,1) or embeds (B,1,d) + positions.
 
     Writes the new K/V rows, conv windows and SSM states into ``cache``'s
     tensors in place and returns (logits (B,1,V), new_cache), where new_cache
     shares those tensors and carries ``index + 1``. Nothing here waits on the
-    device."""
+    device. With ``tp`` the parameters and caches are this rank's blocks and
+    the logits its vocab columns, as in ``forward``; the collectives run in
+    one order on every rank, ``index`` staying on the device."""
     index = cache["index"]
     positions = batch["positions"]
-    x = _inputs_to_h(params, cfg, batch)
+    vtp = vocab_group(cfg, tp)
+    x = _inputs_to_h(params, cfg, batch, vtp)
     new_cache: Dict[str, Any] = {**cache, "index": index + 1}
-    if cfg.family == "ssm":
+    if cfg.family == "ssm":               # dp_all: the stack runs whole
         for i in range(cfg.num_layers):
             x, _ = ssm_block_decode(_layer(params["layers"], i), x, cfg,
                                     _layer(cache["layers"], i))
@@ -453,18 +471,19 @@ def decode(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             for i in range(cfg.attn_every):
                 x, _ = ssm_block_decode(_layer(params["ssm_groups"], (g, i)),
                                         x, cfg,
-                                        _layer(cache["ssm_groups"], (g, i)))
+                                        _layer(cache["ssm_groups"], (g, i)),
+                                        tp)
             x, _ = dense_block_decode(shared, x, cfg, positions,
-                                      _layer(cache["attn"], g), index)
+                                      _layer(cache["attn"], g), index, tp)
         for i in range(tail):
             x, _ = ssm_block_decode(_layer(params["ssm_tail"], i), x, cfg,
-                                    _layer(cache["ssm_tail"], i))
+                                    _layer(cache["ssm_tail"], i), tp)
     else:
         fd = _first_dense(cfg)
         for stack, n in (("dense_layers", fd), ("layers", cfg.num_layers - fd)):
             for i in range(n):
                 x, _ = dense_block_decode(_layer(params[stack], i), x, cfg,
                                           positions, _layer(cache[stack], i),
-                                          index)
+                                          index, tp)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, cfg.use_pallas)
-    return _logits(params, cfg, x), new_cache
+    return _logits(params, cfg, x, vtp), new_cache

@@ -13,15 +13,18 @@ gated norm ``rmsnorm(y * silu(z))`` the RMSNorm kernel with its gate fused in
 windows and the state into the caller's cache tensors in place, as the
 attention decode writes its K/V rows.
 
-Tensor parallelism (``mamba2_full``'s ``tp``, train only) splits a layer's
-heads over the model group, as the JAX package's tp16 specs split
-``d_inner``: ``wz``, ``wx``, ``conv_x``, the gated norm's scale and
-``w_out``'s rows are this rank's blocks. B, C and dt are computed whole on
-every rank (their projections and convs are whole) and enter the split scan
-through ``copy_to_tp``, and so do the per-head leaves ``A_log``, ``D`` and
-``dt_bias``: each rank's gradient of them is the whole one. The gated
-norm's row sum crosses the ranks (``tensor_parallel.split_rmsnorm``) and
-the out-projection is row-parallel. Prefill and decode run unsplit.
+Tensor parallelism (``tp`` of ``mamba2_full`` and ``mamba2_decode``)
+splits a layer's heads over the model group, as the JAX package's tp16
+specs split ``d_inner``: ``wz``, ``wx``, ``conv_x``, the gated norm's scale
+and ``w_out``'s rows are this rank's blocks. B, C and dt are computed whole
+on every rank (their projections and convs are whole) and enter the split
+scan through ``copy_to_tp``, and so do the per-head leaves ``A_log``, ``D``
+and ``dt_bias``: each rank's gradient of them is the whole one. The gated
+norm's row sum crosses the ranks (``tensor_parallel.split_rmsnorm``, at a
+decode step on (B, d_inner / n) rows) and the out-projection is
+row-parallel. The widths are read off the weights. The cache is this
+rank's block by ``sharding.cache_pspec``: ``conv_x``'s window and the
+state of its heads, ``conv_B``/``conv_C`` whole.
 """
 from __future__ import annotations
 
@@ -103,13 +106,11 @@ def _ssd_dispatch(cfg: ModelConfig, x4, dt, A, B4, C4):
 def mamba2_full(p, x, cfg: ModelConfig, *, return_cache: bool = False,
                 tp=None):
     """Full-sequence SSD block. x (B, S, d) -> (y, cache or None). With
-    ``tp`` (``tensor_parallel.TP``) the weights are this rank's (see the
-    module docstring) and the cache is not returned."""
+    ``tp`` (``tensor_parallel.TP``) the weights are this rank's and so is
+    the cache (see the module docstring)."""
     B, S, _ = x.shape
     P, G, N, K = (cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state,
                   cfg.ssm_conv)
-    if tp is not None and return_cache:
-        raise ValueError("tensor parallelism runs the train path only")
     # the split products read x through copy_to_tp; B, C and dt read it
     # whole (their gradient of x is whole on every rank already)
     xs = x if tp is None else TP.copy_to_tp(x, tp)
@@ -131,8 +132,7 @@ def mamba2_full(p, x, cfg: ModelConfig, *, return_cache: bool = False,
     C4 = Cc.reshape(B, S, G, N)
     A_log, D = p["A_log"], p["D"]
     if tp is not None:                    # this rank's heads of the whole
-        dt, A_log, D = (TP.local_heads(t, -1, H, tp) for t in (dt, A_log, D))
-        B4, C4 = TP.local_kv(B4, C4, H, cfg.ssm_heads // G, tp)
+        dt, A_log, D, B4, C4 = _local_heads(dt, A_log, D, B4, C4, H, cfg, tp)
     A = -torch.exp(A_log)
 
     y4, h_final = _ssd_dispatch(cfg, x4, dt, A, B4, C4)
@@ -156,6 +156,15 @@ def mamba2_full(p, x, cfg: ModelConfig, *, return_cache: bool = False,
     return out, cache
 
 
+def _local_heads(dt, A_log, D, B4, C4, H: int, cfg: ModelConfig, tp):
+    """This rank's ``H`` heads of the per-head values whole on every rank
+    (dt, A_log, D along their last dim) and the B/C groups they read
+    (``tensor_parallel.local_kv`` on (B, S, G, N))."""
+    dt, A_log, D = (TP.local_heads(t, -1, H, tp) for t in (dt, A_log, D))
+    B4, C4 = TP.local_kv(B4, C4, H, cfg.ssm_heads // cfg.ssm_groups, tp)
+    return dt, A_log, D, B4, C4
+
+
 def _tail(t: torch.Tensor, n: int) -> torch.Tensor:
     """Last n positions along axis 1, left-padded with zeros if S < n; a copy,
     so the cache does not keep the whole projection alive."""
@@ -165,12 +174,12 @@ def _tail(t: torch.Tensor, n: int) -> torch.Tensor:
     return F.pad(t, (0, 0, n - S, 0))
 
 
-def mamba2_decode(p, x, cfg: ModelConfig, cache):
+def mamba2_decode(p, x, cfg: ModelConfig, cache, tp=None):
     """Single-token decode. x (B, 1, d), cache dict -> (y (B,1,d), cache),
-    with the cache's conv windows and state written in place."""
+    with the cache's conv windows and state written in place. With ``tp``
+    the weights and the cache are this rank's (see the module docstring)."""
     B = x.shape[0]
-    H, P, G, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
-    di = cfg.ssm_d_inner
+    P, G, N = cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
     xt = x[:, 0, :]
     z = L.linear(p["wz"], xt)
     xin_raw = L.linear(p["wx"], xt)
@@ -184,14 +193,25 @@ def mamba2_decode(p, x, cfg: ModelConfig, cache):
     xin, Bc, Cc = F.silu(xin), F.silu(Bc), F.silu(Cc)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
 
-    A = -torch.exp(p["A_log"])
-    y3, h = ssd_step(xin.reshape(B, H, P), dt, A, Bc.reshape(B, G, N),
-                     Cc.reshape(B, G, N), cache["state"])
-    y3 = y3 + (p["D"][None, :, None]
-               * xin.reshape(B, H, P).float()).to(y3.dtype)
+    di = xin.shape[-1]                    # this rank's columns of d_inner
+    H = di // P
+    A_log, D = p["A_log"], p["D"]
+    B3, C3 = Bc.reshape(B, 1, G, N), Cc.reshape(B, 1, G, N)
+    if tp is not None:                    # this rank's heads of the whole
+        dt, A_log, D, B3, C3 = _local_heads(dt, A_log, D, B3, C3, H, cfg, tp)
+    A = -torch.exp(A_log)
+    y3, h = ssd_step(xin.reshape(B, H, P), dt, A, B3[:, 0], C3[:, 0],
+                     cache["state"])
+    y3 = y3 + (D[None, :, None] * xin.reshape(B, H, P).float()).to(y3.dtype)
     y = y3.reshape(B, di)
-    y = L.rmsnorm(p["norm"], y, cfg.norm_eps, cfg.use_pallas, gate=z)
-    out = L.linear(p["w_out"], y)[:, None, :]
+    if tp is None:
+        y = L.rmsnorm(p["norm"], y, cfg.norm_eps, cfg.use_pallas, gate=z)
+        out = L.linear(p["w_out"], y)
+    else:
+        y = TP.split_rmsnorm(p["norm"], y, z, cfg.norm_eps, cfg.use_pallas,
+                             tp)
+        out = TP.row_parallel(p["w_out"], y, tp)
+    out = out[:, None, :]
     for name, new in (("conv_x", conv_x), ("conv_B", conv_B),
                       ("conv_C", conv_C), ("state", h)):
         cache[name].copy_(new)

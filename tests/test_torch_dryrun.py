@@ -202,8 +202,11 @@ def test_op_profile_counts_and_storage_lifetimes():
     ("ssm", "train_4k", True), ("hybrid", "long_500k", False)])
 def test_run_cell_per_family(family, shape, multi_pod):
     arch = FAMILIES[family]
-    # the tensor-parallel step splits whole heads over the 16 model ranks
-    heads = {"num_heads": 16} if family == "dense" else {}
+    # the tensor-parallel steps split whole heads (and experts) over the 16
+    # model ranks
+    heads = {"dense": {"num_heads": 16},
+             "moe": {"num_heads": 16, "num_kv_heads": 16,
+                     "num_experts": 16}}.get(family, {})
     rec = D.run_cell(arch, shape, multi_pod, smoke(arch, **heads),
                      verbose=False)
     assert rec["status"] == "ok", rec.get("traceback")
@@ -253,8 +256,21 @@ def test_run_cell_per_family(family, shape, multi_pod):
         # all-gathers over data
         assert coll["all-reduce"] > 0 and coll["all-gather"] > 0
         assert coll["total"] == coll["all-reduce"] + coll["all-gather"]
+    elif family == "moe":
+        # the rank's tensor-parallel prefill on its row of the 32 (over
+        # pod x data, 32 ranks): the vocab-parallel embedding's all-reduce
+        # and one after each block's attention and its MLP or experts (the
+        # MoE layer's shared experts in the same one), in bf16 (d, S rows)
+        cfg = get_config(arch, **smoke(arch, **heads))
+        rows = SHAPES[shape].global_batch // 32 * SHAPES[shape].seq_len
+        n = 1 + 2 * cfg.num_layers
+        assert rec["rows_per_rank"] == 1 and rec["program"] == "per rank"
+        assert coll == {"all-reduce": n * rows * cfg.d_model * 2,
+                        "count": n, "total": n * rows * cfg.d_model * 2}
     else:
-        assert coll["total"] == 0                  # serving runs none
+        # long_500k: the one-rank decode of the whole batch of 1, no
+        # collective (sequence-parallel decode, ROADMAP item 12h)
+        assert coll["total"] == 0 and "12h" in rec["program"]
     assert "split" not in rec and "tensor_parallel" not in coll
 
 
@@ -279,9 +295,9 @@ def test_tp16_cell_matmul_flops_on_the_fake_group_equal_real_ranks():
 
 
 def test_run_cell_skips_what_the_port_cannot_split():
-    """Train cells whose tensor-parallel program the port lacks are skipped
-    with the reason: 28 heads over 16 model ranks, SSD heads that do not
-    divide. The hybrid family's tp16 train cell runs (its heads, 16 SSD and
+    """Cells whose tensor-parallel program the port lacks are skipped with
+    the reason: 28 heads over 16 model ranks (the train cell, and the
+    prefill and decode cells too), SSD heads that do not divide. The hybrid family's tp16 train cell runs (its heads, 16 SSD and
     16 attention heads at this width, split over the 16 model ranks) with
     the split gated norm's collectives."""
     over = smoke("zamba2-7b", d_model=128, num_heads=16, num_kv_heads=16)
@@ -292,9 +308,10 @@ def test_run_cell_skips_what_the_port_cannot_split():
     whole = D.run_cell("zamba2-7b", "train_4k", False, smoke("zamba2-7b"),
                        verbose=False)
     assert whole["status"] == "skipped" and "8 SSD heads" in whole["why"]
-    rec = D.run_cell("qwen2-vl-7b", "train_4k", False,
-                     smoke("qwen2-vl-7b", num_heads=28), verbose=False)
-    assert rec["status"] == "skipped" and "28 query heads" in rec["why"]
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        rec = D.run_cell("qwen2-vl-7b", shape, False,
+                         smoke("qwen2-vl-7b", num_heads=28), verbose=False)
+        assert rec["status"] == "skipped" and "28 query heads" in rec["why"]
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m"])
@@ -319,6 +336,47 @@ def test_split_cells_on_the_fake_group_equal_real_ranks(arch):
         assert coll == fake.collective_bytes()
 
 
+SERVING = [(arch, kind) for arch in ("stablelm-3b", "phi3.5-moe-42b-a6.6b",
+                                      "zamba2-7b")
+           for kind in ("prefill", "decode")]
+
+
+@functools.lru_cache(maxsize=None)
+def _serving_on_real_ranks():
+    """The serving cells of ``SERVING`` run by 4 real gloo ranks on a
+    (2, 2) mesh, one spawn: [(matmul FLOPs, collective bytes) per rank] by
+    cell."""
+    from torch_ranks import dryrun_cells_on_ranks, run_ranks
+    cells = [(arch, smoke(arch), kind) for arch, kind in SERVING]
+    out = run_ranks(dryrun_cells_on_ranks, 4, cells, (2, 2), 4, 16,
+                    timeout=240)
+    return {key: [r[i] for r in out] for i, key in enumerate(SERVING)}
+
+
+@pytest.mark.parametrize("arch,kind", SERVING)
+def test_tp16_serving_cells_on_the_fake_group_equal_real_ranks(arch, kind):
+    """A tp16 prefill and decode cell (dense, MoE and the hybrid smoke
+    configs, 4 requests of 16 tokens, the decode cache 16 long; their 4
+    heads, 4 experts and 8 SSD heads divide over 2 model ranks) on a
+    (2, 2) mesh: the per-rank program's matmul FLOPs and collective bytes
+    on rank 0 of the fake process group equal ``opprof``'s count of the
+    same program on 4 real gloo ranks (every rank's), and they are a
+    rank's share, with the tensor-parallel all-reduces."""
+    over = smoke(arch)
+    c, _ = D.lower_cell(arch, None, False, over,
+                        shape=ShapeConfig(f"{kind}_4x16", 16, 4, kind),
+                        mesh=abstract_mesh(data=2, model=2))
+    assert c.per_rank
+    fake = c.run()
+    coll = fake.collective_bytes()
+    assert coll["all-reduce"] > 0
+    whole = cell(arch, kind, over, B=2).run()        # a data rank's rows
+    assert fake.matmul_flops < whole.matmul_flops
+    for flops, real in _serving_on_real_ranks()[(arch, kind)]:
+        assert flops == fake.matmul_flops
+        assert real == coll
+
+
 def test_run_cell_skips_long_context_on_full_attention():
     rec = D.run_cell("gemma-7b", "long_500k", False, verbose=False)
     assert rec["status"] == "skipped" and "long_500k" in rec["why"]
@@ -335,8 +393,11 @@ def test_table_rows_from_records():
 
 
 def test_cli_one_cell(tmp_path):
+    # the decode cell runs the rank's tensor-parallel step: its heads
+    # divide over the 16 model ranks
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    sets = [a for k, v in smoke("stablelm-3b").items()
+    sets = [a for k, v in smoke("stablelm-3b", num_heads=16,
+                                num_kv_heads=16).items()
             for a in ("--set", f"{k}={v}")]
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",

@@ -41,6 +41,28 @@ def test_greedy_generate_matches_jax_tokens(arch, use_pallas):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "zamba2-7b"])
+def test_teacher_forced_on_greedy_tokens_reproduces_them(arch):
+    """``teacher_forced`` fed greedy ``generate``'s tokens gives logits
+    whose argmax is each next token, and the cache of a prefill and
+    steps - 1 decode steps; without ``keep_logits`` no logits."""
+    cfg = get_smoke_config(arch, dtype="float32")
+    params = M.init_params(cfg, seed=2, device="cpu")
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 10), dtype=np.int32))
+    tokens = serve.generate(params, cfg, prompts, max_new_tokens=6)
+    seen = []
+    prefill_s, decode_ms, logits, cache = serve.teacher_forced(
+        params, cfg, tokens, 10, on_prefill=seen.append)
+    assert prefill_s > 0 and decode_ms > 0 and len(seen) == 1
+    assert logits.shape == (6, 3, cfg.padded_vocab)
+    np.testing.assert_array_equal(
+        logits[..., :cfg.vocab_size].argmax(-1).t().numpy(),
+        tokens[:, 10:].numpy())
+    assert serve.teacher_forced(params, cfg, tokens, 10, warm=False,
+                                keep_logits=False)[2] is None
+
+
 def test_pad_cache_matches_jax():
     cfg = get_smoke_config("chatglm3-6b", dtype="float32")
     rng = np.random.default_rng(0)
@@ -211,3 +233,32 @@ def test_serve_lm_twin_cli(capsys):
                              prompt_len=8, max_new_tokens=4, quiet=True,
                              device="cpu")
     assert torch.equal(stats["tokens"], want["tokens"])
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "chatglm3-6b"])
+def test_cli_under_torchrun_gives_the_one_rank_tokens(arch):
+    """``torchrun --nproc-per-node 2 ... --model-parallel 2 --device cpu``:
+    the tensor-parallel serve (gloo, a (1, 2) mesh) prints, on rank 0
+    alone, the new tokens of request 0 that one rank's ``serve_batch``
+    gives on the same seed (each rank draws its blocks of the seed's
+    weights and the global prompts)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               OMP_NUM_THREADS="2")
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.serve",
+         "--arch", arch, "--smoke", "--model-parallel", "2", "--device",
+         "cpu", "--requests", "2", "--prompt-len", "6",
+         "--max-new-tokens", "4"],
+        env=env, cwd=root, capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    lines = [ln for ln in r.stdout.splitlines() if "new tokens of request" in ln]
+    assert len(lines) == 1 and "'model': 2" in lines[0]     # rank 0 prints
+    want = serve.serve_batch(get_smoke_config(arch), n_requests=2,
+                             prompt_len=6, max_new_tokens=4, quiet=True,
+                             device="cpu")["tokens"][0, 6:].tolist()
+    assert lines[0].endswith(str(want))

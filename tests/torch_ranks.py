@@ -422,16 +422,29 @@ def dryrun_cell_on_ranks(rank, world, arch, overrides, mesh_shape, B, S):
     """The dry-run's train cell of ``arch`` (``overrides`` on its config)
     on a (data, model) mesh of ``mesh_shape``, run on real CPU tensors on
     these gloo ranks: (matmul FLOPs, collective bytes by kind)."""
+    return dryrun_cells_on_ranks(rank, world, [(arch, overrides, "train")],
+                                 mesh_shape, B, S)[0]
+
+
+def dryrun_cells_on_ranks(rank, world, cells, mesh_shape, B, S):
+    """The dry-run's cells (arch, overrides on its config, kind) of
+    ``B`` x ``S`` tokens on a (data, model) mesh of ``mesh_shape``, run on
+    real CPU tensors on these gloo ranks: [(matmul FLOPs, collective bytes
+    by kind)] in the order of ``cells``."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import abstract_mesh, make_mesh
     data, model = mesh_shape
-    cell, _ = D.lower_cell(arch, None, False, overrides,
-                           shape=ShapeConfig(f"train_{B}x{S}", S, B, "train"),
-                           mesh=abstract_mesh(data=data, model=model))
-    prof = cell.run(fake=False, mesh=make_mesh(
-        (data, model), ("data", "model"), device="cpu"))
-    return prof.matmul_flops, prof.collective_bytes()
+    mesh = make_mesh((data, model), ("data", "model"), device="cpu")
+    out = []
+    for arch, overrides, kind in cells:
+        cell, _ = D.lower_cell(arch, None, False, overrides,
+                               shape=ShapeConfig(f"{kind}_{B}x{S}", S, B,
+                                                 kind),
+                               mesh=abstract_mesh(data=data, model=model))
+        prof = cell.run(fake=False, mesh=mesh)
+        out.append((prof.matmul_flops, prof.collective_bytes()))
+    return out
 
 
 def tp_step_on_card(rank, world, arch):
@@ -485,3 +498,112 @@ def tp_step_on_card(rank, world, arch):
     p_gap = max(float((a - b).abs().max() / b.abs().max())
                 for a, b in zip(T.leaves(new), T.leaves(whole)))
     return launches, float(m["loss"]), (float(rm["loss"]), g_gap, p_gap)
+
+
+def _count_decode_attention():
+    """Count the decode-attention wrapper's calls (on a CPU tensor it takes
+    its plain version itself, uncounted) as launches."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    real = da_ops.decode_attention
+
+    def counted(*args, **kw):
+        da_ops.launches += 1
+        return real(*args, **kw)
+    da_ops.decode_attention = counted
+    return da_ops
+
+
+def tp_serve_on_ranks(rank, world, mesh_shape, cases):
+    """Tensor-parallel serving of f32 smoke configs on a (data, model) mesh
+    of ``mesh_shape``, each kernel launch played by its plain version. For
+    each (arch, whole weights, prompts, forced tokens, new tokens) of
+    ``cases`` (numpy): ``launch.serve.generate`` over the mesh (its tokens
+    and this rank's launches, the split-row RMSNorm's among them), then the
+    prefill and decode steps teacher-forced on ``forced``: the logits of
+    every step over the whole vocabulary for this rank's rows, and this
+    rank's cache blocks after the prefill and after the last step; the
+    logits of ``launch.serve.teacher_forced`` on ``forced`` (the whole
+    batch's); the tokens of ``generate`` at temperature 0.7 from a
+    generator seeded 5."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch import tree as T
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import serve_step as ss
+    from repro_torch.distributed import tensor_parallel as TPm
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    mods = play_launches()
+    mods["decode_attention"] = _count_decode_attention()
+    mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device="cpu")
+    out = []
+    for arch, params, prompts, forced, new in cases:
+        cfg = get_smoke_config(arch, dtype="float32")
+        B, S = prompts.shape
+        layout = TPm.serve_layout(cfg, mesh, B)
+        local = layout.shard_params(bridge.to_torch(params, device="cpu"))
+        for mod in mods.values():
+            mod.launches = 0
+        mods["fused_rmsnorm"].split_launches = 0
+        tokens = serve.generate(local, cfg, torch.from_numpy(prompts),
+                                max_new_tokens=new, mesh=mesh)
+        launches = {name: mod.launches for name, mod in mods.items()}
+        launches["fused_rmsnorm_split"] = mods["fused_rmsnorm"].split_launches
+
+        tp = layout.tp
+        vtp = M.vocab_group(cfg, tp)
+        rows = layout.my_rows(torch.from_numpy(forced))
+        b = rows.shape[0]
+        prefill = ss.make_prefill_step(cfg, tp)
+        decode = ss.make_decode_step(cfg, tp)
+        lg, cache = prefill(local, {
+            "tokens": rows[:, :S].contiguous(),
+            "positions": serve._positions(cfg, b, S, device="cpu")})
+        steps = [TPm.gather_vocab(lg, vtp)[:, 0]]
+        after_prefill = {p: t.numpy().copy() for p, t in T.flatten(cache)}
+        cache = ss.pad_cache(cache, cfg, S + new)
+        for t in range(new - 1):
+            lg, cache = decode(local, {
+                "tokens": rows[:, S + t:S + t + 1].contiguous(),
+                "positions": serve._positions(cfg, b, 1, start=S + t,
+                                              device="cpu")}, cache)
+            steps.append(TPm.gather_vocab(lg, vtp)[:, 0])
+        helper = serve.teacher_forced(local, cfg, torch.from_numpy(forced),
+                                      S, layout=layout, warm=False)[2]
+        sampled = serve.generate(local, cfg, torch.from_numpy(prompts),
+                                 max_new_tokens=new, temperature=0.7,
+                                 generator=torch.Generator().manual_seed(5),
+                                 mesh=mesh)
+        out.append({"tokens": tokens.numpy(), "launches": launches,
+                    "helper_logits": helper.numpy(),
+                    "sampled": sampled.numpy(),
+                    "split_rows": bool(tp is not None and tp.split_rows),
+                    "row0": mesh.axes_index(layout.batch_axes) * b,
+                    "logits": torch.stack(steps).numpy(),
+                    "prefill_cache": after_prefill,
+                    "final_cache": {p: t.numpy().copy()
+                                    for p, t in T.flatten(cache)}})
+    return {"coord": mesh.coordinate(), "cases": out}
+
+
+def gather_vocab_on_ranks(rank, world, logits, temperature, split_rows):
+    """``tensor_parallel.gather_vocab`` of this rank's vocab columns of
+    ``logits`` (B, 1, V) over a (1, world) mesh, then ``serve_step.sample``
+    from a generator seeded 0 (the vocabulary's padded tail past V - 3
+    masked): the tokens. With ``split_rows`` the ranks hold other rows of
+    the batch (B / world each) and the columns given are those of the
+    group's rows; the tokens are this rank's rows'."""
+    import dataclasses
+    import torch
+    from repro_torch.distributed import serve_step as ss
+    from repro_torch.distributed import tensor_parallel as TPm
+    from repro_torch.launch.mesh import make_mesh
+    tp = TPm.model_group(make_mesh((1, world), ("data", "model"),
+                                   device="cpu"))
+    tp = dataclasses.replace(tp, split_rows=split_rows)
+    v = logits.shape[-1] // world
+    mine = torch.from_numpy(logits[..., rank * v:(rank + 1) * v].copy())
+    full = TPm.gather_vocab(mine, tp)
+    gen = torch.Generator().manual_seed(0)
+    return ss.sample(full, gen, temperature, logits.shape[-1] - 3).numpy()
