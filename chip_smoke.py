@@ -142,14 +142,31 @@ Phases, each printing its lines; any failed check exits non-zero:
      (phases 12 (b) and 13 (b) are held to limits set from four draws of
      the weights, ``scripts/tp_bf16_seeds.py``), the prefill s, decode ms a step, each rank's peak memory and seconds in
      collectives.
+ 14. Flux partitions over the cards of this process (ROADMAP item 8c):
+     ``LocalRuntime(mesh=make_local_mesh(), n_partitions=cards)``, a
+     partition a card, every task inside its partition's placement: (a)
+     each kernel in a task on each card at phase 3's main-path shapes
+     against its plain version (with more than one card, also launched
+     from a thread whose current device is card 0 onto the last card's
+     tensors); (b) max(2, cards) stablelm-3b train tasks at full width and
+     depth, 2 steps of phase 7's batch each, each from its own seed on its
+     card, losses equal in every bit to the same seeds' steps on card 0,
+     the tasks overlapping on more than one card; (c) cards + 1 tasks
+     serving phase 10 (b)'s request through ``generate``, tokens equal to
+     direct ``generate``, decode ms a step beside one task alone; each
+     part's launches by kernel and card exact. On one card the extra tasks
+     queue through the one partition. ``scripts/flux_partitions.py`` runs
+     this phase alone on every card of a machine.
 No serving path is cut to fit the time limit. The whole script took
-817.0 s on an H100 80GB HBM3 at 700 W, phase 13 146.7 s of it.
+858.0 s on an H100 80GB HBM3 at 700 W, phase 13 164.4 s and phase 14
+22.1 s of it.
 The line before the last is the ``{"kernels": [...]}`` summary (with each
 kernel's launches per serve_batch, per train step, per driver step, per
-part of phases 10 and 11, per rank of each phase 12 step and per rank of
-each phase 13 case; the RMSNorm kernel's split-row launches, phases 12's
-and 13's, as an entry of their own, with its decode-shape reading); the
-last is ``{"ok": true, "device": {...}}``.
+part of phases 10 and 11, per rank of each phase 12 step, per rank of
+each phase 13 case and per part of phase 14 by card; the RMSNorm
+kernel's split-row launches, phases 12's and 13's, as an entry of their
+own, with its decode-shape reading); the last is ``{"ok": true,
+"device": {...}}``.
 """
 import contextlib
 import dataclasses
@@ -171,6 +188,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # one set of terms for the card, the roofline's
 import numpy as np  # noqa: E402
 
+from repro_torch.device import same_device  # noqa: E402
 from repro_torch.launch.roofline import (  # noqa: E402
     HBM_BW as PEAK_BYTES_PER_S, PEAK_FLOPS_BY_DTYPE as PEAK_FLOPS, add_bound,
     kernel_bound, ssd_work)
@@ -372,6 +390,26 @@ TPS_BF16 = ("chatglm3-6b", "zamba2-7b")
 # 4.53e-2 to 4.85e-2, zamba2-7b 8.62e-2 to 9.55e-2; two bf16 paths that
 # round in other places, the split's partial sums once more a layer)
 TPS_BF16_TOL = {"chatglm3-6b": 0.1, "zamba2-7b": 0.2}
+
+# phase 14: Flux partitions over the cards of this process (ROADMAP item
+# 8c), LocalRuntime(mesh=make_local_mesh(), n_partitions=cards), every
+# flux task inside its partition's placement. (a) one task a partition runs
+# each of the four kernels on its card at phase 3's main-path shapes (bf16:
+# chatglm3-6b's prefill and decode attention and its 8,192 x 4,096 norm,
+# zamba2-7b's SSD scan against ssd_chunked_tc) with phase 3's limits; with
+# more than one card a thread whose current device is card 0 then launches
+# each onto tensors of the last card. (b) max(2, cards) stablelm-3b train
+# tasks at full width and depth, phase 7's batch and optimizer,
+# FLUX_TRAIN_STEPS steps each, task i's weights drawn from seed SEED + i
+# on its card: each task's losses equal in every bit to the same seed's
+# steps taken directly on card 0 (cards of one model; an unequal pair fails
+# with its gap). (c) cards + 1 tasks each serving phase 10 (b)'s request
+# (one PROMPT_LEN prompt, NEW_TOKENS greedy tokens, its own prompt) through
+# launch/serve.py's generate: tokens equal to generate called directly on
+# card 0, each task's decode ms a step (launch.serve.teacher_forced on its
+# tokens) beside one task alone. On one card every queued task runs through
+# the one partition
+FLUX_TRAIN_STEPS = 2
 
 
 def check(ok, msg):
@@ -944,7 +982,7 @@ def main():
                 x.data_ptr(), gate.data_ptr(), w.data_ptr(), out.data_ptr(), 1,
                 x.shape[0], x.shape[1], x.shape[1], x.shape[1], eps, threads,
                 rpb, -(-x.shape[0] // rpb),
-                torch.cuda.current_stream().cuda_stream)
+                torch.cuda.current_stream().cuda_stream, x.get_device())
             r["one_block_a_row_block_ms"] = timer(one_pass, 50)
             print(f"[time] {key} bf16 fused_rmsnorm with a block per row "
                   f"block instead of the persistent grid: "
@@ -1194,8 +1232,12 @@ def main():
                                                                    card)
     torch.cuda.empty_cache()
 
+    # ----------------------------- 14. flux partitions over the local cards
+    flux_launches = flux_partitions_on_card(torch, ops_of, card)
+    torch.cuda.empty_cache()
+
     # ----------------------------------------------------------------- result
-    print(f"[device] phases 1-13 ran in {time.perf_counter() - started:.1f} "
+    print(f"[device] phases 1-14 ran in {time.perf_counter() - started:.1f} "
           f"s", flush=True)
     print(f"[device] {card}")
     summary = []
@@ -1218,12 +1260,17 @@ def main():
                  for case, ranks in tp_launches.items()}
         by_tps = {case: [n.get(name, 0) for n in ranks]
                   for case, ranks in tps_launches.items()}
+        by_flux = {part: {str(c): n for c, n in cards[name].items()}
+                   for part, cards in flux_launches.items()}
         summary.append({"name": name, "route": route, "source": source,
                         "replaces": replaces,
                         "launches": (sum(by_path.values())
                                      + sum(by_part.values())
                                      + sum(map(sum, by_tp.values()))
-                                     + sum(map(sum, by_tps.values()))),
+                                     + sum(map(sum, by_tps.values()))
+                                     + sum(sum(c.values())
+                                           for c in by_flux.values())),
+                        "launches_per_flux_part_by_card": by_flux,
                         "launches_by_path": by_path,
                         "launches_by_runtime_part": by_part,
                         "launches_per_tp_rank_step": by_tp,
@@ -3971,6 +4018,406 @@ def tps_bf16_on_card(torch, card, seed=SEED, hold=True):
         launches[f"{arch} bf16 serve 1x{world}"] = [r["launches"]
                                                    for r in out]
     return launches, gap_of
+
+
+# ------------------------------------------------------------------ phase 14
+def _reset_cards(ops_of):
+    for ops in ops_of.values():
+        ops.card_launches = {}
+
+
+def _card_counts(ops_of):
+    return {name: dict(sorted(ops.card_launches.items()))
+            for name, ops in ops_of.items()}
+
+
+def flux_kernel_cases(torch, dev):
+    """Each kernel's wrapper call at phase 3's main-path shapes, bf16, its
+    inputs drawn on ``dev`` from SEED (the same values on every card of one
+    model), and the error of an output against its plain version beside
+    phase 3's limit: {name: (call, error)}, ``error(got)`` -> (err, tol)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
+    from repro_torch.kernels.fused_rmsnorm import ref as rn_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    glm, zam = get_config("chatglm3-6b"), get_config("zamba2-7b")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    B, S = N_REQUESTS, PROMPT_LEN
+    H, KV, hd = glm.num_heads, glm.num_kv_heads, glm.head_dim
+    scale = hd ** -0.5
+    q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+    qd = randn(B, 1, H, hd)
+    kd, vd = (randn(B, S + NEW_TOKENS, KV, hd) for _ in range(2))
+    vl = torch.full((), S + 1, dtype=torch.int32, device=dev)
+    x, w = randn(B * S, glm.d_model), randn(glm.d_model) * 0.1
+    eps = glm.norm_eps
+    zH, zG = zam.ssm_heads, zam.ssm_groups
+    xs = randn(B, S, zH, zam.ssm_head_dim)
+    dt = F.softplus(randn(B, S, zH, dtype=torch.float32) - 4.0)
+    A = -torch.exp(torch.rand(zH, generator=gen, device=dev) * 2.0)
+    Bm, Cm = (randn(B, S, zG, zam.ssm_state) for _ in range(2))
+    chunk = zam.ssm_chunk
+
+    def ssd_err(got):
+        want = ssd_ref.ssd_chunked_tc(xs, dt, A, Bm, Cm, chunk=chunk)
+        return (max(rel_err(got[0], want[0]), rel_err(got[1], want[1])),
+                SSD_TC_TOL)
+
+    return {
+        "flash_attention": (
+            lambda: fa_ops.flash_attention(q, k, v, scale=scale),
+            lambda got: (max_err(got, fa_ops.plain(q, k, v, scale=scale)),
+                         ATTN_TOL["bfloat16"])),
+        "decode_attention": (
+            lambda: da_ops.decode_attention(qd, kd, vd, vl, scale=scale),
+            lambda got: (max_err(got, da_ref.decode_attention_ref(
+                qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
+                vl, scale=scale).transpose(1, 2)), ATTN_TOL["bfloat16"])),
+        "fused_rmsnorm": (
+            lambda: rn_ops.rmsnorm(x, w, eps=eps),
+            lambda got: (max_err(got, rn_ref.rmsnorm_ref(x, w, eps=eps)),
+                         NORM_TOL["bfloat16"])),
+        "ssd": (
+            lambda: ssd_ops.ssd(xs, dt, A, Bm, Cm, chunk=chunk,
+                                use_pallas=True),
+            ssd_err)}
+
+
+def _run_cases(torch, dev):
+    """Each kernel of ``flux_kernel_cases`` on ``dev``, once: {name: (err,
+    tol, the output's device, the first output on the host)}, and the
+    calling thread's current device after the launches."""
+    out = {}
+    for name, (call, error) in flux_kernel_cases(torch, dev).items():
+        got = call()
+        _sync(torch, dev)
+        first = got[0] if isinstance(got, tuple) else got
+        out[name] = (*error(got), first.device, first.cpu())
+        del got, first
+    current = torch.cuda.current_device() if dev.type == "cuda" else None
+    return out, current
+
+
+def _submit(rt, descs):
+    """Submit ``descs`` to LocalRuntime ``rt`` and wait; fails unless every
+    task ended DONE on flux."""
+    tasks = rt.submit(descs)
+    check(rt.wait(timeout=TASK_TIMEOUT_S), "flux tasks did not finish")
+    bad = [(t.uid, t.state.value, t.backend, t.error) for t in tasks
+           if t.state.value != "DONE" or t.backend != "flux"]
+    check(not bad, f"flux tasks failed: {bad}")
+    return tasks
+
+
+def flux_kernels_on_cards(torch, ops_of, card, rt, devices):
+    """Phase 14 (a). Returns each kernel's launches by card."""
+    from repro_torch.core.task import TaskDescription
+
+    n_parts = len(rt.partitions)
+
+    def task(mesh=None):
+        return mesh.device, _run_cases(torch, mesh.device)
+
+    _reset_cards(ops_of)
+    tasks = _submit(rt, [TaskDescription(kind="executable", coupling="tight",
+                                         fn=task) for _ in range(n_parts)])
+    first = {}
+    for t in tasks:
+        dev, (res, current) = t.result
+        check(dev == devices[t.partition] and current in (None, dev.index),
+              f"kernel task of partition {t.partition} ran on {dev} "
+              f"(current {current}), not {devices[t.partition]}")
+        for name, (err, tol, where, got) in res.items():
+            same = first.setdefault(name, got)
+            bitwise = torch.equal(got, same)
+            print(f"[flux] (a) {name} in the task of partition "
+                  f"{t.partition} on {where}: max|err| vs its plain "
+                  f"version {err:.3e} (tol {tol}); equal in every bit to "
+                  f"partition 0's: {bitwise}  [{card}]", flush=True)
+            check(same_device(where, dev) and err < tol,
+                  f"{name} on {where} (partition {t.partition}): {err}")
+    want = {name: {d.index if d.type == "cuda" else 0: 1
+                   for d in devices[:n_parts]} for name in ops_of}
+    if len(devices) > 1 and devices[0].type == "cuda":
+        last, out = devices[-1], {}
+
+        def from_card_0():
+            try:
+                torch.cuda.set_device(devices[0])
+                out["res"] = _run_cases(torch, last)
+            except Exception as e:              # noqa: BLE001 - checked below
+                out["error"] = repr(e)
+
+        th = threading.Thread(target=from_card_0)
+        th.start()
+        th.join(timeout=TASK_TIMEOUT_S)
+        check(not th.is_alive() and "error" not in out,
+              f"launches onto {last} from a thread on {devices[0]}: "
+              f"{out.get('error', 'timed out')}")
+        res, current = out["res"]
+        check(current == devices[0].index, f"the thread's current device "
+              f"moved to {current}")
+        for name, (err, tol, where, _) in res.items():
+            print(f"[flux] (a) {name} from a thread whose current device is "
+                  f"{devices[0]}, onto tensors of {last}: output on {where}, "
+                  f"max|err| {err:.3e} (tol {tol}); the thread's current "
+                  f"device after it {current}  [{card}]", flush=True)
+            check(where == last and err < tol,
+                  f"{name} launched from card 0 onto {last}: {err}")
+            want[name][last.index] += 1
+    got = _card_counts(ops_of)
+    print(f"[flux] (a) launches by card {got}", flush=True)
+    check(got == want, f"phase 14 (a) launches by card {got} != {want}")
+    return got
+
+
+def _train_body(torch, cfg, seed, dev, mesh=None):
+    """FLUX_TRAIN_STEPS steps of ``cfg`` from weights drawn from ``seed``
+    on ``dev``; the batch is drawn on ``torch.device("cuda")``, the calling
+    thread's current card (on ``dev`` where a placement made it current).
+    Returns the losses, the wall interval, the peak memory and where every
+    tensor lay."""
+    from repro_torch import tree as T
+    from repro_torch.distributed.train_step import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=seed, device=dev)
+    batch = train_batch(torch, cfg, torch.device("cuda") if cuda else dev)
+    step = make_train_step(cfg, adamw.OptimizerConfig(warmup_steps=1,
+                                                      total_steps=10),
+                           mesh=mesh)
+    opt = adamw.init(params)
+    losses = []
+    for _ in range(FLUX_TRAIN_STEPS):
+        params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"].item())
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    where = {t.device for t in (*T.leaves(params), *T.leaves(opt.mu),
+                                *batch.values(), m["loss"])}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else 0.0
+    current = torch.cuda.current_device() if cuda else None
+    del params, opt, batch, m
+    return dict(losses=losses, t0=t0, t1=t1, peak_gb=peak, where=where,
+                current=current)
+
+
+def flux_training_on_cards(torch, ops_of, card, rt, devices, cfg):
+    """Phase 14 (b). Returns each kernel's launches by card."""
+    from repro_torch.core.task import TaskDescription
+    from repro_torch.distributed.train_step import kernel_launches
+
+    n_parts = len(rt.partitions)
+    n_tasks = max(2, n_parts)
+    seeds = [SEED + i for i in range(n_tasks)]
+    direct = {}
+    for seed in seeds:
+        direct[seed] = _train_body(torch, cfg, seed, devices[0])
+        if devices[0].type == "cuda":
+            torch.cuda.empty_cache()
+    # one task alone: the shortest direct run (the first may warm up)
+    alone = min(direct.values(), key=lambda r: r["t1"] - r["t0"])
+    _reset_cards(ops_of)
+
+    def task(seed, mesh=None):
+        return mesh.device, _train_body(torch, cfg, seed, mesh.device, mesh)
+
+    t0 = time.perf_counter()
+    tasks = _submit(rt, [TaskDescription(
+        kind="executable", coupling="tight", fn=task, args=(seed,))
+        for seed in seeds])
+    wall = time.perf_counter() - t0
+    got = _card_counts(ops_of)
+    per_card = {}
+    for seed, t in zip(seeds, tasks):
+        dev, r = t.result
+        want_dev = devices[t.partition]
+        per_card[want_dev] = per_card.get(want_dev, 0) + 1
+        same = r["losses"] == direct[seed]["losses"]
+        gap = max(abs(a - b) / abs(b) for a, b in
+                  zip(r["losses"], direct[seed]["losses"]))
+        print(f"[flux] (b) {cfg.name} task of seed {seed} on partition "
+              f"{t.partition} ({dev}): losses {r['losses']}, directly on "
+              f"{devices[0]} {direct[seed]['losses']}, equal in every bit: "
+              f"{same} (largest relative gap {gap:.3e}); tensors on "
+              f"{sorted(map(str, r['where']))}, current device "
+              f"{r['current']}; wall {r['t1'] - r['t0']:.3f} s (alone "
+              f"{direct[seed]['t1'] - direct[seed]['t0']:.3f} s); peak "
+              f"{r['peak_gb']:.2f} GB  [{card}]", flush=True)
+        check(dev == want_dev and all(same_device(w, dev) for w in r["where"])
+              and r["current"] in (None, want_dev.index),
+              f"train task of seed {seed} placed on {r['where']} (current "
+              f"{r['current']}), not on {want_dev}")
+        check(all(math.isfinite(x) for x in r["losses"]), f"train task of "
+              f"seed {seed}: losses not finite {r['losses']}")
+        check(same, f"train task of seed {seed} on {dev}: losses "
+              f"{r['losses']} != {direct[seed]['losses']} on {devices[0]} "
+              f"(largest relative gap {gap:.3e})")
+    starts = [t.result[1]["t0"] for t in tasks]
+    ends = [t.result[1]["t1"] for t in tasks]
+    overlap = max(starts) < min(ends)
+    if n_parts > 1:
+        check(overlap, f"the {n_tasks} train tasks on {n_parts} cards did "
+              f"not overlap: starts {starts}, ends {ends}")
+    step_want = kernel_launches(cfg)
+    want = {name: {d.index if d.type == "cuda" else 0:
+                   n * FLUX_TRAIN_STEPS * step_want[name]
+                   for d, n in per_card.items() if step_want[name]}
+            for name in ops_of}
+    print(f"[flux] (b) {n_tasks} {cfg.name} train tasks of "
+          f"{FLUX_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} on "
+          f"{n_parts} partition(s): wall {wall:.3f} s for all, one alone "
+          f"{alone['t1'] - alone['t0']:.3f} s (init and steps, the shortest "
+          f"direct run on {devices[0]}); every task started before any ended: {overlap}; "
+          f"peak GB by task {[round(t.result[1]['peak_gb'], 2) for t in tasks]}"
+          f"; launches by card {got}  [{card}]", flush=True)
+    check(got == want, f"phase 14 (b) launches by card {got} != {want}")
+    return got
+
+
+def _serve_body(torch, cfg, params, prompt, dev, mesh=None):
+    """generate's NEW_TOKENS greedy tokens after ``prompt`` (moved to the
+    calling thread's current card), then the decode steps timed on those
+    tokens (``teacher_forced``)."""
+    from repro_torch.launch.serve import generate, teacher_forced
+
+    p = prompt.cuda() if dev.type == "cuda" else prompt
+    t0 = time.perf_counter()
+    out = generate(params, cfg, p, max_new_tokens=NEW_TOKENS, mesh=mesh)
+    _sync(torch, dev)
+    gen_s = time.perf_counter() - t0
+    prefill_s, decode_ms, _, _ = teacher_forced(
+        params, cfg, out, PROMPT_LEN, warm=False, keep_logits=False)
+    current = torch.cuda.current_device() if dev.type == "cuda" else None
+    return dict(tokens=out[:, PROMPT_LEN:].cpu(), where=out.device,
+                current=current, gen_s=gen_s, prefill_s=prefill_s,
+                decode_ms=decode_ms, t0=t0, t1=time.perf_counter())
+
+
+def flux_serving_on_cards(torch, ops_of, card, rt, devices, cfg):
+    """Phase 14 (c). Returns each kernel's launches by card."""
+    from repro_torch.core.task import TaskDescription
+    from repro_torch.distributed.serve_step import kernel_launches
+    from repro_torch.models import model as M
+
+    n_parts = len(rt.partitions)
+    n_tasks = n_parts + 1
+    params = {d: M.init_params(cfg, seed=SEED, device=d)
+              for d in devices[:n_parts]}
+    gen = torch.Generator().manual_seed(SEED)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN),
+                             generator=gen, dtype=torch.int32)
+               for _ in range(n_tasks)]
+    direct = [_serve_body(torch, cfg, params[devices[0]],
+                          p.to(devices[0]), devices[0]) for p in prompts]
+
+    def task(i, mesh=None):
+        return mesh.device, _serve_body(torch, cfg, params[mesh.device],
+                                        prompts[i], mesh.device, mesh)
+
+    _reset_cards(ops_of)
+    t0 = time.perf_counter()
+    tasks = _submit(rt, [TaskDescription(
+        kind="executable", coupling="tight", fn=task, args=(i,))
+        for i in range(n_tasks)])
+    wall = time.perf_counter() - t0
+    got = _card_counts(ops_of)
+    alone = _submit(rt, [TaskDescription(kind="executable", coupling="tight",
+                                         fn=task, args=(0,))])[0].result[1]
+    per_card = {}
+    for i, t in enumerate(tasks):
+        dev, r = t.result
+        want_dev = devices[t.partition]
+        per_card[want_dev] = per_card.get(want_dev, 0) + 1
+        same = torch.equal(r["tokens"], direct[i]["tokens"])
+        print(f"[flux] (c) {cfg.name} generate task {i} on partition "
+              f"{t.partition} ({r['where']}, current device {r['current']}):"
+              f" {PROMPT_LEN} + {NEW_TOKENS} tokens equal to generate "
+              f"directly on {devices[0]}: {same}; generate "
+              f"{r['gen_s']:.3f} s, prefill {r['prefill_s']:.4f} s, decode "
+              f"{r['decode_ms']:.3f} ms a step (directly, alone: "
+              f"{direct[i]['decode_ms']:.3f})  [{card}]", flush=True)
+        check(dev == want_dev and same_device(r["where"], dev)
+              and r["current"] in (None, want_dev.index),
+              f"generate task {i} ran on {r['where']} (current "
+              f"{r['current']}), not on {want_dev}")
+        check(same, f"generate task {i} tokens differ from direct generate")
+    # each task: one generate and one teacher-forced pass, as many launches
+    per = kernel_launches(cfg, NEW_TOKENS)
+    want = {name: {d.index if d.type == "cuda" else 0: 2 * n * per[name]
+                   for d, n in per_card.items() if per[name]}
+            for name in ops_of}
+    dec = [t.result[1]["decode_ms"] for t in tasks]
+    print(f"[flux] (c) {n_tasks} generate tasks on {n_parts} partition(s): "
+          f"wall {wall:.3f} s for all; decode ms a step by task "
+          f"{[round(x, 3) for x in dec]} (median "
+          f"{statistics.median(dec):.3f}), one task alone through the "
+          f"runtime {alone['decode_ms']:.3f} ms, directly "
+          f"{direct[0]['decode_ms']:.3f} ms; launches by card {got}  "
+          f"[{card}]", flush=True)
+    check(got == want, f"phase 14 (c) launches by card {got} != {want}")
+    del params
+    return got
+
+
+def flux_partitions_on_card(torch, ops_of, card, devices=None, cfg=None):
+    """Phase 14: Flux partitions over the cards of this process, one task
+    a partition at a time (see FLUX_TRAIN_STEPS). ``devices``: the local
+    mesh's devices (the cards); ``cfg``: stablelm-3b at full size. Returns
+    each part's launches by kernel and card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.local import LocalRuntime
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(devices=devices)
+    devices = list(mesh.devices.flat)
+    cfg = cfg or get_config("stablelm-3b")
+    peak = {}
+    if devices[0].type == "cuda":
+        for d in devices:
+            torch.cuda.reset_peak_memory_stats(d)
+    rt = LocalRuntime(mesh=mesh, n_partitions=len(devices))
+    try:
+        check(len(rt.partitions) == len(devices)
+              and [p.mesh.device for p in rt.partitions] == devices,
+              f"{len(devices)} cards carved into {rt.partitions}")
+        print(f"[flux] {len(devices)} card(s) {[str(d) for d in devices]} "
+              f"carved into {len(rt.partitions)} partition(s) of "
+              f"{rt.partitions[0].mesh.shape}  [{card}]", flush=True)
+        launches = {"a": flux_kernels_on_cards(torch, ops_of, card, rt,
+                                               devices)}
+        launches["b"] = flux_training_on_cards(torch, ops_of, card, rt,
+                                               devices, cfg)
+        if devices[0].type == "cuda":
+            torch.cuda.empty_cache()
+        launches["c"] = flux_serving_on_cards(torch, ops_of, card, rt,
+                                              devices, cfg)
+    finally:
+        rt.shutdown()
+    if devices[0].type == "cuda":
+        peak = {str(d): round(torch.cuda.max_memory_allocated(d) / 1e9, 2)
+                for d in devices}
+    print(f"[flux] phase 14 took {time.perf_counter() - t0:.1f} s; peak "
+          f"memory by card over the phase {peak} GB  [{card}]", flush=True)
+    return launches
 
 
 if __name__ == "__main__":

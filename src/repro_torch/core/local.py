@@ -9,7 +9,9 @@ simulator — routing policies, retries, speculation, and profiling included:
   * ``dragon`` — worker pool for in-process Python *function* tasks,
   * ``flux``   — co-scheduled *executable* tasks, one per device-mesh
     partition (callables declaring a ``mesh`` kwarg receive their
-    partition's submesh).
+    partition's submesh). With ``mesh=make_local_mesh()`` (the cards of
+    this process) and ``n_partitions=N``, min(N, cards) partitions run at
+    once, each task on its own partition's card.
 
 Prefer the Session API (``repro_torch.runtime``) in new code.
 """

@@ -21,6 +21,13 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def same_device(where: torch.device, dev: torch.device) -> bool:
+    """Whether a tensor's device ``where`` is ``dev``. A CPU tensor carries
+    no index, whatever index a mesh names its CPU device by."""
+    return where.type == dev.type and (dev.type == "cpu"
+                                       or where.index == dev.index)
+
+
 def sm_count(index: int) -> int:
     """The SM count of CUDA device ``index``, queried once and cached."""
     n = _sm_counts.get(index)

@@ -65,6 +65,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree as T
+from repro_torch.device import same_device
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels.fused_rmsnorm import ops as rn_ops
 from repro_torch.kernels.fused_rmsnorm import ref as rn_ref
@@ -489,10 +490,38 @@ def unsupported(cfg, mesh) -> Optional[str]:
     return None
 
 
+def local_device(mesh):
+    """The device of a one-device local mesh (``make_local_mesh``, a Flux
+    partition of one card), where a step runs as on one rank; None for any
+    other mesh. A local mesh of several devices raises NotImplementedError:
+    a step over them runs data- or tensor-parallel in one process, which
+    the port does not have (its parallelism runs over ranks; ROADMAP item
+    8d)."""
+    if mesh is None or getattr(mesh, "devices", None) is None:
+        return None
+    if mesh.size > 1:
+        raise NotImplementedError(
+            f"a step over the {mesh.size} local devices of {mesh!r} in one "
+            f"process (ROADMAP item 8d): carve one device a partition, or "
+            f"run a mesh over ranks (make_host_mesh under a launcher)")
+    return mesh.device
+
+
+def check_local(mesh, t: torch.Tensor, what: str):
+    """Raise where ``t`` does not lie on the device of a one-device local
+    ``mesh`` (see ``local_device``)."""
+    dev = local_device(mesh)
+    if dev is not None and not same_device(t.device, dev):
+        raise ValueError(f"{what} on {t.device}, not on the device of "
+                         f"{mesh!r}, {dev}")
+
+
 def train_layout(cfg, mesh) -> Optional[TrainLayout]:
     """The ``TrainLayout`` of ``cfg`` on ``mesh`` (either policy) over more
-    than one rank; None for one rank. Raises NotImplementedError where
-    ``unsupported`` says why."""
+    than one rank; None for one rank and for a one-device local mesh.
+    Raises NotImplementedError where ``unsupported`` says why, and for a
+    local mesh of several devices (``local_device``)."""
+    local_device(mesh)
     if (mesh is None or math.prod(mesh.shape.get(a, 1) for a in
                                   (SH.DATA_AXIS, SH.MODEL_AXIS)) == 1):
         return None
@@ -504,9 +533,11 @@ def train_layout(cfg, mesh) -> Optional[TrainLayout]:
 
 def serve_layout(cfg, mesh, batch: int) -> Optional[ServeLayout]:
     """The ``ServeLayout`` of ``cfg`` serving ``batch`` requests on ``mesh``
-    (either policy) over more than one rank; None for one rank. Raises
-    NotImplementedError where ``unsupported`` says why: a config the port
-    cannot split is never served whole instead."""
+    (either policy) over more than one rank; None for one rank and for a
+    one-device local mesh. Raises NotImplementedError where ``unsupported``
+    says why (a config the port cannot split is never served whole
+    instead), and for a local mesh of several devices (``local_device``)."""
+    local_device(mesh)
     if (mesh is None or math.prod(mesh.shape.get(a, 1) for a in
                                   (SH.DATA_AXIS, SH.MODEL_AXIS)) == 1):
         return None

@@ -188,7 +188,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig, *,
     name ``model``: ``tensor_parallel.step_group``). The gradient mean acts
     on the rank's blocks of the gradients. The step carries its gradient
     function (``grad_fn``, the mean included) and its ``layout`` (None on
-    one rank) as attributes."""
+    one rank) as attributes.
+
+    A one-device local mesh (a Flux partition of one card,
+    ``make_local_mesh``) is one rank: no collective runs, and the batch
+    must lie on its device. A local mesh of several devices raises
+    NotImplementedError (ROADMAP item 8d)."""
     if grad_compression not in (None, "int8"):
         raise ValueError(f"unknown grad_compression {grad_compression!r}")
     layout = TP.train_layout(cfg, mesh)
@@ -207,6 +212,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig, *,
                                      group_loss=group_loss)
 
     def train_step(params, opt_state, batch):
+        TP.check_local(mesh, batch["labels"], "the batch")
         grads, metrics = grad_fn(params, batch)
         params, opt_state, om = adamw.update(opt_cfg, opt_state, grads, params,
                                              layout)

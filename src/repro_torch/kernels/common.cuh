@@ -4,6 +4,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <atomic>
+
 // Returned by an entry point when cuTensorMapEncodeTiled refuses a TMA
 // tensor map or cannot be found (the CUDA error codes stay below it).
 #define REPRO_ERR_TENSOR_MAP 10000
@@ -34,6 +36,61 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
     out[2 * i + 1] = f.y;
   }
 }
+
+// Makes CUDA device `device` current for the life of an entry point and
+// restores the caller's device after it, so a launch runs on the card its
+// tensors live on whatever the calling thread's current device is. Where
+// the device is current already it costs one cudaGetDevice.
+class DeviceScope {
+ public:
+  explicit DeviceScope(int device) {
+    int cur = -1;
+    err_ = cudaGetDevice(&cur);
+    if (err_ == cudaSuccess && cur != device) {
+      err_ = cudaSetDevice(device);
+      if (err_ == cudaSuccess) prev_ = cur;
+    }
+  }
+  ~DeviceScope() {
+    if (prev_ >= 0) cudaSetDevice(prev_);
+  }
+  DeviceScope(const DeviceScope&) = delete;
+  DeviceScope& operator=(const DeviceScope&) = delete;
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = -1;
+  cudaError_t err_;
+};
+
+// One kernel's opt-in to more than 48 KB of dynamic shared memory, made on
+// the current device the first time that device launches it: a function's
+// attributes belong to a device's context, so an opt-in made on one card
+// does not hold on another. Kept as a function-level static beside the
+// launch of each kernel instantiation. Two threads that race on a device
+// both set the attribute, which is harmless; a failed opt-in is tried again
+// at the next launch.
+class SmemOptIn {
+ public:
+  static constexpr int MAX_DEVICES = 64;
+  template <typename Kernel>
+  cudaError_t operator()(Kernel* kernel, int bytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES && done_[dev].load(std::memory_order_acquire))
+      return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err == cudaSuccess && dev < MAX_DEVICES)
+      done_[dev].store(true, std::memory_order_release);
+    return err;
+  }
+
+ private:
+  std::atomic<bool> done_[MAX_DEVICES]{};
+};
 
 }  // namespace
 

@@ -450,10 +450,9 @@ int launch_mma(const void* q, const void* k, const void* v, Partials part,
                int n_split, int rows_per_split, const Strides& st, float scale,
                cudaStream_t stream) {
   using C = Split<HD>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_fwd_split_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::SMEM);
-  if (attr != cudaSuccess) return attr;
+  static SmemOptIn opt_in;
+  if (const cudaError_t e = opt_in(decode_fwd_split_mma<HD>, C::SMEM))
+    return e;
   const dim3 grid(B * KV, n_split, (G + 15) / 16);
   decode_fwd_split_mma<HD><<<grid, WARPS * 32, C::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -473,7 +472,8 @@ static_assert(Split<256>::SMEM <= MAX_SMEM, "the ring must fit");
 // dim; valid_len is a device pointer to one int32. scratch holds
 // B * KV * n_split * G * (hd + 2) floats; the splits are rows_per_split rows
 // each (n_split * rows_per_split >= S). In bf16 hd is one of REPRO_HEAD_DIMS.
-// Launches the split kernel and the combine kernel. Returns a cudaError_t.
+// Launches the split kernel and the combine kernel on CUDA device `device`
+// (the tensors'), `stream` one of its streams. Returns a cudaError_t.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     const void* valid_len, void* scratch, int dtype, int B, int S, int H,
@@ -481,11 +481,13 @@ extern "C" int decode_attention_fwd(
     long long q_b, long long q_h,
     long long k_b, long long k_s, long long k_h,
     long long v_b, long long v_s, long long v_h,
-    long long o_b, long long o_h, float scale, void* stream) {
+    long long o_b, long long o_h, float scale, void* stream, int device) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || hd % 16 != 0 ||
       hd <= 0 || hd > 1024 || n_split <= 0 ||
       (long long)n_split * rows_per_split < S)
     return (int)cudaErrorInvalidValue;
+  const DeviceScope on(device);
+  if (on.error() != cudaSuccess) return (int)on.error();
   const Strides st{q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_h};
   const int G = H / KV;
   const int* vl = static_cast<const int*>(valid_len);
@@ -495,10 +497,9 @@ extern "C" int decode_attention_fwd(
   int err = cudaErrorInvalidValue;
   if (dtype == 0) {
     const int smem = smem_f32(G, hd);
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        decode_fwd_split_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MAX_SMEM);
-    if (attr != cudaSuccess) return attr;
+    static SmemOptIn opt_in;
+    if (const cudaError_t e = opt_in(decode_fwd_split_f32, MAX_SMEM))
+      return e;
     if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
     decode_fwd_split_f32<<<dim3(B * KV, n_split), NT, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),

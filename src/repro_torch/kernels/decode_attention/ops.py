@@ -14,8 +14,9 @@ the same arithmetic in plain PyTorch). bf16 products run on the tensor cores
 (``mma.sync``), f32 ones as scalar FMAs.
 
 A CPU tensor takes the plain version (``ref.decode_attention_ref``); a CUDA
-tensor launches the kernels or raises. ``launches`` counts calls that launched
-them.
+tensor launches the kernels or raises, on the card q lies on whatever the
+calling thread's current device. ``launches`` counts calls that launched
+them, ``card_launches`` the same by card.
 
 There is no gradient: the reference kernel has no backward (its Pallas call
 raises under ``jax.grad``) and no training path decodes. Where grad mode is
@@ -33,10 +34,11 @@ from .. import _build, count_launch
 from . import ref
 
 launches = 0
+card_launches = {}      # CUDA device index -> launches
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"decode_attention_fwd":
-               [_P] * 6 + [_I] * 8 + [_L] * 10 + [ctypes.c_float, _P]}
+               [_P] * 6 + [_I] * 8 + [_L] * 10 + [ctypes.c_float, _P, _I]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head widths the bf16 kernel is instantiated for (as flash attention's)
 HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160, 256)
@@ -119,7 +121,7 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, scale: float):
         valid_len.data_ptr(), scratch.data_ptr(), _DTYPES[q.dtype], B, S, H,
         KV, hd, n_split, rows, q.stride(0), q.stride(2),
         *k_cache.stride()[:3], *v_cache.stride()[:3], o.stride(0), o.stride(2),
-        float(scale), stream_ptr(dev))
+        float(scale), stream_ptr(dev), dev)
     _build.check(lib, "decode_attention", err)
-    count_launch(__name__)
+    count_launch(__name__, card=dev)
     return o

@@ -401,11 +401,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int S, int H, int KV, const Strides& st, float scale,
                  cudaStream_t stream) {
   using T = Tile<HD, HDV>;
-  // the opt-in to more than 48 KB of shared memory, once per instantiation
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::SMEM);
-  if (attr != cudaSuccess) return attr;
+  // the opt-in to more than 48 KB of shared memory, once per device
+  static SmemOptIn opt_in;
+  if (const cudaError_t e = opt_in(flash_fwd_wgmma<HD, HDV>, T::SMEM))
+    return e;
   CUtensorMap tq, tk, tv;
   int err;
   if ((err = make_map(&tq, q, HD, H, S, B, st.q_h, st.q_s, st.q_b, WG_ROWS)) ||
@@ -569,10 +568,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int S, int H, int KV, const Strides& st, float scale,
                cudaStream_t stream) {
   constexpr int SMEM = BK * (HD + HDV) * (int)sizeof(float);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd<HD / 16, HDV / 16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM);
-  if (attr != cudaSuccess) return attr;
+  static SmemOptIn opt_in;
+  if (const cudaError_t e = opt_in(flash_fwd<HD / 16, HDV / 16>, SMEM))
+    return e;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd<HD / 16, HDV / 16><<<grid, NT, SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -604,7 +602,9 @@ int dispatch(int dtype, int hd, int hdv, const void* q, const void* k,
 // v (B,S,KV,hd_v), o (B,S,H,hd_v), each addressed through its (batch, seq,
 // head) strides in elements with a contiguous head dim; in bf16 every
 // pointer and stride is a multiple of 16 bytes (TMA). (hd, hd_v) is one of
-// REPRO_HEAD_DIMS. Returns a cudaError_t, or REPRO_ERR_TENSOR_MAP.
+// REPRO_HEAD_DIMS. The kernel runs on CUDA device `device` (the tensors'),
+// `stream` one of its streams. Returns a cudaError_t, or
+// REPRO_ERR_TENSOR_MAP.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int B, int S, int H, int KV, int hd, int hd_v,
@@ -612,9 +612,11 @@ extern "C" int flash_attention_fwd(
     long long k_b, long long k_s, long long k_h,
     long long v_b, long long v_s, long long v_h,
     long long o_b, long long o_s, long long o_h,
-    float scale, void* stream) {
+    float scale, void* stream, int device) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
+  const DeviceScope on(device);
+  if (on.error() != cudaSuccess) return (int)on.error();
   const Strides st{q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h};
   return dispatch(dtype, hd, hd_v, q, k, v, o, B, S, H, KV, st, scale,
                   static_cast<cudaStream_t>(stream));

@@ -15,7 +15,9 @@ the algorithm at 2e-5.
 A CPU tensor takes the plain version (``ref.attention_ref``); a CUDA tensor
 launches the kernel or raises. ``launches`` counts kernel launches. Under
 grad the gradient is the vector-Jacobian product of ``ref.attention_ref``
-(``kernels._grad``).
+(``kernels._grad``). The kernel runs on the card q lies on, on that card's
+current stream, whatever the calling thread's current device;
+``card_launches`` counts its launches by card.
 """
 from __future__ import annotations
 
@@ -23,14 +25,17 @@ import ctypes
 
 import torch
 
+from ...device import stream_ptr
 from .. import _build, _grad, count_launch
 from . import ref
 
 launches = 0
+card_launches = {}      # CUDA device index -> launches
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"flash_attention_fwd":
-               [_P, _P, _P, _P] + [_I] * 7 + [_L] * 12 + [ctypes.c_float, _P]}
+               [_P, _P, _P, _P] + [_I] * 7 + [_L] * 12
+               + [ctypes.c_float, _P, _I]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head widths the kernels are instantiated for where q/k and v have one
 # width: the ported configs' (64, 80, 112, 128, 160, 256) and the smoke
@@ -92,12 +97,13 @@ def _launch(q, k, v, *, scale):
     B, S, H, hd = q.shape
     hd_v = v.shape[-1]
     o = q.new_empty((B, S, H, hd_v))
+    dev = q.get_device()
     lib = _build.load("flash_attention", _SIGNATURES)
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         _DTYPES[q.dtype], B, S, H, k.shape[2], hd, hd_v,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        float(scale), stream_ptr(dev), dev)
     _build.check(lib, "flash_attention", err)
-    count_launch(__name__)
+    count_launch(__name__, card=dev)
     return o

@@ -313,9 +313,11 @@ template <int MODE>
 int dispatch(const void* x, const void* gate, const void* w, void* out,
              float* ss, int dtype, int rows, int d, long long xs,
              long long gs, float d_full, float eps, int threads,
-             int rows_per_block, int blocks, void* stream) {
+             int rows_per_block, int blocks, void* stream, int device) {
   const int bad = bad_launch(dtype, rows, d, threads, rows_per_block, blocks);
   if (bad) return bad;
+  const DeviceScope on(device);
+  if (on.error() != cudaSuccess) return (int)on.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool g = gate != nullptr;
   if (dtype == 0)
@@ -339,16 +341,17 @@ int dispatch(const void* x, const void* gate, const void* w, void* out,
 // gs in elements; out (rows, d) contiguous; w (d,). dtype 0 = float32, 1 = bfloat16 (w in x's
 // dtype). threads 0 takes rmsnorm_loop; otherwise rmsnorm_rows with `blocks`
 // blocks of (threads, rows_per_block), which needs 16-byte aligned rows of a
-// width that is a multiple of 16 bytes. Returns a CUDA error code (0 on
-// success).
+// width that is a multiple of 16 bytes. Every entry point launches on CUDA
+// device `device` (the tensors'), `stream` one of its streams. Returns a
+// CUDA error code (0 on success).
 extern "C" int fused_rmsnorm_fwd(const void* x, const void* gate, const void* w,
                                  void* out, int dtype, int rows, int d,
                                  long long xs, long long gs,
                                  float eps, int threads, int rows_per_block,
-                                 int blocks, void* stream) {
+                                 int blocks, void* stream, int device) {
   return dispatch<NORM>(x, gate, w, out, nullptr, dtype, rows, d, xs, gs,
                         (float)d, eps, threads, rows_per_block, blocks,
-                        stream);
+                        stream, device);
 }
 
 // The split row's first pass: ss (rows,) f32 gets each row's sum of squares
@@ -358,10 +361,10 @@ extern "C" int fused_rmsnorm_sumsq(const void* x, const void* gate, float* ss,
                                    int dtype, int rows, int d, long long xs,
                                    long long gs, int threads,
                                    int rows_per_block, int blocks,
-                                   void* stream) {
+                                   void* stream, int device) {
   return dispatch<SUMSQ>(x, gate, nullptr, nullptr, ss, dtype, rows, d, xs,
                          gs, 1.0f, 0.0f, threads, rows_per_block, blocks,
-                         stream);
+                         stream, device);
 }
 
 // The split row's second pass: out = g * rsqrt(ss / d_full + eps) * (1 + w)
@@ -372,9 +375,9 @@ extern "C" int fused_rmsnorm_scale(const void* x, const void* gate,
                                    int dtype, int rows, int d, long long xs,
                                    long long gs, int d_full, float eps,
                                    int threads, int rows_per_block,
-                                   int blocks, void* stream) {
+                                   int blocks, void* stream, int device) {
   if (d_full < d) return (int)cudaErrorInvalidValue;
   return dispatch<SCALE>(x, gate, w, out, const_cast<float*>(ss), dtype, rows,
                          d, xs, gs, (float)d_full, eps, threads,
-                         rows_per_block, blocks, stream);
+                         rows_per_block, blocks, stream, device);
 }

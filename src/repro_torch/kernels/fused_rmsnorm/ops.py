@@ -22,8 +22,9 @@ from the summed row, the mean over the full ``width``).
 
 A CPU tensor takes the plain version (``ref.rmsnorm_ref``,
 ``ref.row_sumsq_ref``); a CUDA tensor launches the kernel or raises.
-``launches`` counts kernel launches, ``split_launches`` those of the two
-split-row passes among them. Under grad the gradient is the
+The kernel runs on the card x lies on whatever the calling thread's current
+device. ``launches`` counts kernel launches, ``card_launches`` the same by
+card, ``split_launches`` those of the two split-row passes among them. Under grad the gradient is the
 vector-Jacobian product of the plain version (``kernels._grad``).
 """
 from __future__ import annotations
@@ -38,16 +39,18 @@ from .. import _build, _grad, count_launch
 from . import ref
 
 launches = 0
+card_launches = {}      # CUDA device index -> launches
 split_launches = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {"fused_rmsnorm_fwd":
-               [_P] * 4 + [_I] * 3 + [_L] * 2 + [_F] + [_I] * 3 + [_P],
+               [_P] * 4 + [_I] * 3 + [_L] * 2 + [_F] + [_I] * 3 + [_P, _I],
                "fused_rmsnorm_sumsq":
-               [_P] * 3 + [_I] * 3 + [_L] * 2 + [_I] * 3 + [_P],
+               [_P] * 3 + [_I] * 3 + [_L] * 2 + [_I] * 3 + [_P, _I],
                "fused_rmsnorm_scale":
-               [_P] * 5 + [_I] * 3 + [_L] * 2 + [_I, _F] + [_I] * 3 + [_P]}
+               [_P] * 5 + [_I] * 3 + [_L] * 2 + [_I, _F] + [_I] * 3
+               + [_P, _I]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LOADS = 4            # 16-byte vectors of a row a thread holds (NV) at most
 MAX_THREADS = 512    # threads of a block
@@ -190,17 +193,17 @@ def _launch(x, w, gate, row_ss=None, *, eps, width=None):
     if row_ss is None:
         err = (_fwd or _load())(x.data_ptr(), gp, wp, out.data_ptr(), dtype,
                                 n // d, d, xs, gs, eps, threads,
-                                rows_per_block, blocks, stream_ptr(dev))
+                                rows_per_block, blocks, stream_ptr(dev), dev)
     else:
         row_ss = row_ss.contiguous()
         err = _build.load("fused_rmsnorm", _SIGNATURES).fused_rmsnorm_scale(
             x.data_ptr(), gp, wp, row_ss.data_ptr(), out.data_ptr(), dtype,
             n // d, d, xs, gs, width, eps, threads, rows_per_block, blocks,
-            stream_ptr(dev))
+            stream_ptr(dev), dev)
     if err:
         _build.check(_build.load("fused_rmsnorm", _SIGNATURES),
                      "fused_rmsnorm", err)
-    count_launch(__name__)
+    count_launch(__name__, card=dev)
     if row_ss is not None:
         count_launch(__name__, "split_launches")
     return out
@@ -223,8 +226,9 @@ def _launch_sumsq(x, gate):
     lib = _build.load("fused_rmsnorm", _SIGNATURES)
     err = lib.fused_rmsnorm_sumsq(x.data_ptr(), gp, out.data_ptr(), dtype,
                                   out.numel(), d, xs, gs, threads,
-                                  rows_per_block, blocks, stream_ptr(dev))
+                                  rows_per_block, blocks, stream_ptr(dev),
+                                  dev)
     _build.check(lib, "fused_rmsnorm", err)
-    count_launch(__name__)
+    count_launch(__name__, card=dev)
     count_launch(__name__, "split_launches")
     return out

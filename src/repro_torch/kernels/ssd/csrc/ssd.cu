@@ -686,12 +686,12 @@ cudaError_t launch_f32(const void* x, const float* dt, const float* A,
                        const void* Bm, const void* Cm, void* y, float* hf,
                        int B, int S, int H, int G, int P, int N, int L,
                        const Strides& st, cudaStream_t stream) {
-  // the opt-in to more than 48 KB of shared memory, once, at the largest
-  // size any launch asks for
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      ssd_fwd<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_floats(MAX_P, MAX_N) * (int)sizeof(float));
-  if (attr != cudaSuccess) return attr;
+  // the opt-in to more than 48 KB of shared memory, once per device, at the
+  // largest size any launch asks for
+  static SmemOptIn opt_in;
+  if (const cudaError_t e = opt_in(
+          ssd_fwd<float>, smem_floats(MAX_P, MAX_N) * (int)sizeof(float)))
+    return e;
   const int smem = smem_floats(P, N) * (int)sizeof(float);
   ssd_fwd<float><<<B * H, NT, smem, stream>>>(
       static_cast<const float*>(x), dt, A, static_cast<const float*>(Bm),
@@ -708,10 +708,8 @@ cudaError_t launch_mma(const void* x, const float* dt, const float* A,
                        const void* Bm, const void* Cm, void* y, float* hf,
                        int B, int S, int H, int G, int P, int N, int L,
                        const Strides& st, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      ssd_fwd_mma<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tc<NP>::SMEM);
-  if (attr != cudaSuccess) return attr;
+  static SmemOptIn opt_in;
+  if (const cudaError_t e = opt_in(ssd_fwd_mma<NP>, Tc<NP>::SMEM)) return e;
   ssd_fwd_mma<NP><<<B * H, NT, Tc<NP>::SMEM, stream>>>(
       static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(Bm),
       static_cast<const bf16*>(Cm), static_cast<bf16*>(y), hf, S, H, G, P, N,
@@ -724,8 +722,9 @@ cudaError_t launch_mma(const void* x, const float* dt, const float* A,
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y); dt and A are float32.
 // x (B,S,H,P), dt (B,S,H), B/C (B,S,G,N) and y (B,S,H,P) are addressed through
 // strides in elements with a contiguous last dim; A (H,) and h_final
-// (B,H,P,N) f32 are contiguous. L is the chunk length. Returns a
-// cudaError_t.
+// (B,H,P,N) f32 are contiguous. L is the chunk length. The kernel runs on
+// CUDA device `device` (the tensors'), `stream` one of its streams. Returns
+// a cudaError_t.
 extern "C" int ssd_fwd_launch(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, void* y, void* h_final, int dtype, int B, int S, int H,
@@ -734,12 +733,14 @@ extern "C" int ssd_fwd_launch(
     long long dt_b, long long dt_s, long long dt_h,
     long long b_b, long long b_s, long long b_g,
     long long c_b, long long c_s, long long c_g,
-    long long y_b, long long y_s, long long y_h, void* stream) {
+    long long y_b, long long y_s, long long y_h, void* stream, int device) {
   const int vec = dtype == 0 ? 4 : 8;
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || L <= 0 ||
       L > MAX_L || P <= 0 || P > MAX_P || P % vec != 0 || N <= 0 ||
       N > MAX_N || N % vec != 0)
     return (int)cudaErrorInvalidValue;
+  const DeviceScope on(device);
+  if (on.error() != cudaSuccess) return (int)on.error();
   const Strides st{x_b, x_s, x_h, dt_b, dt_s, dt_h, b_b, b_s, b_g,
                    c_b, c_s, c_g, y_b, y_s, y_h};
   const float* dtp = static_cast<const float*>(dt);

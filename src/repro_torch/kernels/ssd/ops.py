@@ -16,7 +16,9 @@ tensor-core kernel's rounding points; ``ssd_chunked`` in f32, whatever
 ``precision`` says, as ``ssd_pallas`` ignores it; the f32 kernel differs only
 in keeping its within-chunk prefix sums in f64) and a CUDA tensor launches
 the kernel or raises. Like ``ssd_pallas``, the kernel path starts from a zero
-state: ``h0`` raises there. ``launches`` counts kernel launches.
+state: ``h0`` raises there. The kernel runs on the card x lies on whatever
+the calling thread's current device. ``launches`` counts kernel launches,
+``card_launches`` the same by card.
 
 Under grad the kernel path's gradient is the vector-Jacobian product of the
 plain version that dtype takes on the CPU (``kernels._grad``). Only y is
@@ -30,13 +32,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...device import stream_ptr
 from .. import _build, _grad, count_launch
 from . import ref
 
 launches = 0
+card_launches = {}      # CUDA device index -> launches
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"ssd_fwd_launch": [_P] * 7 + [_I] * 8 + [_L] * 15 + [_P]}
+_SIGNATURES = {"ssd_fwd_launch": [_P] * 7 + [_I] * 8 + [_L] * 15 + [_P, _I]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK, MAX_P, MAX_N = 256, 64, 128
 
@@ -107,13 +111,13 @@ def _launch(x, dt, A, Bm, Cm, *, chunk):
     _check(x, dt, A, Bm, Cm, L)
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     h_final = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    dev = x.get_device()
     lib = _build.load("ssd", _SIGNATURES)
     err = lib.ssd_fwd_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), y.data_ptr(), h_final.data_ptr(), _DTYPES[x.dtype],
         B, S, H, G, P, N, L, *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
-        *Cm.stride()[:3], *y.stride()[:3],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *Cm.stride()[:3], *y.stride()[:3], stream_ptr(dev), dev)
     _build.check(lib, "ssd", err)
-    count_launch(__name__)
+    count_launch(__name__, card=dev)
     return y, h_final

@@ -4,26 +4,39 @@ the counterpart of the JAX package's ``repro/launch/mesh.py``.
 A ``Mesh`` is what the sharding rules (``distributed/sharding.py``) and the
 data-parallel reduction (``distributed/compression.py``) read: axis names
 and sizes (``shape``, a dict in axis order, as ``jax.sharding.Mesh.shape``),
-this rank's coordinate, and the process group of a set of axes. Three kinds:
+this rank's coordinate, and the process group of a set of axes. Four kinds:
 
   * over the ranks of a process group: ``torch.distributed``'s
     ``DeviceMesh`` underneath (``make_mesh``, ``make_host_mesh`` under a
     launcher such as ``torchrun``);
   * one process, no process group: every axis of size 1, no collective ever
     runs (``make_host_mesh`` without a launcher);
+  * local: the devices of this process (``make_local_mesh``), in an array
+    of the mesh's shape, ``devices``, as ``jax.sharding.Mesh.devices``. It
+    is what Flux partitions are carved from: each partition a range of
+    cards, each co-scheduled task placed on its card
+    (``Mesh.placement``). It has no process groups: a step over several
+    of its devices is ROADMAP item 8d;
   * abstract: axis names and sizes with no ranks, for computing the specs of
     the production meshes (``abstract_mesh``, as JAX's ``AbstractMesh``;
     ``make_production_mesh``).
+
+JAX's ``make_host_mesh`` spans the local devices of its one process. The
+port splits that role in two: ``make_host_mesh`` spans the ranks (one
+process without a launcher is the (1, 1) mesh that ``train()``,
+``generate(mesh=)`` and the CLIs take), ``make_local_mesh`` the cards.
 
 The backend is the caller's: NCCL for a mesh on the card, gloo on the CPU.
 Nothing switches between them on its own.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -32,13 +45,19 @@ from repro_torch.device import resolve_device
 
 class Mesh:
     """Named axes (``shape``: name -> size, in axis order) over the ranks of
-    ``device_mesh``, or over no ranks when it is None (see the module
+    ``device_mesh``, over the local ``devices`` (an array of the mesh's
+    shape), or over no ranks when both are None (see the module
     docstring)."""
 
-    def __init__(self, shape: Dict[str, int], device_mesh=None):
+    def __init__(self, shape: Dict[str, int], device_mesh=None,
+                 devices: Optional[np.ndarray] = None):
         self.shape = dict(shape)
         self.axis_names: Tuple[str, ...] = tuple(shape)
         self.device_mesh = device_mesh
+        if devices is not None and devices.shape != tuple(self.shape.values()):
+            raise ValueError(f"devices {devices.shape} do not match the mesh "
+                             f"{self.shape}")
+        self.devices = devices
         self._groups: Dict[Tuple[str, ...], object] = {}
 
     @property
@@ -46,9 +65,31 @@ class Mesh:
         return math.prod(self.shape.values())
 
     def __repr__(self):
-        kind = ("abstract" if self.device_mesh is None and self.size > 1
+        kind = ("local" if self.devices is not None
+                else "abstract" if self.device_mesh is None and self.size > 1
                 else "ranks")
         return f"Mesh({self.shape}, {kind})"
+
+    @property
+    def device(self) -> torch.device:
+        """The one device of a one-device local mesh; raises for any other
+        mesh."""
+        if self.devices is None or self.size != 1:
+            raise ValueError(f"{self!r} is not a local mesh of one device")
+        return self.devices.flat[0]
+
+    def placement(self):
+        """A context that makes this local mesh's device (its first, where
+        it has several) current on the calling thread, so that
+        ``device="cuda"``, ``.cuda()`` and the kernels inside land on it:
+        ``torch.cuda.device`` for a card, nothing for the CPU or a mesh of
+        ranks."""
+        if self.devices is None:
+            return contextlib.nullcontext()
+        dev = self.devices.flat[0]
+        if dev.type != "cuda":
+            return contextlib.nullcontext()
+        return torch.cuda.device(dev)
 
     def coordinate(self) -> Dict[str, int]:
         """This rank's index along every axis."""
@@ -157,6 +198,34 @@ def _join_launcher(device):
     if dev.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+
+
+def make_local_mesh(model_parallel: int = 1, *, device="cuda",
+                    devices: Optional[Sequence] = None) -> Mesh:
+    """A (n / mp, mp) mesh of axes ("data", "model") over the local devices
+    of this process, in order: the ``torch.cuda.device_count()`` cards (for
+    ``device="cuda"``), or ``devices`` where given (the CPU tests pass a
+    list of CPU devices). Raises where mp does not divide n."""
+    if devices is None:
+        dev = resolve_device(device)
+        if dev.type != "cuda":
+            raise ValueError(f"make_local_mesh spans the local cards; pass "
+                             f"devices= for {dev}")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if any(d.type == "cuda" and d.index is None for d in devices):
+        raise ValueError(f"name each card of a local mesh by its index: "
+                         f"{devices}")
+    n = len(devices)
+    if n == 0 or n % model_parallel:
+        raise ValueError(f"{n} devices do not split into model parallel "
+                         f"{model_parallel}")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devices
+    shape = (n // model_parallel, model_parallel)
+    return Mesh(dict(zip(("data", "model"), shape)),
+                devices=arr.reshape(shape))
 
 
 def make_host_mesh(model_parallel: int = 1, *, device="cuda") -> Mesh:

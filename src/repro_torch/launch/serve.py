@@ -65,10 +65,14 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *,
     result. Temperature sampling gives the tokens of one-rank ``generate``
     from a generator seeded alike: every rank draws from the logits of the
     whole batch (gathered over its axes) and keeps its rows, so no two
-    requests share their noise."""
+    requests share their noise. A one-device local mesh (a Flux partition
+    of one card, ``make_local_mesh``) serves as one rank, the prompts on
+    its device; a local mesh of several devices raises NotImplementedError
+    (ROADMAP item 8d)."""
     B, S = prompts.shape
     dev = resolve_device(prompts.device)
     layout = TP.serve_layout(cfg, mesh, B)
+    TP.check_local(mesh, prompts, "the prompts")
     tp = layout.tp if layout is not None else None
     vtp = M.vocab_group(cfg, tp)
     if layout is not None:

@@ -11,7 +11,9 @@ Backends mirror the simulation split:
     device mesh (core/partition.py) and runs its tasks serially
     (co-scheduling: one tightly-coupled job owns the partition at a time).
     Task callables that declare a ``mesh`` keyword receive their partition's
-    submesh.
+    submesh, and every task runs inside its partition's placement
+    (``Mesh.placement``): on a mesh over the local cards its card is the
+    current device of the thread, as JAX places a step on its submesh.
   * ``popen``    — external executables launched as subprocesses
     (``TaskDescription.executable`` + ``arguments``); stdout becomes
     ``task.result``.
@@ -410,7 +412,8 @@ class RealFunctionExecutor(RealExecutorBase):
 
 class RealPartitionExecutor(RealExecutorBase):
     """Flux-style co-scheduling executor: one task owns a partition (a
-    device mesh) at a time; partitions run concurrently."""
+    device mesh) at a time; partitions run concurrently, each task inside
+    its partition mesh's placement."""
 
     kind = "flux"
     accepts_static = True
@@ -437,7 +440,12 @@ class RealPartitionExecutor(RealExecutorBase):
             if part is not None and _accepts_kw(d.fn, "mesh"):
                 kwargs["mesh"] = part.mesh
             kwargs = self._resume_kwargs(task, kwargs)
-            return d.fn(*d.args, **kwargs) if d.fn else None
+            if not d.fn:
+                return None
+            if part is None:
+                return d.fn(*d.args, **kwargs)
+            with part.mesh.placement():
+                return d.fn(*d.args, **kwargs)
         finally:
             self._part_q.put(part)
 

@@ -10,6 +10,7 @@ Run on the card (where JAX, which tests/conftest.py imports, is absent):
 ``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_gpu.py``.
 """
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -323,7 +324,8 @@ def test_rmsnorm_kernel_any_grid_takes_every_row(cuda, rows, d, gated, dtype):
         err = fwd(
             x.data_ptr(), 0 if gate is None else gate.data_ptr(), w.data_ptr(),
             out.data_ptr(), 0 if dtype == "float32" else 1, rows, d, d, d,
-            1e-5, threads, rpb, n, torch.cuda.current_stream().cuda_stream)
+            1e-5, threads, rpb, n, torch.cuda.current_stream().cuda_stream,
+            x.get_device())
         assert err == 0
         torch.cuda.synchronize()
         assert _norm_err(out, x, w, gate) < 1, f"{n} blocks"
@@ -787,3 +789,99 @@ def test_tensor_parallel_step_on_ranks_sharing_the_card(cuda, arch, world):
         assert loss == out[0][1]
     assert abs(out[0][1] - ref_loss) <= 1e-6 * abs(ref_loss)
     assert g_gap < 1e-4 and p_gap < 1e-4
+
+
+# ------------------------------------------------ a second card, one process
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0), torch.device(
+        "cuda", torch.cuda.device_count() - 1)
+
+
+def _kernel_call(name, dtype, device):
+    """(the wrapper's call, the error of its output against the plain
+    version, the limit of that error) on inputs of ``name`` at a small
+    shape on ``device``; each kernel that opts in to more than 48 KB of
+    shared memory takes more at its shape. The errors and limits are those
+    of this file's tests of each kernel."""
+    rng = np.random.default_rng(7)
+    dt = DTYPES[dtype]
+
+    def abs_err(want):
+        return lambda got: (got.float() - want().float()).abs().max().item()
+
+    if name == "flash_attention":
+        q = _randn(rng, (2, 256, 4, 64), dt, device)
+        k, v = (_randn(rng, (2, 256, 2, 64), dt, device) for _ in range(2))
+        return (lambda: fa_ops.flash_attention(q, k, v, scale=0.125),
+                abs_err(lambda: fa_ops.plain(q, k, v, scale=0.125)),
+                TOL[dtype])
+    if name == "decode_attention":
+        q = _randn(rng, (2, 1, 8, 128), dt, device)
+        k, v = (_randn(rng, (2, 300, 2, 128), dt, device) for _ in range(2))
+        vl = torch.tensor(257, dtype=torch.int32, device=device)
+        return (lambda: da_ops.decode_attention(q, k, v, vl,
+                                                scale=128 ** -0.5),
+                abs_err(lambda: da_ref.decode_attention_ref(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    vl, scale=128 ** -0.5).transpose(1, 2)),
+                TOL[dtype])
+    if name == "fused_rmsnorm":
+        x, w, gate = _norm_case(device, 64, 1024, dtype, True)
+        return (lambda: rn_ops.rmsnorm(x, w, eps=1e-5, gate=gate),
+                lambda got: _norm_err(got, x, w, gate), 1.0)
+    x, dtv, A, Bm, Cm = _ssd_inputs(rng, (1, 256, 4, 1, 64, 128), dt, device)
+    if dtype == "float32":
+        want = lambda: ssd_ref.ssd_naive(x, dtv, A, Bm, Cm)[0]     # noqa: E731
+    else:
+        want = lambda: ssd_ref.ssd_chunked(x, dtv, A, Bm, Cm,      # noqa: E731
+                                           chunk=128)[0]
+    return (lambda: ssd_ops.ssd(x, dtv, A, Bm, Cm, chunk=128,
+                                use_pallas=True)[0],
+            lambda got: _rel(got, want()), SSD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "fused_rmsnorm", "ssd"])
+def test_kernel_on_the_last_card_from_a_thread_on_card_0(two_cards, name,
+                                                         dtype):
+    """The kernel runs first on card 0 (its shared-memory opt-in made
+    there), then on tensors of the last card from a thread whose current
+    device is card 0: the launch lands on the tensors' card (its output
+    there, equal to the plain version), the thread's current device is
+    still card 0 after it, and the per-card count reads the last card."""
+    first, last = two_cards
+    mod = {"flash_attention": fa_ops, "decode_attention": da_ops,
+           "fused_rmsnorm": rn_ops, "ssd": ssd_ops}[name]
+    call0, _, _ = _kernel_call(name, dtype, first)
+    call0()
+    torch.cuda.synchronize(first)
+    call, err_of, tol = _kernel_call(name, dtype, last)
+    before = dict(mod.card_launches)
+    out = {}
+
+    def on_card_0():
+        try:
+            torch.cuda.set_device(first)
+            out["got"] = call()
+            out["current"] = torch.cuda.current_device()
+            torch.cuda.synchronize(last)
+        except BaseException as e:          # noqa: BLE001 - re-raised below
+            out["error"] = e
+
+    t = threading.Thread(target=on_card_0)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and "error" not in out, out.get("error")
+    got = out["got"]
+    assert got.device == last and out["current"] == first.index
+    err = err_of(got)
+    assert err < tol, f"{name} {dtype} on {last}: {err}"
+    assert mod.card_launches.get(last.index, 0) \
+        == before.get(last.index, 0) + 1
+    assert mod.card_launches.get(first.index, 0) \
+        == before.get(first.index, 0)

@@ -654,24 +654,30 @@ def test_carve_four_ranks_and_a_tensor_parallel_step_in_a_partition():
 # ---------------------------------------------------------- launch counts
 def test_launch_counts_lose_nothing_under_threads():
     """Several threads count launches of one wrapper at once, with the
-    interpreter switching threads as often as it can: none is lost."""
+    interpreter switching threads as often as it can: none is lost, in the
+    total nor by card (each thread counts onto one of two cards)."""
     from repro_torch.kernels import count_launch
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     n_threads, n_each = 8, 5000
-    before = fa_ops.launches
+    before, before_cards = fa_ops.launches, fa_ops.card_launches
+    fa_ops.card_launches = {}
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         threads = [threading.Thread(
-            target=lambda: [count_launch(fa_ops.__name__)
-                            for _ in range(n_each)])
-            for _ in range(n_threads)]
+            target=lambda card=i % 2: [count_launch(fa_ops.__name__,
+                                                    card=card)
+                                       for _ in range(n_each)])
+            for i in range(n_threads)]
         for t in threads:
             t.start()
         for t in threads:
-            t.join()
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert fa_ops.launches - before == n_threads * n_each
+        assert fa_ops.card_launches == {0: n_threads // 2 * n_each,
+                                        1: n_threads // 2 * n_each}
     finally:
         sys.setswitchinterval(old)
-    assert fa_ops.launches - before == n_threads * n_each
-    fa_ops.launches = before
+        fa_ops.launches, fa_ops.card_launches = before, before_cards
