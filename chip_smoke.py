@@ -157,13 +157,34 @@ Phases, each printing its lines; any failed check exits non-zero:
      part's launches by kernel and card exact. On one card the extra tasks
      queue through the one partition. ``scripts/flux_partitions.py`` runs
      this phase alone on every card of a machine.
-No serving path is cut to fit the time limit. The whole script took
-858.0 s on an H100 80GB HBM3 at 700 W, phase 13 164.4 s and phase 14
-22.1 s of it.
+ 15. query heads padded to slots over ``model`` (ROADMAP item 12f) and the
+     sequence-parallel decode of one request (item 12h), on ranks spawned
+     on this card over gloo: (a) the decode kernel's softmax partial
+     (``return_lse``) against its plain version, f32 and bf16, blocks with
+     no valid row, some and all, the blocks' partials combined against the
+     whole-cache kernel, and its time at zamba2-7b's per-rank block beside
+     its bound, the plain partial and aten's efficient attention; (b)
+     qwen2-vl-7b on (1, 8) and musicgen-medium on (1, 16), f32 at full
+     width and 2 layers: one train step against the one-rank step, the
+     padding entries zero after training, serving against the one-rank
+     ``generate``, each rank's launches (musicgen-medium's ranks 12-15
+     launch no attention kernel); (c) batch 1, the cache's sequence over
+     ``data``: zamba2-7b f32 at 7 layers on (2, 1) and (2, 2) and
+     mamba2-130m on (2, 2), decoding across the block boundary, tokens,
+     logits and cache blocks against one rank; zamba2-7b bf16 at full size
+     on (2, 1), 1 x 32,800 + 8, the logits against one rank's, the prefill
+     s, decode ms a step, seconds in collectives and peak memory a rank;
+     the data group's combine timed. ``scripts/seq_parallel.py`` runs this
+     phase alone.
+No serving path is cut to fit the time limit. Phases 1-14 took 858.0 s
+on an H100 80GB HBM3 at 700 W, phase 13 164.4 s and phase 14 22.1 s of
+it; the whole script's time with phase 15 is in PERF.md §6.
 The line before the last is the ``{"kernels": [...]}`` summary (with each
 kernel's launches per serve_batch, per train step, per driver step, per
 part of phases 10 and 11, per rank of each phase 12 step, per rank of
-each phase 13 case and per part of phase 14 by card; the RMSNorm
+each phase 13 case, per part of phase 14 by card and per rank of each
+phase 15 case; the decode kernel's lse-mode reading under
+``lse_block``; the RMSNorm
 kernel's split-row launches, phases 12's and 13's, as an entry of their
 own, with its decode-shape reading); the last is ``{"ok": true,
 "device": {...}}``.
@@ -410,6 +431,55 @@ TPS_BF16_TOL = {"chatglm3-6b": 0.1, "zamba2-7b": 0.2}
 # tokens) beside one task alone. On one card every queued task runs through
 # the one partition
 FLUX_TRAIN_STEPS = 2
+
+# phase 15: query heads padded to slots over ``model`` (ROADMAP item 12f)
+# and the sequence-parallel decode of one request (item 12h), on ranks
+# spawned on card 0 over gloo as phases 12 and 13. (a) the decode kernel's
+# softmax partial (decode_attention(..., return_lse=True)) against its plain
+# version, f32 and bf16, o within ATTN_TOL and the log-sum-exp within
+# LSE_TOL (absolute; an f32 sum in both paths, the bf16 products summed in
+# another order), on blocks with no valid row, some and all; the blocks'
+# partials combined against the whole-cache kernel within ATTN_TOL; its time
+# at zamba2-7b's per-rank block of LSE_BLOCK positions. (b) HEADS_CASES, f32
+# at full width and HEADS_DEPTH layers, a spawn of ranks a case (the two
+# in one spawn of 16 ran the card out of memory): qwen2-vl-7b's 28 heads in
+# 32 slots over 8 model ranks and musicgen-medium's 24 in 32 over 16
+# (ranks 12-15 padding alone), each rank drawing its blocks in turn and
+# the allocator's segments expandable (16 ranks' caches on one card): one
+# train step of HEADS_BATCH x HEADS_SEQ, the loss, every gradient and every
+# updated leaf gathered in chunks against the one-rank step (phase 12
+# (a)'s limits; the moments, which the gradients set, are not gathered:
+# the gathers through host memory are most of the case's time), the
+# padding entries zero after HEADS_MORE_STEPS more steps, and
+# serving of TPS_REQUESTS x TPS_PROMPT + TPS_NEW against one rank (phase 13
+# (a)'s limits); each rank's launches. (c) batch 1 served
+# sequence-parallel, the cache's sequence over ``data``: SEQ_F32_CASES f32
+# at full width (zamba2-7b at SEQ_DEPTH_OF's 7 layers, phase 13 (a)'s cut)
+# with a cache of SEQ_CAPACITY positions, a prompt of SEQ_PROMPT and SEQ_NEW
+# new tokens (decoding crosses the block boundary at SEQ_CAPACITY / 2):
+# tokens equal the one-rank run's, teacher-forced logits within SEQ_F32_TOL,
+# each rank's cache block within CACHE_TOL of its block of the one-rank
+# cache after the prefill and the last step, launches as kernel_launches
+# says; then zamba2-7b bf16 at full size on (2, 1), a cache of
+# SEQ_BF16_CAPACITY and a prompt of SEQ_BF16_PROMPT (both ranks hold
+# rows), teacher-forced on a one-rank run's tokens, the logits within
+# SEQ_BF16_TOL, prefill s, decode ms a step, seconds in collectives and
+# peak memory a rank; the data group's combine timed on 2 ranks.
+LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
+LSE_BLOCK = 16384
+HEADS_CASES = (("qwen2-vl-7b", (1, 8)), ("musicgen-medium", (1, 16)))
+HEADS_DEPTH, HEADS_BATCH, HEADS_SEQ, HEADS_MORE_STEPS = 2, 2, 256, 1
+SEQ_F32_CASES = (("zamba2-7b", (2, 1)), ("zamba2-7b", (2, 2)),
+                 ("mamba2-130m", (2, 2)))
+SEQ_DEPTH_OF = {"zamba2-7b": 7}
+SEQ_CAPACITY, SEQ_PROMPT, SEQ_NEW = 8192, 4090, 16
+SEQ_F32_TOL = 1e-5
+SEQ_BF16_CAPACITY, SEQ_BF16_PROMPT, SEQ_BF16_NEW = 40960, 32768 + 32, 8
+# twice the largest gap that four draws of the weights read, rounded up
+# (seeds 0-3, scripts/seq_decode_bf16_seeds.py, H100 80GB HBM3, 700 W:
+# 2.869e-02 to 3.098e-02, the prefill's logits equal in every bit; the
+# decode steps' attention merged over the ranks in f32, then rounded once)
+SEQ_BF16_TOL = 0.07
 
 
 def check(ok, msg):
@@ -1236,8 +1306,13 @@ def main():
     flux_launches = flux_partitions_on_card(torch, ops_of, card)
     torch.cuda.empty_cache()
 
+    # ------------------ 15. padded heads and the sequence-parallel decode
+    seq_launches, lse_entry = seq_parallel_on_card(torch, card)
+    results["decode_attention"]["lse_block"] = lse_entry
+    torch.cuda.empty_cache()
+
     # ----------------------------------------------------------------- result
-    print(f"[device] phases 1-14 ran in {time.perf_counter() - started:.1f} "
+    print(f"[device] phases 1-15 ran in {time.perf_counter() - started:.1f} "
           f"s", flush=True)
     print(f"[device] {card}")
     summary = []
@@ -1262,6 +1337,8 @@ def main():
                   for case, ranks in tps_launches.items()}
         by_flux = {part: {str(c): n for c, n in cards[name].items()}
                    for part, cards in flux_launches.items()}
+        by_seq = {case: [n.get(name, 0) for n in ranks]
+                  for case, ranks in seq_launches.items()}
         summary.append({"name": name, "route": route, "source": source,
                         "replaces": replaces,
                         "launches": (sum(by_path.values())
@@ -1269,8 +1346,10 @@ def main():
                                      + sum(map(sum, by_tp.values()))
                                      + sum(map(sum, by_tps.values()))
                                      + sum(sum(c.values())
-                                           for c in by_flux.values())),
+                                           for c in by_flux.values())
+                                     + sum(map(sum, by_seq.values()))),
                         "launches_per_flux_part_by_card": by_flux,
+                        "launches_per_phase15_rank": by_seq,
                         "launches_by_path": by_path,
                         "launches_by_runtime_part": by_part,
                         "launches_per_tp_rank_step": by_tp,
@@ -1297,15 +1376,19 @@ def main():
              for case, ranks in tp_launches.items()}
     by_tps = {case: [n["fused_rmsnorm_split"] for n in ranks]
               for case, ranks in tps_launches.items()}
+    by_seq = {case: [n["fused_rmsnorm_split"] for n in ranks]
+              for case, ranks in seq_launches.items()}
     summary.append({"name": "fused_rmsnorm_split", "route": "cuda",
                     "source": "src/repro_torch/kernels/fused_rmsnorm/csrc/"
                               "fused_rmsnorm.cu",
                     "replaces": "src/repro/kernels/fused_rmsnorm/"
                                 "fused_rmsnorm.py:13",
                     "launches": (sum(map(sum, by_tp.values()))
-                                 + sum(map(sum, by_tps.values()))),
+                                 + sum(map(sum, by_tps.values()))
+                                 + sum(map(sum, by_seq.values()))),
                     "launches_per_tp_rank_step": by_tp,
                     "launches_per_tp_serve_rank": by_tps,
+                    "launches_per_phase15_rank": by_seq,
                     **{k: v for k, v in split_entry.items()
                        if k not in ("bytes",)}})
     print(json.dumps({"kernels": summary}))
@@ -1772,11 +1855,10 @@ def profile_steps(torch, cfg, params, tokens, prefill_s, decode_ms, card, dev):
     del cache
 
 
-def train_batch(torch, cfg, dev, B=TRAIN_BATCH):
-    """One fixed batch of B x TRAIN_SEQ random tokens from a seeded
-    generator on the card, labelled with the next token."""
+def train_batch(torch, cfg, dev, B=TRAIN_BATCH, S=TRAIN_SEQ):
+    """One fixed batch of B x S random tokens from a seeded generator on
+    the card, labelled with the next token."""
     from repro_torch.launch.serve import _positions
-    S = TRAIN_SEQ
     gen = torch.Generator(device=dev).manual_seed(SEED)
     tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
                            device=dev, dtype=torch.int32)
@@ -4419,6 +4501,740 @@ def flux_partitions_on_card(torch, ops_of, card, devices=None, cfg=None):
           f"memory by card over the phase {peak} GB  [{card}]", flush=True)
     return launches
 
+
+
+# ------------------------------------------------------------------ phase 15
+def lse_case(torch, dtype, B, H, KV, hd, S, n_blocks, valid):
+    """The decode kernel's softmax partial (``return_lse``) on each of
+    ``n_blocks`` blocks of one cache against its plain version, and the
+    blocks' partials combined against the kernel over the whole cache:
+    (o max|err|, lse max|err| where finite, the combine's max|err|, the
+    blocks without a valid row)."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    scale = hd ** -0.5
+    whole = da_ops.decode_attention(
+        q, k, v, torch.tensor([valid], dtype=torch.int32, device="cuda"),
+        scale=scale)
+    Sb = S // n_blocks
+    os_, lses, err_o, err_lse, empty = [], [], 0.0, 0.0, 0
+    for r in range(n_blocks):
+        kb, vb = k[:, r * Sb:(r + 1) * Sb], v[:, r * Sb:(r + 1) * Sb]
+        vl = torch.tensor([min(max(valid - r * Sb, 0), Sb)],
+                          dtype=torch.int32, device="cuda")
+        o, lse = da_ops.decode_attention(q, kb, vb, vl, scale=scale,
+                                         return_lse=True)
+        po, pl = da_ref.decode_attention_partial_ref(
+            q.transpose(1, 2), kb.transpose(1, 2), vb.transpose(1, 2), vl,
+            scale=scale)
+        check(o.dtype == torch.float32 and lse.shape == (B, H),
+              f"lse mode returned {o.dtype} {tuple(lse.shape)}")
+        check(bool((torch.isneginf(lse) == torch.isneginf(pl)).all()),
+              f"lse mode's empty blocks differ from the plain version's")
+        fin = torch.isfinite(pl)
+        empty += int(not fin.any())
+        err_o = max(err_o, max_err(o, po.transpose(1, 2)))
+        if fin.any():
+            err_lse = max(err_lse, max_err(lse[fin], pl[fin]))
+        os_.append(o[:, 0])
+        lses.append(lse)
+    comb = da_ref.combine_partials_ref(torch.stack(os_), torch.stack(lses))
+    return err_o, err_lse, max_err(comb, whole[:, 0]), empty
+
+
+def lse_on_card(torch, card):
+    """Phase 15 (a): the decode kernel's softmax partial against its plain
+    version, f32 and bf16, on blocks with no valid row, some and all, and
+    the blocks' partials combined against the whole-cache kernel (within
+    ATTN_TOL); then its time at zamba2-7b's per-rank block beside its
+    bound, the plain partial, the mode without lse, and the one library
+    call that returns a log-sum-exp (aten's private memory-efficient
+    attention). Returns the timed reading."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    zam, qwen = get_config("zamba2-7b"), get_config("qwen2-vl-7b")
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        for label, shape in (
+                ("zamba2-7b", (1, zam.num_heads, zam.num_kv_heads,
+                               zam.head_dim, 4096, 4, 2500)),
+                ("qwen2-vl-7b, a rank's 8 slots over 1 kv head",
+                 (2, 8, 1, qwen.head_dim, 2048, 2, 2048)),
+                ("musicgen-medium", (1, 24, 24, 64, 1024, 8, 1))):
+            eo, el, ec, empty = lse_case(torch, dtype, *shape)
+            tol = ATTN_TOL[dtype]
+            print(f"[seq] decode_attention lse mode {label} {shape} "
+                  f"{dtype}: o max|err| {eo:.3e}, lse max|err| {el:.3e} "
+                  f"(tol {LSE_TOL[dtype]}), {shape[5]} blocks ({empty} "
+                  f"without a valid row) combined vs the whole-cache "
+                  f"kernel {ec:.3e} (tol {tol})", flush=True)
+            check(eo < tol and el < LSE_TOL[dtype] and ec < tol,
+                  f"decode_attention lse mode {label} {dtype}: {eo}, {el}, "
+                  f"{ec}")
+            worst = max(worst, eo)
+    B, H, KV, hd, S = 1, zam.num_heads, zam.num_kv_heads, zam.head_dim, \
+        LSE_BLOCK
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    vl = torch.tensor([S], dtype=torch.int32, device="cuda")
+    scale = hd ** -0.5
+    timer = Timer(torch)
+    r = dict(
+        ms=timer(lambda: da_ops.decode_attention(q, k, v, vl, scale=scale,
+                                                 return_lse=True), 50),
+        without_lse_ms=timer(lambda: da_ops.decode_attention(
+            q, k, v, vl, scale=scale), 50),
+        plain_ms=timer(lambda: da_ref.decode_attention_partial_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), vl,
+            scale=scale), iters=5),
+        flops=4 * B * H * S * hd,
+        bytes=2 * (2 * B * S * KV * hd + B * H * hd) + 4 * (B * H * hd
+                                                           + B * H) + 4,
+        dtype="bfloat16", max_abs_err=worst, shape=[B, S, H, KV, hd])
+    add_bound(r)
+    try:                   # the private aten op returns the log-sum-exp
+        lib = torch.ops.aten._scaled_dot_product_efficient_attention
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        r["library_ms"] = timer(lambda: lib(qt, kt, vt, None, True,
+                                            scale=scale), 50)
+        r["library"] = "aten._scaled_dot_product_efficient_attention"
+    except Exception as e:                               # noqa: BLE001
+        r["library_ms"], r["library"] = None, f"none ({type(e).__name__})"
+    del timer
+    print(f"[seq] decode_attention lse mode at zamba2-7b's per-rank block "
+          f"(B {B}, {S} positions, {H} heads, hd {hd}, bf16): kernel "
+          f"{r['ms']:.4f} ms (without lse {r['without_lse_ms']:.4f}), bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+          f"{r['bound_ms'] / r['ms']:.1%}), plain {r['plain_ms']:.4f} ms, "
+          f"library {r['library']} {r['library_ms']} ms  [{card}]",
+          flush=True)
+    return r
+
+
+def heads_rank(rank, world, cases):
+    """Phase 15 (b) on one rank: ``heads_case`` for each (arch, mesh_shape)
+    of ``cases`` in one spawn, the card's cache emptied between them."""
+    import torch
+    out = []
+    for arch, mesh_shape in cases:
+        t0 = time.perf_counter()
+        r = heads_case(rank, world, arch, tuple(mesh_shape))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out.append({**r, "case_s": time.perf_counter() - t0})
+    return out
+
+
+def _in_turn(torch, rank, world, fn):
+    """fn() on each rank in turn (the ranks share one card: a whole leaf
+    drawn before it is cut is freed before the next rank draws)."""
+    import torch.distributed as dist
+    out = None
+    for r in range(world):
+        if r == rank:
+            out = fn()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def heads_case(rank, world, arch, mesh_shape):
+    """One case of phase 15 (b) on one rank: query heads padded to slots
+    (``tensor_parallel.head_slots``), f32 at full width and HEADS_DEPTH
+    layers. Rank 0 draws the whole weights (the others only their blocks,
+    in turn) and takes the one-rank kernel-path gradients, ``generate`` and
+    teacher-forced logits. Training: one step in its two parts, every
+    gathered gradient (real heads only, ``ParamLayout.gather_leaf``) and
+    updated leaf compared on rank 0 as phase 12 does, then the
+    padding entries of this rank's blocks after HEADS_MORE_STEPS more
+    steps. Serving: TPS_REQUESTS x TPS_PROMPT + TPS_NEW, the tokens, the
+    logits teacher-forced and the cache blocks against one rank's. Each
+    part's launches counted."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed import train_step as TS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import generate, teacher_forced
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    ops_of = _rank_ops()
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch, dtype="float32", num_layers=HEADS_DEPTH)
+    mesh = make_mesh(mesh_shape, ("data", "model"), device=dev)
+    rows = HEADS_BATCH
+    batch = train_batch(torch, cfg, dev, rows, HEADS_SEQ)
+    opt_cfg = adamw.OptimizerConfig(warmup_steps=1, total_steps=10)
+    step = TS.make_train_step(cfg, opt_cfg, mesh=mesh,
+                              dp_axes=SH.batch_axes(mesh, cfg, rows))
+    layout = step.layout
+    slots = layout.heads
+    mine = {"real_heads": slots.real(mesh.coordinate()["model"])[1]}
+    if not rank:
+        whole = M.init_params(cfg, seed=SEED, device=dev)
+        local = layout.shard_params(whole)
+        want, ref_m = TS.make_grad_fn(cfg)(whole, batch)
+        want = dict(T.flatten(want))
+        mine["ref_loss"] = ref_m["loss"].item()
+    local = _in_turn(torch, rank, world, lambda: (
+        local if not rank else layout.init_params(SEED, dev)))
+    state = adamw.init(local, layout)
+    _reset_all(ops_of)
+    grads, m = step.grad_fn(local, batch)
+    local, state, _ = adamw.update(opt_cfg, state, grads, local, layout)
+    mine.update(train_launches=_counts_all(ops_of), loss=m["loss"].item(),
+                n_local=sum(t.numel() for t in T.leaves(local)))
+    grad_rel, gathered = {}, []
+    for path, g in T.flatten(grads):
+        w = want.pop(path) if not rank else None
+        into = torch.empty_like(w) if not rank else None
+        grad_rel[path] = _gathered_rel(layout, path, g, w, rank, into=into)
+        gathered.append(into)
+        del w
+    del grads
+    if not rank:               # the one-rank AdamW on those gradients
+        adamw.update(opt_cfg, adamw.init(whole),
+                     T.unflatten(whole, gathered), whole)
+        del gathered
+        ones = dict(T.flatten(whole))
+        del whole
+    upd_rel = {path: _gathered_rel(layout, path, t,
+                                   ones[path] if not rank else None, rank)
+               for path, t in T.flatten(local)}
+    if not rank:
+        del ones
+    for _ in range(HEADS_MORE_STEPS):
+        local, state, _ = step(local, state, batch)
+    pad_max, pad_n = 0.0, 0
+    for (path, p), mu, nu in zip(T.flatten(local), T.leaves(state.mu),
+                                 T.leaves(state.nu)):
+        if TP.head_dim_of(path) is None:
+            continue
+        pad = layout.block(path, torch.ones(layout.shapes[path],
+                                            device=dev)) == 0
+        blk = layout.moment_block(path)
+        mpad = pad if blk is None else pad[blk[1]]
+        for t, mask in ((p, pad), (mu, mpad), (nu, mpad)):
+            pad_n += int(mask.sum())
+            if mask.any():
+                pad_max = max(pad_max, t[mask].abs().max().item())
+    mine.update(pad_max=pad_max, pad_n=pad_n)
+    del state
+    torch.cuda.empty_cache()
+    # serving: the seed's weights again (the trained ones are not served)
+    if not rank:
+        whole = M.init_params(cfg, seed=SEED, device=dev)
+    local = _in_turn(torch, rank, world, lambda: (
+        layout.shard_params(whole) if not rank
+        else layout.init_params(SEED, dev)))
+    slayout = TP.serve_layout(cfg, mesh, TPS_REQUESTS)
+    B, S, new = TPS_REQUESTS, TPS_PROMPT, TPS_NEW
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=dev, dtype=torch.int32)
+    ref = {}
+    if not rank:
+        ref["tokens"] = generate(whole, cfg, prompts, max_new_tokens=new)
+    _reset_all(ops_of)
+    tokens = generate(local, cfg, prompts, max_new_tokens=new, mesh=mesh)
+    torch.cuda.synchronize()
+    mine.update(serve_launches=_counts_all(ops_of),
+                tokens=tokens.cpu().numpy())
+    if not rank:
+        firsts = {}
+        _, _, ref["logits"], final = teacher_forced(
+            whole, cfg, tokens, S, on_prefill=lambda c: firsts.update(
+                {p: t.clone() for p, t in T.flatten(c)}))
+        ref["prefill_cache"], ref["final_cache"] = firsts, dict(
+            T.flatten(final))
+        del whole, final
+    gaps = {}
+    _, _, logits, final = teacher_forced(
+        local, cfg, tokens, S, layout=slayout,
+        on_prefill=lambda c: gaps.update(prefill=_cache_gaps(
+            torch, c, slayout, ref.get("prefill_cache"), rank)))
+    gaps["final"] = _cache_gaps(torch, final, slayout,
+                                ref.get("final_cache"), rank)
+    mine["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if rank:
+        return mine
+    V = cfg.vocab_size
+    want = ref["logits"][..., :V]
+    err = ((logits[..., :V] - want).abs().amax(dim=(1, 2))
+           / want.abs().amax(dim=(1, 2)))
+    return {**mine, "grad_rel": grad_rel, "upd_rel": upd_rel,
+            "logit_err": err.tolist(),
+            "tokens_equal": bool((tokens == ref["tokens"]).all()),
+            "cache_gaps": gaps}
+
+
+def _gathered_rel(layout, path, t, want, rank, specs=None, into=None,
+                  chunk_bytes=2 ** 28):
+    """max|diff|/max|value| of a leaf's whole (``layout.gather_leaf`` of
+    this rank's block ``t``, a collective) against ``want`` on rank 0 (None
+    elsewhere), gathered in chunks along its longest dim that no mesh axis
+    of more than one rank splits: every rank holds a whole leaf while it is
+    gathered, and 8 ranks' whole vocabularies do not fit one card beside
+    the one-rank reference. On rank 0 the whole is also written into
+    ``into`` where given."""
+    from repro_torch.distributed import sharding as SH
+    spec = (specs or layout.specs)[path]
+    free = [d for d in range(t.ndim) if layout.mesh.axes_size(
+        SH._axes_of(spec[d] if d < len(spec) else None)) == 1]
+    chunks = [None]                               # the leaf whole
+    if free:
+        d = max(free, key=lambda i: t.shape[i])
+        total = t.numel() * t.element_size() * layout.mesh.size
+        step = -(-t.shape[d] // max(1, -(-total // chunk_bytes)))
+        if step < t.shape[d]:
+            chunks = [(lo, min(step, t.shape[d] - lo))
+                      for lo in range(0, t.shape[d], step)]
+    err = top = 0.0
+    for c in chunks:
+        cut = (lambda x: x) if c is None else (lambda x: x.narrow(d, *c))
+        g = layout.gather_leaf(path, cut(t).contiguous(), specs)
+        if not rank:
+            w = cut(want)
+            err = max(err, max_err(g, w))
+            top = max(top, w.float().abs().max().item())
+            if into is not None:
+                cut(into).copy_(g)
+        del g
+    return err / (top + 1e-9) if not rank else None
+
+
+def heads_on_card(torch, card):
+    """Phase 15 (b): each case of HEADS_CASES in a spawn of its ranks
+    sharing the card. Returns each case's launches per rank, training and
+    serving."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import serve_step, train_step
+    from repro_torch.distributed.tensor_parallel import head_slots
+    launches = {}
+    for arch, shape in HEADS_CASES:
+        world = shape[0] * shape[1]
+        t0 = time.perf_counter()
+        before = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:                          # the spawned ranks inherit it
+            out = [r[0] for r in on_card_ranks(heads_rank, world,
+                                               [(arch, shape)])]
+        finally:
+            if before is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = before
+        print(f"[seq] (b) {arch} on {world} ranks in one spawn took "
+              f"{time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+        r0 = out[0]
+        cfg = get_config(arch, dtype="float32", num_layers=HEADS_DEPTH)
+        slots = head_slots(cfg, shape[1])
+        loss_rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+        g_worst = max(r0["grad_rel"], key=r0["grad_rel"].get)
+        u_worst = max(r0["upd_rel"], key=r0["upd_rel"].get)
+        gaps = {k: max(v.values()) for k, v in r0["cache_gaps"].items()}
+        print(f"[seq] {arch} f32, {HEADS_DEPTH} layers at full width, "
+              f"(data, model) {shape} on {world} ranks sharing the card over "
+              f"gloo, {cfg.num_heads} heads in {len(slots.heads)} slots, "
+              f"{slots.per_rank} a rank, real heads by rank "
+              f"{[r['real_heads'] for r in out]}: training {HEADS_BATCH} x "
+              f"{HEADS_SEQ}: loss rel {loss_rel:.3e} (tol {GRAD_LOSS_TOL}), "
+              f"gradients max {r0['grad_rel'][g_worst]:.3e} ({g_worst}), "
+              f"updated leaves max {r0['upd_rel'][u_worst]:.3e} "
+              f"({u_worst}) (tol {GRAD_LEAF_TOL}); padding entries after "
+              f"{1 + HEADS_MORE_STEPS} steps: max |value| "
+              f"{max(r['pad_max'] for r in out)} over "
+              f"{sum(r['pad_n'] for r in out)} entries; serving "
+              f"{TPS_REQUESTS} x {TPS_PROMPT} + {TPS_NEW}: tokens equal "
+              f"{r0['tokens_equal']}, logits max|diff|/max|logit| per step "
+              f"max {max(r0['logit_err']):.3e} (tol {F32_LOGIT_TOL}), cache "
+              f"blocks after prefill {gaps['prefill']:.3e}, after the last "
+              f"step {gaps['final']:.3e} (tol {CACHE_TOL}); peak "
+              f"{max(r['peak_gb'] for r in out):.2f} GB a rank at most; the "
+              f"case took {r0['case_s']:.1f} s  [{card}]", flush=True)
+        check(all(r["loss"] == r0["loss"] for r in out),
+              f"{arch} {shape}: the ranks' losses differ")
+        check(loss_rel < GRAD_LOSS_TOL, f"{arch} {shape} loss: {loss_rel}")
+        check(r0["grad_rel"][g_worst] < GRAD_LEAF_TOL,
+              f"{arch} {shape} gradients differ: {r0['grad_rel']}")
+        check(r0["upd_rel"][u_worst] < GRAD_LEAF_TOL,
+              f"{arch} {shape} updated leaves differ: {r0['upd_rel']}")
+        check(all(r["pad_max"] == 0.0 for r in out)
+              and sum(r["pad_n"] for r in out) > 0,
+              f"{arch} {shape}: padding entries moved")
+        check(all(np.array_equal(r["tokens"], r0["tokens"]) for r in out)
+              and r0["tokens_equal"], f"{arch} {shape}: tokens differ")
+        check(max(r0["logit_err"]) < F32_LOGIT_TOL,
+              f"{arch} {shape} logits differ: {r0['logit_err']}")
+        check(max(gaps.values()) < CACHE_TOL, f"{arch} {shape} cache "
+              f"blocks differ: {r0['cache_gaps']}")
+        for rank, r in enumerate(out):
+            m = rank % shape[1]
+            tw = train_step.kernel_launches(cfg, shape[1], rank=m)
+            sw = serve_step.kernel_launches(cfg, TPS_NEW, tp=shape[1],
+                                            rank=m)
+            got_t = {k: v for k, v in r["train_launches"].items()
+                     if k in tw}
+            check(got_t == tw and r["serve_launches"] == sw,
+                  f"{arch} {shape} rank {rank} launches "
+                  f"{r['train_launches']}, {r['serve_launches']} != {tw}, "
+                  f"{sw}")
+        check(any(not r["real_heads"] for r in out)
+              == (arch == "musicgen-medium"),
+              f"{arch} {shape}: ranks of padding alone "
+              f"{[r['real_heads'] for r in out]}")
+        launches[f"{arch} train {shape[0]}x{shape[1]}"] = [
+            r["train_launches"] for r in out]
+        launches[f"{arch} serve {shape[0]}x{shape[1]}"] = [
+            r["serve_launches"] for r in out]
+    return launches
+
+
+def seq_rank(rank, world, cases):
+    """Phase 15 (c) on one rank: ``seq_case`` for each case of ``cases``
+    in one spawn, the card's cache emptied between them; then, on two
+    ranks, the data group's combine timed."""
+    import torch
+    out = []
+    for case in cases:
+        t0 = time.perf_counter()
+        r = seq_case(rank, world, *case)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out.append({**r, "case_s": time.perf_counter() - t0})
+    if world == 2:
+        out.append(combine_timing(torch, rank, world))
+    return out
+
+
+def combine_timing(torch, rank, world, n=50):
+    """The data group's combine of zamba2-7b's decode partial (B 1, 32
+    heads, hd 112, f32) over two ranks sharing the card over gloo: ms a
+    call of ``combine_partials`` and of each of its two all-reduces,
+    each call between two synchronizations (median of n)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((world, 1), ("data", "model"), device="cuda")
+    sp = TP.SeqPar(mesh.group(("data",)), world, mesh.coordinate()["data"],
+                   0)
+    o = torch.randn((1, 1, 32, 112), device="cuda")
+    lse = torch.randn((1, 32), device="cuda")
+
+    def med(fn):
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+    cat = torch.randn(32 * 112 + 32, device="cuda")
+    return {"combine_ms": med(lambda: TP.combine_partials(o, lse, sp)),
+            "max_ms": med(lambda: dist.all_reduce(
+                lse.clone(), op=dist.ReduceOp.MAX, group=sp.group)),
+            "sum_ms": med(lambda: dist.all_reduce(cat, group=sp.group))}
+
+
+def seq_case(rank, world, arch, mesh_shape, dtype, depth, capacity,
+             prompt_len, new, tokens=None, seed=SEED):
+    """One case of phase 15 (c) on one rank: batch 1 served
+    sequence-parallel on a (data, model) mesh of ``mesh_shape``, the
+    cache's ``capacity`` positions over ``data``, this rank's blocks of the
+    weights of ``seed`` drawn. f32 (``tokens`` None): rank 0 also draws them
+    whole and runs the one-rank kernel-path ``generate`` of ``new`` tokens
+    after a random prompt of ``prompt_len`` and its teacher-forced logits
+    and caches; the ranks' ``generate`` (tokens, launches), then their
+    teacher-forced logits and cache blocks (gathered and compared on rank
+    0). bf16 (``tokens``, a one-rank run's): teacher-forced on them, the
+    prefill s, decode ms a step, launches, the seconds in collectives of a
+    second pass, the peak memory; rank 0 the logits."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.serve_step import pad_cache
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import generate, teacher_forced
+    from repro_torch.models import model as M
+    ops_of = _rank_ops()
+    dev = torch.device("cuda")
+    kw = {"num_layers": depth} if depth else {}
+    cfg = get_config(arch, dtype=dtype, **kw)
+    mesh = make_mesh(mesh_shape, ("data", "model"), device=dev)
+    layout = TP.serve_layout(cfg, mesh, 1)
+    check(layout.seq_parallel, f"{arch} {mesh_shape}: not sequence-parallel")
+    sp = layout.seq_par(capacity)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    local = _in_turn(torch, rank, world,
+                     lambda: layout.init_params(seed, dev))
+    mine = {"n_local": sum(t.numel() for t in T.leaves(local)),
+            "seq_rows": sp.rows}
+    if tokens is not None:                            # bf16 at full size
+        tokens = torch.from_numpy(tokens).to(dev)
+        prefill_s, decode_ms, logits, final = teacher_forced(
+            local, cfg, tokens, prompt_len, layout=layout, max_len=capacity,
+            on_warm=lambda: _reset_all(ops_of))
+        mine["launches"] = _counts_all(ops_of)
+        del final                   # the second pass holds its own cache
+        torch.cuda.empty_cache()
+        spent = {"now": 0.0, "prefill": 0.0}
+
+        def timed(fn):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = fn(*args, **kw)
+                torch.cuda.synchronize()
+                spent["now"] += time.perf_counter() - t
+                return r
+            return run
+        real = (dist.all_reduce, TP._all_gather)
+        dist.all_reduce, TP._all_gather = timed(real[0]), timed(real[1])
+        try:
+            teacher_forced(local, cfg, tokens, prompt_len, layout=layout,
+                           max_len=capacity, warm=False, keep_logits=False,
+                           on_warm=lambda: spent.update(now=0.0),
+                           on_prefill=lambda c: spent.update(
+                               prefill=spent["now"]))
+        finally:
+            dist.all_reduce, TP._all_gather = real
+        mine.update(prefill_s=prefill_s, decode_ms=decode_ms,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    coll_prefill_s=spent["prefill"],
+                    coll_decode_ms=(spent["now"] - spent["prefill"]) * 1e3
+                    / (tokens.shape[1] - prompt_len - 1))
+        if not rank:
+            mine["logits"] = logits.cpu().numpy()
+        return mine
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                            generator=gen, device=dev, dtype=torch.int32)
+    ref = {}
+    if not rank:
+        whole = M.init_params(cfg, seed=seed, device=dev)
+        ref["tokens"] = generate(whole, cfg, prompts, max_new_tokens=new,
+                                 max_len=capacity)
+    _reset_all(ops_of)
+    out = generate(local, cfg, prompts, max_new_tokens=new, mesh=mesh,
+                   max_len=capacity)
+    torch.cuda.synchronize()
+    mine.update(launches=_counts_all(ops_of), tokens=out.cpu().numpy())
+    if not rank:
+        firsts = {}
+        # the prefill's cache grown to the capacity, as the ranks' blocks
+        _, _, ref["logits"], final = teacher_forced(
+            whole, cfg, out, prompt_len, max_len=capacity,
+            on_prefill=lambda c: firsts.update(
+                {p: t.clone() for p, t in T.flatten(pad_cache(c, cfg,
+                                                              capacity))}))
+        ref["prefill_cache"], ref["final_cache"] = firsts, dict(
+            T.flatten(final))
+        del whole, final
+    gaps = {}
+    _, _, logits, final = teacher_forced(
+        local, cfg, out, prompt_len, layout=layout, max_len=capacity,
+        on_prefill=lambda c: gaps.update(prefill=_cache_gaps(
+            torch, c, layout, ref.get("prefill_cache"), rank)))
+    gaps["final"] = _cache_gaps(torch, final, layout, ref.get("final_cache"),
+                                rank)
+    mine["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if rank:
+        return mine
+    V = cfg.vocab_size
+    want = ref["logits"][..., :V]
+    err = ((logits[..., :V] - want).abs().amax(dim=(1, 2))
+           / want.abs().amax(dim=(1, 2)))
+    return {**mine, "logit_err": err.tolist(), "cache_gaps": gaps,
+            "tokens_equal": bool((out == ref["tokens"]).all())}
+
+
+def seq_bf16_reference(torch, card, seed=SEED):
+    """Phase 15 (c) 3.'s one-rank run in this process: zamba2-7b bf16 at
+    full size, the weights of ``seed``, one prompt of SEQ_BF16_PROMPT
+    tokens from the script's seed, SEQ_BF16_NEW greedy tokens, then
+    teacher-forced on them with a cache of SEQ_BF16_CAPACITY. Returns
+    (tokens, prefill s, decode ms, logits on the host, peak GB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, teacher_forced
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    cfg = get_config("zamba2-7b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab_size, (1, SEQ_BF16_PROMPT),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    tokens = generate(params, cfg, prompts, max_new_tokens=SEQ_BF16_NEW,
+                      max_len=SEQ_BF16_CAPACITY)
+    prefill_s, decode_ms, logits, _ = teacher_forced(
+        params, cfg, tokens, SEQ_BF16_PROMPT, max_len=SEQ_BF16_CAPACITY)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    logits = logits.cpu().numpy()
+    del params
+    torch.cuda.empty_cache()
+    print(f"[seq] zamba2-7b bf16 at full size, seed {seed}, one rank (this "
+          f"process), 1 x {SEQ_BF16_PROMPT} + {SEQ_BF16_NEW}, cache "
+          f"{SEQ_BF16_CAPACITY}: prefill {prefill_s:.4f} s, decode "
+          f"{decode_ms:.3f} ms/step, peak {peak:.2f} GB (the earlier "
+          f"phases' tensors included); took {time.perf_counter() - t0:.1f} "
+          f"s  [{card}]", flush=True)
+    return tokens.cpu().numpy(), prefill_s, decode_ms, logits, peak
+
+
+def seq_bf16_gap(ref, r0, V):
+    """max|diff|/max|logit| of each step of the ranks' logits against the
+    one-rank run's, over the ``V`` real rows of the vocabulary, and the
+    argmax agreement (numpy)."""
+    a, b = r0["logits"][..., :V], ref[3][..., :V]
+    err = np.abs(a - b).max(axis=(1, 2)) / np.abs(b).max(axis=(1, 2))
+    return err, float((a.argmax(-1) == b.argmax(-1)).mean())
+
+
+def seq_bf16_gap_of_seed(torch, card, seed):
+    """Phase 15 (c) 3. alone for the weights of ``seed``, not held to
+    SEQ_BF16_TOL: the gap of each step's logits (``seq_bf16_gap``)."""
+    from repro_torch.configs import get_config
+    ref = seq_bf16_reference(torch, card, seed)
+    case = ("zamba2-7b", (2, 1), "bfloat16", None, SEQ_BF16_CAPACITY,
+            SEQ_BF16_PROMPT, SEQ_BF16_NEW, ref[0], seed)
+    r0 = on_card_ranks(seq_rank, 2, [case])[0][0]
+    err, agree = seq_bf16_gap(ref, r0, get_config("zamba2-7b").vocab_size)
+    print(f"[seq] zamba2-7b bf16 at full size, seed {seed}, (2, 1): logits "
+          f"gap per step {[f'{x:.3e}' for x in err.tolist()]}, argmax "
+          f"agrees in {agree:.1%}; prefill {r0['prefill_s']:.4f} s, decode "
+          f"{r0['decode_ms']:.3f} ms/step  [{card}]", flush=True)
+    return err.max().item()
+
+
+def seq_on_card(torch, card):
+    """Phase 15 (c): SEQ_F32_CASES and the bf16 case, one spawn a mesh
+    size. Returns each case's launches per rank and the combine's
+    timing."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.serve_step import kernel_launches
+    ref = seq_bf16_reference(torch, card)
+    launches, timing = {}, None
+    for world in (2, 4):
+        cases = [(arch, shape, "float32", SEQ_DEPTH_OF.get(arch),
+                  SEQ_CAPACITY, SEQ_PROMPT, SEQ_NEW)
+                 for arch, shape in SEQ_F32_CASES
+                 if shape[0] * shape[1] == world]
+        if world == 2:
+            cases.append(("zamba2-7b", (2, 1), "bfloat16", None,
+                          SEQ_BF16_CAPACITY, SEQ_BF16_PROMPT, SEQ_BF16_NEW,
+                          ref[0]))
+        t0 = time.perf_counter()
+        runs = on_card_ranks(seq_rank, world, cases)
+        print(f"[seq] (c) {len(cases)} cases on {world} ranks in one spawn "
+              f"took {time.perf_counter() - t0:.1f} s  [{card}]",
+              flush=True)
+        for i, case in enumerate(cases):
+            arch, shape, dtype, depth, capacity, prompt_len, new = case[:7]
+            out = [ranks[i] for ranks in runs]
+            r0 = out[0]
+            cfg = get_config(arch, dtype=dtype,
+                             **({"num_layers": depth} if depth else {}))
+            what = (f"{arch} {dtype}, {cfg.num_layers} layers at full width, "
+                    f"(data, model) {shape} on {world} ranks sharing the "
+                    f"card over gloo, 1 x {prompt_len} + {new}, a cache of "
+                    f"{capacity} positions in blocks of {r0['seq_rows']}")
+            for rank, r in enumerate(out):
+                want = kernel_launches(cfg, new, tp=shape[1],
+                                       rank=rank % shape[1])
+                check(r["launches"] == want, f"{what}: rank {rank} "
+                      f"launches {r['launches']} != {want}")
+            key = f"{arch} {'bf16 ' if dtype == 'bfloat16' else ''}serve " \
+                  f"{shape[0]}x{shape[1]} seq"
+            launches[key] = [r["launches"] for r in out]
+            if dtype == "bfloat16":
+                err, agree = seq_bf16_gap(ref, r0, cfg.vocab_size)
+                print(f"[seq] {what}: logits vs the one-rank run's, "
+                      f"max|diff|/max|logit| per step max "
+                      f"{err.max().item():.3e} (prefill {err[0].item():.3e};"
+                      f" tol {SEQ_BF16_TOL}), argmax agrees in {agree:.1%}; "
+                      f"prefill {r0['prefill_s']:.4f} s (one rank "
+                      f"{ref[1]:.4f}), decode {r0['decode_ms']:.3f} ms/step "
+                      f"(one rank {ref[2]:.3f}); seconds in collectives by "
+                      f"rank: prefill "
+                      f"{[round(r['coll_prefill_s'], 4) for r in out]} s, "
+                      f"decode {[round(r['coll_decode_ms'], 3) for r in out]}"
+                      f" ms/step; peak memory by rank "
+                      f"{[round(r['peak_gb'], 2) for r in out]} GB (one rank"
+                      f" {ref[4]:.2f}); launches {r0['launches']}; the case "
+                      f"took {r0['case_s']:.1f} s  [{card}]", flush=True)
+                check(bool(np.isfinite(r0["logits"]).all()),
+                      f"{what}: logits not finite")
+                check(err.max().item() < SEQ_BF16_TOL,
+                      f"{what}: logits differ from one rank's: "
+                      f"{err.tolist()}")
+                continue
+            gaps = {k: max(v.values()) for k, v in r0["cache_gaps"].items()}
+            print(f"[seq] {what}: tokens equal the one-rank generate's "
+                  f"{r0['tokens_equal']}; teacher-forced logits "
+                  f"max|diff|/max|logit| per step max "
+                  f"{max(r0['logit_err']):.3e} (tol {SEQ_F32_TOL}); cache "
+                  f"blocks vs the one-rank cache after prefill "
+                  f"{gaps['prefill']:.3e}, after the last step "
+                  f"{gaps['final']:.3e} (tol {CACHE_TOL}); parameters by "
+                  f"rank {[r['n_local'] for r in out]}, peak "
+                  f"{[round(r['peak_gb'], 2) for r in out]} GB; launches "
+                  f"{r0['launches']}; the case took {r0['case_s']:.1f} s  "
+                  f"[{card}]", flush=True)
+            check(all(np.array_equal(r["tokens"], r0["tokens"])
+                      for r in out) and r0["tokens_equal"],
+                  f"{what}: tokens differ")
+            check(max(r0["logit_err"]) < SEQ_F32_TOL,
+                  f"{what}: logits differ: {r0['logit_err']}")
+            check(max(gaps.values()) < CACHE_TOL,
+                  f"{what}: cache blocks differ: {r0['cache_gaps']}")
+        if world == 2:
+            timing = {k: [r[-1][k] for r in runs]
+                      for k in runs[0][-1]}
+            print(f"[seq] the data group's combine over 2 ranks sharing the "
+                  f"card (gloo through host memory), zamba2-7b's partial "
+                  f"(1 x 32 heads x 112, f32), ms a call by rank: combine "
+                  f"{[round(x, 4) for x in timing['combine_ms']]}, its "
+                  f"all-reduce MAX {[round(x, 4) for x in timing['max_ms']]}"
+                  f", its all-reduce SUM "
+                  f"{[round(x, 4) for x in timing['sum_ms']]}  [{card}]",
+                  flush=True)
+    return launches, timing
+
+
+def seq_parallel_on_card(torch, card):
+    """Phase 15 (see the module docstring and the constants). Returns the
+    launches per rank by case and the decode kernel's lse-mode reading
+    (with the combine's timing)."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lse = lse_on_card(torch, card)
+    torch.cuda.empty_cache()
+    launches = heads_on_card(torch, card)
+    torch.cuda.empty_cache()
+    seq_launches, lse["combine"] = seq_on_card(torch, card)
+    launches.update(seq_launches)
+    print(f"[seq] phase 15 took {time.perf_counter() - t0:.1f} s  [{card}]",
+          flush=True)
+    return launches, lse
 
 if __name__ == "__main__":
     main()

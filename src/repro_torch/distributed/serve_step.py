@@ -18,8 +18,8 @@ from repro_torch.models import model as M
 _SEQ_CACHE_LEAVES = ("k", "v", "c_kv", "k_rope")
 
 
-def kernel_launches(cfg: ModelConfig, new_tokens: int, tp=None
-                    ) -> Dict[str, int]:
+def kernel_launches(cfg: ModelConfig, new_tokens: int, tp=None,
+                    rank: int = 0) -> Dict[str, int]:
     """The CUDA kernel launches of one ``launch.serve.generate`` (a prefill
     and ``new_tokens - 1`` decode steps) with ``cfg.use_pallas``, by kernel.
     Every step runs RMSNorm twice per attention block (three times with
@@ -35,7 +35,11 @@ def kernel_launches(cfg: ModelConfig, new_tokens: int, tp=None
     of the hybrid family split over more than one rank: two launches, the
     row sums and the scaling (``tensor_parallel.split_rmsnorm``). With
     ``tp`` the split-row launches among the RMSNorm's are an entry of their
-    own, ``fused_rmsnorm_split``."""
+    own, ``fused_rmsnorm_split``. Where the query heads are padded to
+    slots (``tensor_parallel.head_slots``), model rank ``rank`` holding
+    only padding launches no attention kernel. A sequence-parallel decode
+    launches as many: each rank's decode kernel runs over its block."""
+    from repro_torch.distributed.tensor_parallel import head_slots
     L = cfg.num_layers
     split = cfg.family == "hybrid" and (tp or 1) > 1
     if cfg.family == "ssm":
@@ -45,8 +49,11 @@ def kernel_launches(cfg: ModelConfig, new_tokens: int, tp=None
         norms = (3 if split else 2) * L + 2 * attn
     else:
         attn, norms = L, (3 if cfg.use_mla else 2) * L
-    out = {"flash_attention": attn,
-           "decode_attention": 0 if cfg.use_mla else attn * (new_tokens - 1),
+    slots = head_slots(cfg, tp)
+    attends = attn if slots is None or slots.real(rank)[1] else 0
+    out = {"flash_attention": attends,
+           "decode_attention": (0 if cfg.use_mla
+                                else attends * (new_tokens - 1)),
            "fused_rmsnorm": (norms + 1) * new_tokens,
            "ssd": L if cfg.family in ("ssm", "hybrid") else 0}
     if tp is not None:
@@ -54,17 +61,19 @@ def kernel_launches(cfg: ModelConfig, new_tokens: int, tp=None
     return out
 
 
-def make_prefill_step(cfg: ModelConfig, tp=None):
+def make_prefill_step(cfg: ModelConfig, tp=None, sp=None):
+    """``sp`` (``tensor_parallel.SeqPar``): the prefill of a
+    sequence-parallel decode, its K/V this rank's block of the cache."""
     def prefill_step(params, batch) -> Tuple[torch.Tensor, Any]:
         logits, _, cache = M.forward(params, cfg, batch, mode="prefill",
-                                     tp=tp)
+                                     tp=tp, sp=sp)
         return logits, cache
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, tp=None):
+def make_decode_step(cfg: ModelConfig, tp=None, sp=None):
     def decode_step(params, batch, cache) -> Tuple[torch.Tensor, Any]:
-        return M.decode(params, cfg, batch, cache, tp)
+        return M.decode(params, cfg, batch, cache, tp, sp)
     return decode_step
 
 

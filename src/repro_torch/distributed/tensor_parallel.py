@@ -24,7 +24,40 @@ The pieces:
     the parameters' blocks, each decode cache leaf's block by
     ``cache_pspec`` and the serving batch's rows; ``gather_vocab``, the
     logits over the whole vocabulary from every rank's columns, which
-    ``serve_step.sample`` reads unchanged on every rank.
+    ``serve_step.sample`` reads unchanged on every rank;
+  * ``head_slots``: the padded head layout of query heads that do not
+    divide over ``model``; ``SeqPar`` and ``combine_partials``: the
+    sequence-parallel decode of a batch that no batch axis divides.
+
+Query heads that do not divide over ``model`` (qwen2-vl-7b's 28 and
+musicgen-medium's 24 over 16 ranks; both under the replicated-KV rule,
+since kv heads that divide over the ranks make the query heads divide
+too): each rank holds whole heads, ``per_rank`` slots of them, some of
+which hold padding heads (``HeadSlots``). Under GQA each kv group of G
+query heads is padded to G' slots, so that a rank's slots lie in one group
+(rank r reads kv head r // (n / KV); 28 heads in 4 groups of 7 -> 32 slots,
+2 a rank on 16 ranks); under MHA the heads are padded at the tail (24 ->
+32 slots, ranks 12-15 holding only padding). A rank's blocks of ``wq``
+(columns), its bias and ``wo`` (rows) carry its slots, the padded ones
+zero; every gathered tree holds the real heads alone, in JAX's layout
+(``ParamLayout.block``, ``gather_leaf``). A rank attends with its real
+heads only and puts zeros in its padded slots' outputs before ``wo``, so a
+padded entry takes part in no output and gets a zero gradient (AdamW and
+ZeRO-1 keep it zero); a rank of padding alone launches no attention kernel
+(``unread`` keeps it in the backward's collectives). JAX splits ``wq``'s
+columns mid-head instead (3,584 / 16 = 224) and lets GSPMD reshard around
+the attention.
+
+Sequence-parallel decode (a serving batch that no batch axis divides, the
+long_500k cells' batch 1): each ``data`` rank holds the whole batch's rows
+and its contiguous block of the cache's sequence, positions [r * Sb, (r +
+1) * Sb), as ``cache_pspec`` lays it out; heads stay over ``model``,
+Mamba2 states and conv windows are whole on every data rank (every data
+rank runs the same Mamba2 step). Each rank runs the prefill of the whole
+prompt and keeps its block of each layer's K/V; a decode step writes the
+new row on the rank whose block holds it, attends over its block (the
+decode kernel's softmax partial, ``return_lse``) and ``combine_partials``
+joins the data group's partials.
 
 Serving runs the same split as training, without gradients: the prefill
 fills, and each decode step writes, this rank's block of the cache (K/V
@@ -57,6 +90,7 @@ mean (``compression.make_local_grad_fn``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
@@ -300,20 +334,131 @@ def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, tp: TP
 
 
 def local_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, groups: int,
-             tp: TP) -> Tuple[torch.Tensor, torch.Tensor]:
+             tp: TP, first: Optional[int] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The replicated-KV rule: K/V (B, S, KV, hd) whole on every rank; this
-    rank's ``n_heads`` query heads (``rank * n_heads`` on) read kv heads
-    ``h // groups`` (groups = H / KV). Returns views of exactly the kv heads
-    they read, after ``copy_to_tp`` (each kv head's gradient is summed over
-    the ranks whose heads read it), so the kernel's ``h // G`` on local
-    indices finds them."""
-    if n_heads % groups and groups % n_heads:
-        raise ValueError(f"{n_heads} query heads a rank over groups of "
-                         f"{groups}: a rank's heads straddle kv heads")
-    first = tp.rank * n_heads // groups
-    n_kv = max(1, n_heads // groups)
+    rank's ``n_heads`` query heads (``first`` on, by default ``rank *
+    n_heads``) read kv heads ``h // groups`` (groups = H / KV). Returns
+    views of exactly the kv heads they read, after ``copy_to_tp`` (each kv
+    head's gradient is summed over the ranks whose heads read it), so the
+    kernel's ``h // G`` on local indices finds them."""
+    first = tp.rank * n_heads if first is None else first
+    kv0, kv1 = first // groups, (first + max(n_heads, 1) - 1) // groups
+    if kv1 > kv0 and (first % groups or n_heads % groups):
+        raise ValueError(f"query heads {first}-{first + n_heads - 1} over "
+                         f"groups of {groups}: a rank's heads straddle kv "
+                         f"heads")
     k, v = copy_to_tp(k, tp), copy_to_tp(v, tp)
-    return k[:, :, first:first + n_kv], v[:, :, first:first + n_kv]
+    return k[:, :, kv0:kv1 + 1], v[:, :, kv0:kv1 + 1]
+
+
+class _Unread(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out, *inputs):
+        ctx.shapes = [(t.shape, t.dtype, t.device) for t in inputs]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(s, dtype=d, device=dev)
+                     for s, d, dev in ctx.shapes))
+
+
+def unread(out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
+    """``out``, with ``inputs`` made to take part in its backward with a
+    zero gradient: a rank whose heads are all padding computes no attention,
+    yet the collectives behind its q and K/V (``copy_to_tp``'s all-reduce of
+    the gradient) must run on it as on the rank that attends."""
+    return _Unread.apply(out, *inputs)
+
+
+# ------------------------------------------------- heads padded to slots
+@dataclass(frozen=True)
+class HeadSlots:
+    """The padded head layout of query heads that do not divide over the
+    model ranks (see the module docstring): the ``n_heads`` real heads in
+    ``groups`` runs of ``group`` (the kv groups, or one run of all the
+    heads), each run padded to ``padded`` slots, then padding slots at the
+    tail up to ``len(heads)``. ``heads[i]`` is the real head in global
+    slot i or -1 for a padding slot; rank r holds slots [r * per_rank, (r +
+    1) * per_rank), its real heads the first of them and consecutive."""
+    n_heads: int
+    per_rank: int
+    groups: int
+    group: int
+    padded: int
+    heads: Tuple[int, ...]
+
+    def real(self, rank: int) -> Tuple[int, int]:
+        """(first real head, number of real heads) of ``rank``'s slots."""
+        mine = [h for h in self.heads[rank * self.per_rank:
+                                      (rank + 1) * self.per_rank] if h >= 0]
+        return (mine[0] if mine else 0), len(mine)
+
+
+@functools.lru_cache(maxsize=None)
+def _slots(H: int, KV: int, n: int) -> Optional[HeadSlots]:
+    G = H // KV
+    if G == 1:                              # MHA: padded at the tail
+        per = -(-H // n)
+        return HeadSlots(H, per, 1, H, H,
+                         tuple(range(H)) + (-1,) * (n * per - H))
+    if n % KV:                              # a rank's slots would straddle
+        return None
+    step = n // KV                          # ranks a kv head
+    padded = -(-G // step) * step           # G', a multiple of the ranks
+    heads = tuple(kv * G + j if j < G else -1
+                  for kv in range(KV) for j in range(padded))
+    return HeadSlots(H, padded // step, KV, G, padded, heads)
+
+
+def head_slots(cfg, n) -> Optional[HeadSlots]:
+    """The padded head layout of ``cfg``'s query heads over ``n`` model
+    ranks (an int, or a ``TP``), or None where they divide (or under
+    dp_all, MLA or one rank); None too where no layout keeps a rank's heads
+    on one kv head (``unsupported`` says so)."""
+    n = n.size if isinstance(n, TP) else (n or 1)
+    if (n == 1 or not cfg.num_heads or cfg.use_mla
+            or SH.policy_for(cfg) != "tp16" or cfg.num_heads % n == 0):
+        return None
+    return _slots(cfg.num_heads, cfg.num_kv_heads, n)
+
+
+_HEAD_DIM = {"wq/w": -1, "wq/b": -1, "wo/w": -2}
+
+
+def head_dim_of(path: str) -> Optional[int]:
+    """The dim of a GQA leaf that holds its query heads (``attn/wq``'s
+    columns and bias, ``attn/wo``'s rows), or None."""
+    parts = path.split("/")
+    if len(parts) < 3 or parts[-3] != "attn":
+        return None
+    return _HEAD_DIM.get("/".join(parts[-2:]))
+
+
+def pad_heads(t: torch.Tensor, dim: int, slots: HeadSlots) -> torch.Tensor:
+    """``t`` with its ``dim`` (negative) of H heads laid out in ``slots``'
+    global slots, zeros in the padding ones (fake and meta tensors too)."""
+    hd = t.shape[dim] // slots.n_heads
+    x = t.unflatten(dim, (slots.groups, slots.group, hd))
+    g = dim - 1                              # the heads of a run
+    x = torch.cat([x, x.new_zeros(x.shape[:g] + (slots.padded - slots.group,)
+                                  + x.shape[g + 1:])], g).flatten(g - 1, g)
+    tail = len(slots.heads) - slots.groups * slots.padded
+    x = torch.cat([x, x.new_zeros(x.shape[:g] + (tail,) + x.shape[g + 1:])],
+                  g)
+    return x.flatten(g, g + 1)
+
+
+def unpad_heads(t: torch.Tensor, dim: int, slots: HeadSlots) -> torch.Tensor:
+    """The inverse of ``pad_heads``: the real heads of ``t``'s slots along
+    ``dim`` (negative), in head order."""
+    hd = t.shape[dim] // len(slots.heads)
+    x = t.unflatten(dim, (len(slots.heads), hd)).narrow(
+        dim - 1, 0, slots.groups * slots.padded)
+    x = x.unflatten(dim - 1, (slots.groups, slots.padded)).narrow(
+        dim - 1, 0, slots.group)
+    return x.flatten(dim - 2, dim - 1).flatten(dim - 1, dim)
 
 
 # ----------------------------------------------------------- layouts
@@ -321,7 +466,10 @@ class ParamLayout:
     """How the ranks of ``mesh`` hold a model's parameters: each leaf's
     block by its spec (``sharding.params_pspec``: under tp16 split over
     ``model``, under dp_all only the vocabulary; replicated over ``data``),
-    and this rank's model group (``tp``)."""
+    and this rank's model group (``tp``). Where the query heads do not
+    divide over ``model`` (``heads``, a ``HeadSlots``), the blocks of the
+    GQA leaves that hold them are those of the leaf padded to its slots
+    (``padded_shapes``); ``shapes`` are the leaves' own (JAX's)."""
 
     def __init__(self, cfg, mesh):
         from repro_torch.models.model import init_params   # models imports us
@@ -331,6 +479,14 @@ class ParamLayout:
         self.tp = model_group(mesh)
         self.specs = SH.params_pspec(cfg, mesh, struct)
         self.shapes = {p: tuple(t.shape) for p, t in T.flatten(struct)}
+        self.heads = head_slots(cfg, self.tp) if self.tp is not None else None
+        self._padded = ({p: head_dim_of(p) for p in self.shapes
+                         if head_dim_of(p) is not None}
+                        if self.heads is not None else {})
+        self.padded_shapes = {
+            p: (tuple(pad_heads(t, self._padded[p], self.heads).shape)
+                if p in self._padded else tuple(t.shape))
+            for p, t in T.flatten(struct)}
         self._split = {p for p, spec in self.specs.items()
                        if self.tp is not None
                        and any(SH.MODEL_AXIS in SH._axes_of(e) for e in spec)}
@@ -339,13 +495,35 @@ class ParamLayout:
         """Whether ranks of the model group hold other parts of the leaf."""
         return path in self._split
 
+    def block(self, path: str, t: torch.Tensor, specs=None) -> torch.Tensor:
+        """This rank's block of the whole leaf ``t`` at ``path`` under
+        ``specs`` (by default the parameters'): a contiguous copy, of the
+        leaf padded to its head slots where it has them."""
+        if path in self._padded:
+            t = pad_heads(t, self._padded[path], self.heads)
+        spec = (specs or self.specs)[path]
+        sl = SH.local_slices(spec, tuple(t.shape), self.mesh)
+        return t[sl].clone(memory_format=torch.contiguous_format)
+
+    def gather_leaf(self, path: str, t: torch.Tensor, specs=None
+                    ) -> torch.Tensor:
+        """The whole leaf from every rank's block ``t`` (collective), its
+        real heads alone where it has head slots: the inverse of
+        ``block``."""
+        whole = SH.gather_leaf(t, (specs or self.specs)[path], self.mesh)
+        if path in self._padded:
+            whole = unpad_heads(whole, self._padded[path], self.heads)
+        return whole
+
     def shard_params(self, params):
         """This rank's block of every leaf of a whole parameter tree."""
-        return SH.shard_tree(params, self.specs, self.mesh)
+        return T.unflatten(params, [self.block(p, t)
+                                    for p, t in T.flatten(params)])
 
     def gather_params(self, params):
         """The whole tree from every rank's blocks (collective)."""
-        return SH.gather_tree(params, self.specs, self.mesh)
+        return T.unflatten(params, [self.gather_leaf(p, t)
+                                    for p, t in T.flatten(params)])
 
     def init_params(self, seed: int = 0, device="cuda"):
         """``shard_params(model.init_params(cfg, seed=seed, device=device))``,
@@ -364,18 +542,14 @@ class ParamLayout:
 
         def block(t):
             path = next(paths)
-            return t if path is None else self._block(path, t)
+            return t if path is None else self.block(path, t)
         with L.drawn_leaves(block):
             params = M.init_params(self.cfg, seed=seed, device=device)
         # the leaves drawn otherwise (zeros, the Mamba2 per-head draws) are
         # whole yet; a block of a whole leaf is itself
         return T.unflatten(params, [
-            self._block(p, t) if tuple(t.shape) == self.shapes[p] else t
+            self.block(p, t) if tuple(t.shape) == self.shapes[p] else t
             for p, t in T.flatten(params)])
-
-    def _block(self, path, t):
-        sl = SH.local_slices(self.specs[path], tuple(t.shape), self.mesh)
-        return t[sl].clone(memory_format=torch.contiguous_format)
 
 
 class TrainLayout(ParamLayout):
@@ -405,13 +579,44 @@ class TrainLayout(ParamLayout):
             return None
         dim = spec.index(SH.DATA_AXIS)
         local = [sl.stop - sl.start for sl in SH.local_slices(
-            self.specs[path], self.shapes[path], self.mesh)]
+            self.specs[path], self.padded_shapes[path], self.mesh)]
         only_data = tuple(SH.DATA_AXIS if i == dim else None
                           for i in range(len(local)))
         return dim, SH.local_slices(only_data, tuple(local), self.mesh)
 
     def gather_moments(self, tree):
-        return SH.gather_tree(tree, self.moment_specs, self.mesh)
+        """The whole moments from every rank's blocks (collective)."""
+        return T.unflatten(tree, [
+            self.gather_leaf(p, t, self.moment_specs)
+            for p, t in T.flatten(tree)])
+
+
+@dataclass(frozen=True)
+class SeqPar:
+    """The data group of a sequence-parallel decode: ``group`` (None for
+    one rank), ``size``, this rank's ``rank`` in it and the ``rows`` of its
+    block of the cache's sequence, positions [rank * rows, (rank + 1) *
+    rows)."""
+    group: Any
+    size: int
+    rank: int
+    rows: int
+
+
+def combine_partials(o: torch.Tensor, lse: torch.Tensor, sp: SeqPar
+                     ) -> torch.Tensor:
+    """The attention over the whole cache from this rank's softmax partial
+    of its block, (o (B, 1, H, hd) f32, lse (B, H) f32; the decode kernel's
+    ``return_lse``), over the data group: one all-reduce MAX of lse (L),
+    then one all-reduce SUM of (w * o, w) concatenated, w = e^(lse - L)
+    (0 where the block holds no valid row, lse -inf), and O = sum w * o /
+    sum w, f32. Every head has a valid row on some rank (position 0's)."""
+    L = all_reduce(lse.clone(), sp.group, op=dist.ReduceOp.MAX)
+    w = torch.exp(lse - L)                           # (B, H)
+    wo = w[:, None, :, None] * o                     # (B, 1, H, hd)
+    both = all_reduce(torch.cat([wo.reshape(-1), w.reshape(-1)]), sp.group)
+    n = wo.numel()
+    return both[:n].view_as(wo) / both[n:].view(w.shape)[:, None, :, None]
 
 
 class ServeLayout(ParamLayout):
@@ -422,19 +627,43 @@ class ServeLayout(ParamLayout):
     group ``tp`` the prefill and decode steps run over: under dp_all with
     ``split_rows`` where that serving batch splits over ``model`` too (on
     the production mesh B = 32 and 128 drop ``model``, so a group's ranks
-    hold the same rows)."""
+    hold the same rows).
+
+    A batch that no batch axis divides (the long_500k cells' batch 1) on a
+    mesh whose ``data`` axis has several ranks is served sequence-parallel
+    (``seq_parallel``; see the module docstring): every rank holds the
+    whole batch, and the cache's sequence is split over ``data``
+    (``seq_par``). MLA, whose latents ``cache_pspec`` would split alike, is
+    refused: no MLA architecture runs long_500k."""
 
     def __init__(self, cfg, mesh, batch: int):
         super().__init__(cfg, mesh)
         self.batch_axes = SH.batch_axes(mesh, cfg, batch)
-        if not self.batch_axes and mesh.shape.get(SH.DATA_AXIS, 1) > 1:
+        n_data = mesh.shape.get(SH.DATA_AXIS, 1)
+        self.seq_parallel = not self.batch_axes and n_data > 1
+        if self.seq_parallel and cfg.use_mla:
             raise NotImplementedError(
-                f"a batch of {batch} does not divide over the data axis: "
-                f"sequence-parallel decode (the cache's sequence over "
-                f"'data') is not executed (ROADMAP item 12h)")
+                f"{cfg.name}: a batch of {batch} does not divide over the "
+                f"{n_data} data ranks, and the sequence-parallel decode of "
+                f"MLA's latent cache is not implemented (no MLA architecture "
+                f"runs long_500k)")
         self.rows = batch // mesh.axes_size(self.batch_axes)
         self.cache_specs = SH.cache_pspec(cfg, mesh, batch)
         self.tp = step_group(cfg, self, self.batch_axes)
+
+    def seq_par(self, capacity: int) -> Optional[SeqPar]:
+        """The data group's ``SeqPar`` for a cache of ``capacity``
+        positions, or None where the batch's rows are split instead. A
+        capacity that does not divide over ``data`` raises ValueError."""
+        if not self.seq_parallel:
+            return None
+        n = self.mesh.shape[SH.DATA_AXIS]
+        if capacity % n:
+            raise ValueError(
+                f"a cache of {capacity} positions does not divide over the "
+                f"{n} data ranks of a sequence-parallel decode")
+        return SeqPar(self.mesh.group((SH.DATA_AXIS,)), n,
+                      self.mesh.coordinate()[SH.DATA_AXIS], capacity // n)
 
     def my_rows(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's rows (dim 0) of a tensor of the whole batch."""
@@ -466,7 +695,9 @@ def gather_vocab(logits: torch.Tensor, tp: Optional[TP]) -> torch.Tensor:
 
 def unsupported(cfg, mesh) -> Optional[str]:
     """Why the port cannot run ``cfg`` tensor-parallel over ``mesh``'s
-    ``model`` axis, or None (also for one rank)."""
+    ``model`` axis, or None (also for one rank). Query heads that do not
+    divide are padded (``head_slots``) where a rank's slots can keep to one
+    kv head."""
     n = mesh.shape.get(SH.MODEL_AXIS, 1)
     if n == 1:
         return None
@@ -475,6 +706,13 @@ def unsupported(cfg, mesh) -> Optional[str]:
                 f"not divide over {n} model ranks")
     if SH.policy_for(cfg) != "tp16":
         return None
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if H % n and (cfg.use_mla or head_slots(cfg, n) is None):
+        return (f"{cfg.name}: {H} query heads do not divide over {n} model "
+                f"ranks, and " + ("MLA's heads are not padded" if cfg.use_mla
+                                  else f"their {KV} kv heads do not divide "
+                                  f"the ranks (a rank's padded heads would "
+                                  f"straddle kv heads)"))
     if cfg.family == "hybrid":
         H, G = cfg.ssm_heads, cfg.ssm_groups
         if H % n:
@@ -484,9 +722,6 @@ def unsupported(cfg, mesh) -> Optional[str]:
         if mine % per_group and per_group % mine:
             return (f"{cfg.name}: {mine} SSD heads a rank straddle the "
                     f"{G} B/C groups of {per_group} heads")
-    if cfg.num_heads % n:
-        return (f"{cfg.name}: {cfg.num_heads} query heads do not divide over "
-                f"{n} model ranks (the port splits whole heads)")
     return None
 
 

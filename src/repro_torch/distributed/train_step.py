@@ -125,8 +125,8 @@ def make_grad_fn(cfg: ModelConfig, *, accum_steps: int = 1,
     return grad_fn
 
 
-def kernel_launches(cfg: ModelConfig, model_ranks: int = 1
-                    ) -> Dict[str, int]:
+def kernel_launches(cfg: ModelConfig, model_ranks: int = 1,
+                    rank: int = 0) -> Dict[str, int]:
     """The CUDA kernel launches of one ``make_grad_fn(cfg)`` pass (one step
     at ``accum_steps=1``) with ``cfg.use_pallas``, by kernel. Each layer's
     forward launches its kernels once, and once more in its recompute under
@@ -140,7 +140,9 @@ def kernel_launches(cfg: ModelConfig, model_ranks: int = 1
     many: each kernel runs once a layer whatever the rank's share of the
     heads, and every norm runs whole on every rank, but for the gated norm
     of a Mamba2 layer split over ``model_ranks`` > 1 ranks, which runs in
-    two launches (``tensor_parallel.split_rmsnorm``)."""
+    two launches (``tensor_parallel.split_rmsnorm``). Where the query heads
+    are padded to slots (``tensor_parallel.head_slots``), model rank
+    ``rank`` holding only padding launches no flash attention."""
     L, runs = cfg.num_layers, 1 if cfg.remat == "none" else 2
     shared = 0                          # the hybrid's shared-block calls
     if cfg.family in ("ssm", "hybrid"):
@@ -150,7 +152,10 @@ def kernel_launches(cfg: ModelConfig, model_ranks: int = 1
             shared = L // cfg.attn_every
     else:
         flash, norms, scans = L, (3 if cfg.use_mla else 2) * L, 0
-    return {"flash_attention": runs * flash + shared, "decode_attention": 0,
+    slots = TP.head_slots(cfg, model_ranks)
+    attends = slots is None or slots.real(rank)[1] > 0
+    return {"flash_attention": (runs * flash + shared) * attends,
+            "decode_attention": 0,
             "fused_rmsnorm": runs * norms + 2 * shared + 1,
             "ssd": runs * scans}
 

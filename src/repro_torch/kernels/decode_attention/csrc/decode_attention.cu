@@ -23,6 +23,14 @@
 // M = max m_i, O = sum e^(m_i - M) acc_i / max(sum e^(m_i - M) l_i, 1e-30).
 // The cache is read in its stored layout (B, S, KV, hd) through strides.
 //
+// The softmax partial (lse != nullptr): the merge also writes, per (b, h),
+// the f32 log-sum-exp of the scaled scores over the valid rows,
+// lse = M + log(sum e^(m_i - M) l_i), or -inf where no row is valid (O is 0
+// there), and writes O in f32 whatever the inputs' dtype. A sequence-parallel
+// decode, each rank holding a block of the cache's sequence, combines its
+// ranks' (O, lse) into the attention over the whole cache:
+// O = sum_r e^(lse_r - L) O_r / sum_r e^(lse_r - L), L = max_r lse_r.
+//
 // bfloat16: decode_fwd_split_mma. Four warps per block, each streaming its
 // own 16-row chunks of the split (chunk c goes to warp c % 4) through a
 // two-stage cp.async ring in shared memory; chunks past valid_len are not
@@ -423,8 +431,9 @@ decode_fwd_split_f32(const float* __restrict__ q, const float* __restrict__ k,
 // ================================================================= combine
 // one block per (pair, head of the group), one thread per head dim
 template <typename T>
-__global__ void decode_fwd_combine(Partials part, T* __restrict__ o, int KV,
-                                   int G, int hd, int n_split, long long o_b,
+__global__ void decode_fwd_combine(Partials part, T* __restrict__ o,
+                                   float* __restrict__ lse, int KV, int G,
+                                   int hd, int n_split, long long o_b,
                                    long long o_h) {
   const int pair = blockIdx.x;
   const int g = blockIdx.y;
@@ -442,6 +451,8 @@ __global__ void decode_fwd_combine(Partials part, T* __restrict__ o, int KV,
   const int b = pair / KV;
   const int h = (pair % KV) * G + g;
   o[b * o_b + (long long)h * o_h + d] = from_f32<T>(acc / fmaxf(sum, 1e-30f));
+  if (lse != nullptr && d == 0)              // (B, H), H = KV * G
+    lse[(long long)b * KV * G + h] = sum > 0.f ? mx + logf(sum) : -INFINITY;
 }
 
 template <int HD>
@@ -469,14 +480,16 @@ static_assert(Split<256>::SMEM <= MAX_SMEM, "the ring must fit");
 
 // dtype: 0 = float32, 1 = bfloat16. q (B,1,H,hd), caches k/v (B,S,KV,hd),
 // o (B,1,H,hd), addressed through strides in elements with a contiguous head
-// dim; valid_len is a device pointer to one int32. scratch holds
+// dim; valid_len is a device pointer to one int32. lse: nullptr, or the
+// softmax partial's (B, H) f32 log-sum-exp, o then f32. scratch holds
 // B * KV * n_split * G * (hd + 2) floats; the splits are rows_per_split rows
 // each (n_split * rows_per_split >= S). In bf16 hd is one of REPRO_HEAD_DIMS.
 // Launches the split kernel and the combine kernel on CUDA device `device`
 // (the tensors'), `stream` one of its streams. Returns a cudaError_t.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
-    const void* valid_len, void* scratch, int dtype, int B, int S, int H,
+    const void* valid_len, void* scratch, void* lse, int dtype, int B,
+    int S, int H,
     int KV, int hd, int n_split, int rows_per_split,
     long long q_b, long long q_h,
     long long k_b, long long k_s, long long k_h,
@@ -520,11 +533,13 @@ extern "C" int decode_attention_fwd(
   }
   if (err != cudaSuccess) return err;
   const dim3 grid(B * KV, G);
-  if (dtype == 0)
+  float* lse_out = static_cast<float*>(lse);
+  if (dtype == 0 || lse_out != nullptr)
     decode_fwd_combine<float><<<grid, hd, 0, s>>>(
-        part, static_cast<float*>(o), KV, G, hd, n_split, o_b, o_h);
+        part, static_cast<float*>(o), lse_out, KV, G, hd, n_split, o_b, o_h);
   else
     decode_fwd_combine<__nv_bfloat16><<<grid, hd, 0, s>>>(
-        part, static_cast<__nv_bfloat16*>(o), KV, G, hd, n_split, o_b, o_h);
+        part, static_cast<__nv_bfloat16*>(o), nullptr, KV, G, hd, n_split,
+        o_b, o_h);
   return cudaGetLastError();
 }

@@ -38,7 +38,7 @@ card_launches = {}      # CUDA device index -> launches
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"decode_attention_fwd":
-               [_P] * 6 + [_I] * 8 + [_L] * 10 + [ctypes.c_float, _P, _I]}
+               [_P] * 7 + [_I] * 8 + [_L] * 10 + [ctypes.c_float, _P, _I]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head widths the bf16 kernel is instantiated for (as flash attention's)
 HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160, 256)
@@ -86,12 +86,21 @@ def _check(q, k, v, valid_len):
             raise ValueError(f"{name} rows must be 16-byte aligned")
 
 
-def decode_attention(q, k_cache, v_cache, valid_len, *, scale: float):
+def decode_attention(q, k_cache, v_cache, valid_len, *, scale: float,
+                     return_lse: bool = False):
     """q (B, 1, H, hd), caches (B, S, KV, hd) -> (B, 1, H, hd).
 
     ``valid_len``: number of valid cache rows, the same for the whole batch,
     as an int32 tensor of one element on q's device (the kernel reads it
-    there, so the host never waits on the device)."""
+    there, so the host never waits on the device).
+
+    ``return_lse``: the softmax partial of this block of a cache, (o, lse):
+    o in f32 whatever q's dtype, and lse (B, H) f32, the log-sum-exp of the
+    scaled scores over the valid rows, -inf where there is none (o is 0
+    there). The same kernels, whose merge writes lse too
+    (``ref.decode_attention_partial_ref`` is its plain version);
+    ``tensor_parallel.combine_partials`` joins the blocks of several
+    ranks."""
     if not isinstance(valid_len, torch.Tensor):
         raise TypeError("valid_len must be an int32 tensor on q's device")
     if torch.is_grad_enabled() and (q.requires_grad or k_cache.requires_grad
@@ -100,9 +109,12 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, scale: float):
                            "reference kernel): call it under torch.no_grad() "
                            "or on tensors that do not require grad")
     if q.device.type == "cpu":
-        ot = ref.decode_attention_ref(q.transpose(1, 2), k_cache.transpose(1, 2),
-                                      v_cache.transpose(1, 2), valid_len,
-                                      scale=scale)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k_cache, v_cache))
+        if return_lse:
+            ot, lse = ref.decode_attention_partial_ref(qt, kt, vt, valid_len,
+                                                       scale=scale)
+            return ot.transpose(1, 2), lse
+        ot = ref.decode_attention_ref(qt, kt, vt, valid_len, scale=scale)
         return ot.transpose(1, 2)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
@@ -111,17 +123,21 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, scale: float):
     _, S, KV, _ = k_cache.shape
     dev = q.get_device()
     n_split, rows = split_plan(B, KV, S, sm_count(dev))
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    o = torch.empty(q.shape, device=q.device,
+                    dtype=torch.float32 if return_lse else q.dtype)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     # f32 partials of every (batch, head, split): acc[hd], then (m, l)
     scratch = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
                           device=q.device)
     lib = _build.load("decode_attention", _SIGNATURES)
     err = lib.decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
-        valid_len.data_ptr(), scratch.data_ptr(), _DTYPES[q.dtype], B, S, H,
+        valid_len.data_ptr(), scratch.data_ptr(),
+        lse.data_ptr() if return_lse else None, _DTYPES[q.dtype], B, S, H,
         KV, hd, n_split, rows, q.stride(0), q.stride(2),
         *k_cache.stride()[:3], *v_cache.stride()[:3], o.stride(0), o.stride(2),
         float(scale), stream_ptr(dev), dev)
     _build.check(lib, "decode_attention", err)
     count_launch(__name__, card=dev)
-    return o
+    return (o, lse) if return_lse else o

@@ -26,10 +26,11 @@ rank's own batch, the global batch over the size of ``sharding.batch_axes``:
     and, for decode, of the cache (``model.init_cache(mesh=)`` by
     ``cache_pspec``); under tp16 the tensor-parallel prefill or decode
     step, under dp_all the split vocabulary. Their records carry the
-    collectives. The long_500k cells (batch 1, so the cache's sequence
-    would go over ``data``: sequence-parallel decode, ROADMAP item 12h)
-    keep the one-rank decode step on the whole batch, and say so in their
-    record (``program``).
+    collectives. The long_500k cells (batch 1, which no batch axis
+    divides) run the sequence-parallel decode step: the rank's block of
+    the cache's 524,288 positions over ``data`` (524,288 / 16), the data
+    group's two all-reduces a shared-block call (``combine_partials``)
+    among its collectives (``seq_parallel`` in the record).
 
 What the record holds, per device:
   * ``memory.argument_size_in_bytes``: parameters, ZeRO-1 optimizer state,
@@ -51,10 +52,13 @@ What the record holds, per device:
   * ``roofline``: ``roofline.derive`` in H100 terms.
 
 A cell whose tensor-parallel program the port lacks is skipped, with the
-reason (``tensor_parallel.unsupported``: query heads or SSD heads that do
-not divide over the ``model`` axis, ROADMAP item 12f): the train, prefill
-and decode cells of qwen2-vl-7b (28 heads) and musicgen-medium (24) on
-both meshes, 12 cells, 8 of them serving cells.
+reason (``tensor_parallel.unsupported``: SSD heads that do not divide over
+the ``model`` axis, or query heads that no padded layout keeps on one kv
+head a rank); none of the 80 is. The query heads of qwen2-vl-7b (28) and
+musicgen-medium (24), which do not divide over 16 model ranks, are padded
+to 32 slots (``tensor_parallel.head_slots``): their records say how
+(``heads``), with the matmul FLOPs the padding adds against an even split
+of the heads.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-7b --shape train_4k --mesh single
@@ -144,10 +148,8 @@ class Cell:
 
     @property
     def per_rank(self) -> bool:
-        """Whether the step is a rank's program over the mesh (all but the
-        long_500k cells' one-rank decode: see the module docstring)."""
-        return self.mesh.size > 1 and (self.shape.kind == "train"
-                                       or bool(self.dp_axes))
+        """Whether the step is a rank's program over the mesh."""
+        return self.mesh.size > 1
 
     def inputs(self, make, layout=None):
         """The step's arguments, each leaf ``make(meta tensor)``; with the
@@ -179,8 +181,10 @@ class Cell:
         layout = (TP.serve_layout(self.cfg, mesh, self.shape.global_batch)
                   if self.per_rank else None)
         tp = layout.tp if layout is not None else None
+        sp = (layout.seq_par(self.shape.seq_len) if layout is not None
+              and self.shape.kind == "decode" else None)
         step = (make_prefill_step(self.cfg, tp) if self.shape.kind ==
-                "prefill" else make_decode_step(self.cfg, tp))
+                "prefill" else make_decode_step(self.cfg, tp, sp))
         step.layout = layout
         return step
 
@@ -255,7 +259,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     dp_axes = (SH.batch_axes(mesh, cfg) if shape.kind == "train" else
                SH.batch_axes(mesh, cfg, shape.global_batch))
     why = TP.unsupported(cfg, mesh)
-    if why and (shape.kind == "train" or dp_axes):     # long_500k aside
+    if why:
         return None, {"skipped": f"skip: {why}"}
     cell = Cell(cfg, shape, mesh, dp_axes,
                 shape.global_batch // mesh.axes_size(dp_axes))
@@ -288,9 +292,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     coll = prof.collective_bytes()
     cost = {"flops": prof.flops, "bytes accessed": prof.bytes,
             "matmul_flops": prof.matmul_flops}
+    notes = layout_notes(cfg, cell.shape, mesh, cell.dp_axes)
     axes = cell.dp_axes
     if cell.per_rank and SH.policy_for(cfg) == "tp16":
         axes = (*axes, SH.MODEL_AXIS)         # the tensor-parallel ones too
+    if "seq_parallel" in notes:
+        axes = (*axes, SH.DATA_AXIS)          # the partials' combine
     terms = RL.derive(arch, cell.shape, cfg, mesh_name, mesh.size, cost, coll,
                       peak_bytes_dev=prof.peak_bytes,
                       link_bw=RL.link_bandwidth(mesh.shape, axes))
@@ -304,10 +311,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                            for k, v in coll.items()},
            "roofline": terms.to_dict(),
            "rows_per_rank": cell.rows, "n_ops": prof.n_ops,
-           "program": ("per rank" if cell.per_rank else
-                       "one rank, the whole batch: sequence-parallel decode "
-                       "(the cache's sequence over data) is not executed "
-                       "(ROADMAP item 12h)")}
+           "program": "per rank" if cell.per_rank else "one rank"}
+    rec.update(notes)
     if verbose:
         print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: "
               f"run {run_s:.1f}s  "
@@ -317,6 +322,44 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
               f"-> {terms.bottleneck}  hw_frac={terms.hw_frac:.3f}  "
               f"useful={terms.useful_ratio:.2f}", flush=True)
     return rec
+
+
+def layout_notes(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
+                 dp_axes) -> Dict[str, Any]:
+    """What a cell's record says of the port's layouts beyond the specs:
+    ``heads``, where the query heads are padded to slots over ``model``
+    (the slots a rank, the ranks holding padding alone, and the matmul
+    FLOPs a rank's padded slots add to the q and out projections against
+    an even split of the heads, H / n a rank, at this cell's tokens a
+    rank, forward and, for train, backward); ``seq_parallel``, where the
+    decode cache's sequence is split over ``data`` (its ranks and the
+    positions of a rank's block; not for the ssm family, whose cache has no
+    sequence)."""
+    out: Dict[str, Any] = {}
+    n = mesh.shape.get(SH.MODEL_AXIS, 1)
+    slots = TP.head_slots(cfg, n)
+    if slots is not None:
+        tokens = (shape.global_batch // mesh.axes_size(dp_axes)
+                  * (1 if shape.kind == "decode" else shape.seq_len))
+        extra = slots.per_rank - cfg.num_heads / n       # heads a rank
+        passes = 3 if shape.kind == "train" else 1
+        out["heads"] = {
+            "layout": ("kv groups padded" if cfg.num_heads > cfg.num_kv_heads
+                       else "padded at the tail"),
+            "heads": cfg.num_heads, "slots": len(slots.heads),
+            "slots_per_rank": slots.per_rank,
+            "padding_only_ranks": sum(not slots.real(r)[1]
+                                      for r in range(n)),
+            "padding_matmul_flops": round(
+                passes * 2 * 2 * tokens * cfg.d_model * cfg.head_dim
+                * extra * cfg.num_layers)}
+    if (shape.kind == "decode" and cfg.family != "ssm"
+            and not SH.batch_axes(mesh, cfg, shape.global_batch)):
+        n_data = mesh.shape.get(SH.DATA_AXIS, 1)
+        if n_data > 1:
+            out["seq_parallel"] = {"data_ranks": n_data,
+                                   "block_positions": shape.seq_len // n_data}
+    return out
 
 
 def table_rows(recs) -> list:

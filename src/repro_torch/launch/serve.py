@@ -15,8 +15,13 @@ rank serves its rows of the batch (``sharding.batch_axes``), the model
 group runs the tensor-parallel prefill and decode steps (under dp_all only
 the vocabulary is split), every rank samples from the logits gathered over
 the vocabulary, and the tokens are gathered so that every rank returns the
-whole batch. A config that the port cannot split raises with the reason
-(``tensor_parallel.unsupported``); it is never served whole instead.
+whole batch. A batch that no batch axis divides (batch 1 on a mesh with
+several data ranks) is served sequence-parallel: every rank holds the
+whole batch and its block of the cache's sequence over ``data``, and a
+decode step combines the blocks' softmax partials over the data group
+(``tensor_parallel.SeqPar``). A config that the port cannot split raises
+with the reason (``tensor_parallel.unsupported``); it is never served
+whole instead.
 
 JAX's ``jit`` and ``donate_argnums=(2,)`` become eager calls and an in-place
 cache update: each decode step writes its K/V rows into the caches that
@@ -55,8 +60,9 @@ def _positions(cfg: ModelConfig, B: int, S: int, start: int = 0, *,
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *,
              max_new_tokens: int = 32, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             mesh=None) -> torch.Tensor:
+             mesh=None, max_len: Optional[int] = None) -> torch.Tensor:
     """prompts (B, S) int32 on the serving device -> (B, S + max_new_tokens).
+    ``max_len``: the caches' capacity (default S + max_new_tokens).
 
     With a ``mesh`` of several ranks (see the module docstring) ``params``
     are this rank's blocks (``tensor_parallel.serve_layout(cfg, mesh,
@@ -75,11 +81,13 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *,
     TP.check_local(mesh, prompts, "the prompts")
     tp = layout.tp if layout is not None else None
     vtp = M.vocab_group(cfg, tp)
+    capacity = max_len or S + max_new_tokens
+    sp = layout.seq_par(capacity) if layout is not None else None
     if layout is not None:
         prompts = layout.my_rows(prompts)
     b = prompts.shape[0]
-    prefill = make_prefill_step(cfg, tp)
-    decode = make_decode_step(cfg, tp)
+    prefill = make_prefill_step(cfg, tp, sp)
+    decode = make_decode_step(cfg, tp, sp)
 
     def draw(logits):
         full = TP.gather_vocab(logits, vtp)
@@ -90,7 +98,7 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *,
 
     batch = {"tokens": prompts, "positions": _positions(cfg, b, S, device=dev)}
     logits, cache = prefill(params, batch)
-    cache = pad_cache(cache, cfg, S + max_new_tokens)
+    cache = pad_cache(cache, cfg, capacity if sp is None else sp.rows)
     tokens = [draw(logits)]
     for t in range(max_new_tokens - 1):
         db = {"tokens": tokens[-1],
@@ -103,7 +111,8 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *,
 
 def teacher_forced(params, cfg: ModelConfig, tokens: torch.Tensor,
                    prompt_len: int, *, layout=None, warm: bool = True,
-                   keep_logits: bool = True, on_warm=None, on_prefill=None):
+                   keep_logits: bool = True, on_warm=None, on_prefill=None,
+                   max_len: Optional[int] = None):
     """The prefill of ``tokens[:, :prompt_len]`` and the decode steps fed
     ``tokens[:, prompt_len + t]`` at step t, as ``generate`` runs them on
     its own samples, timed: a warm-up prefill (unless not ``warm``), the
@@ -116,16 +125,20 @@ def teacher_forced(params, cfg: ModelConfig, tokens: torch.Tensor,
     (steps, B, padded vocab) f32 on every rank (None unless
     ``keep_logits``: then the loop gathers nothing), and the final cache
     (this rank's blocks). ``on_warm()`` runs after the warm-up,
-    ``on_prefill(cache)`` with the prefill's cache before the decode."""
+    ``on_prefill(cache)`` with the prefill's cache before the decode.
+    ``max_len``: the caches' capacity (default the tokens' length)."""
     dev = resolve_device(tokens.device)
     S = prompt_len
     tp = layout.tp if layout is not None else None
     vtp = M.vocab_group(cfg, tp)
+    capacity = max_len or tokens.shape[1]
+    sp = layout.seq_par(capacity) if layout is not None else None
     rows = layout.my_rows(tokens) if layout is not None else tokens
     b, steps = rows.shape[0], tokens.shape[1] - S
     batch = {"tokens": rows[:, :S].contiguous(),
              "positions": _positions(cfg, b, S, device=dev)}
-    prefill, decode = make_prefill_step(cfg, tp), make_decode_step(cfg, tp)
+    prefill = make_prefill_step(cfg, tp, sp)
+    decode = make_decode_step(cfg, tp, sp)
 
     def sync():
         if dev.type == "cuda":
@@ -146,7 +159,7 @@ def teacher_forced(params, cfg: ModelConfig, tokens: torch.Tensor,
         out[0] = TP.gather_vocab(lg, vtp)[:, 0]
     if on_prefill is not None:
         on_prefill(cache)
-    cache = pad_cache(cache, cfg, tokens.shape[1])
+    cache = pad_cache(cache, cfg, capacity if sp is None else sp.rows)
     sync()
     t0 = time.perf_counter()
     for t in range(steps - 1):

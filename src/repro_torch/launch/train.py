@@ -90,8 +90,7 @@ def _restore(ckpt, layout, params, opt_state):
                 raise ValueError(f"{prefix}/{path}: checkpoint {t.dtype} "
                                  f"{tuple(t.shape)}, model {leaf.dtype} "
                                  f"{layout.shapes[path]}")
-            sl = SH.local_slices(specs[path], tuple(t.shape), layout.mesh)
-            leaves.append(t[sl].to(leaf.device, copy=True).contiguous())
+            leaves.append(layout.block(path, t, specs).to(leaf.device))
         return T.unflatten(tree, leaves)
     opt = adamw.OptState(
         step=r["get"]("opt/.step").to(opt_state.step.device),

@@ -16,13 +16,20 @@ this rank's heads, and the head counts are read off their widths, never
 off the config; the out-projection is row-parallel. The caches are this
 rank's blocks by ``sharding.cache_pspec``: K/V of its kv heads, or whole
 under the replicated-KV rule (``tensor_parallel.local_kv`` then views the
-kv heads its query heads read), MLA's latents whole.
+kv heads its query heads read), MLA's latents whole. Where the query heads
+do not divide over the ranks (``tensor_parallel.head_slots``) a rank's
+weights hold its slots: it attends with its real heads and its padded
+slots' outputs are zero. ``gqa_decode`` also takes ``sp``
+(``tensor_parallel.SeqPar``): the caches are then this rank's block of the
+sequence, and the block's softmax partials are combined over the data
+group.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import tensor_parallel as TP
@@ -114,10 +121,9 @@ def gqa_full(p, x, cfg: ModelConfig, positions, *, return_kv: bool = False,
     k = linear(p["wk"], xkv).reshape(B, S, -1, hd)
     v = linear(p["wv"], xkv).reshape(B, S, -1, hd)
     q, k = gqa_rope(cfg, q, k, positions)
-    ka, va = _rank_kv(k, v, q.shape[2], kv_split, cfg, tp)
-    o = attn_core(q, ka, va, scale=1.0 / math.sqrt(hd),
-                  use_pallas=cfg.use_pallas).reshape(B, S, -1)
-    return _out(p, o, tp), ((k, v) if return_kv else None)
+    o = _attend(q, k, v, kv_split, cfg, tp, lambda qr, ka, va: attn_core(
+        qr, ka, va, scale=1.0 / math.sqrt(hd), use_pallas=cfg.use_pallas))
+    return _out(p, o.reshape(B, S, -1), tp), ((k, v) if return_kv else None)
 
 
 def _kv_split(p, cfg: ModelConfig, tp) -> bool:
@@ -127,13 +133,25 @@ def _kv_split(p, cfg: ModelConfig, tp) -> bool:
                                < cfg.num_kv_heads * cfg.head_dim)
 
 
-def _rank_kv(k, v, n_heads: int, kv_split: bool, cfg: ModelConfig, tp):
-    """The K/V (B, S, KV, hd) this rank's ``n_heads`` query heads read:
-    ``k``/``v`` themselves, or under the replicated-KV rule a view of the
-    kv heads they read (no copy: the kernels read through strides)."""
+def _attend(q, k, v, kv_split: bool, cfg: ModelConfig, tp, core):
+    """``core(q, k, v)`` over the K/V (B, S, KV, hd) this rank's query
+    heads read: ``k``/``v`` themselves, or under the replicated-KV rule a
+    view of the kv heads they read (no copy: the kernels read through
+    strides). Where the heads are padded to slots (``TP.head_slots``) only
+    the rank's real heads attend, and its padded slots' outputs are zeros
+    (a rank of padding alone runs no attention, ``TP.unread``)."""
     if tp is None or kv_split:
-        return k, v
-    return TP.local_kv(k, v, n_heads, cfg.num_heads // cfg.num_kv_heads, tp)
+        return core(q, k, v)
+    G = cfg.num_heads // cfg.num_kv_heads
+    slots = TP.head_slots(cfg, tp)
+    if slots is None:
+        return core(q, *TP.local_kv(k, v, q.shape[2], G, tp))
+    first, n = slots.real(tp.rank)
+    ka, va = TP.local_kv(k, v, n, G, tp, first=first)
+    if n == 0:
+        return TP.unread(q.new_zeros(q.shape[:3] + v.shape[-1:]), q, ka, va)
+    o = core(q[:, :, :n], ka, va)
+    return F.pad(o, (0, 0, 0, q.shape[2] - n))
 
 
 def _out(p, o, tp):
@@ -142,28 +160,67 @@ def _out(p, o, tp):
                                                                   tp)
 
 
+def attn_partial(q, k, v, valid_len, *, scale: float, use_pallas: bool):
+    """The softmax partial of single-token attention over a block of a
+    cache: q (B, 1, H, hd), k/v (B, S, KV, hd), ``valid_len`` an int32
+    device tensor -> (o (B, 1, H, hd) f32, lse (B, H) f32), by the decode
+    kernel (``return_lse``) or its plain version."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    if use_pallas:
+        return da_ops.decode_attention(q, k, v, valid_len, scale=scale,
+                                       return_lse=True)
+    o, lse = da_ref.decode_attention_partial_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), valid_len,
+        scale=scale)
+    return o.transpose(1, 2), lse
+
+
 def gqa_decode(p, x, cfg: ModelConfig, positions, k_cache, v_cache, index,
-               tp=None):
+               tp=None, sp=None):
     """Single-token decode. x (B,1,d); caches (B,Smax,KV,hd); index = #tokens
     already cached, a 0-dim int32 tensor on the device.
 
     The new row is written into ``k_cache``/``v_cache`` in place at ``index``
     (an ``index_copy_`` driven by the device tensor: no host sync). Returns
     (out, k_cache, v_cache). With ``tp`` the caches are this rank's blocks
-    (see the module docstring)."""
+    (see the module docstring). With ``sp`` (``tensor_parallel.SeqPar``)
+    they are this rank's block of the sequence, positions [r * Sb, (r + 1)
+    * Sb): the new row lands on the rank whose block holds ``index`` (every
+    other rank writes its old row back, all on the device), the rank
+    attends over its clamp(index + 1 - r * Sb, 0, Sb) valid rows and
+    ``TP.combine_partials`` joins the data group's partials."""
     B = x.shape[0]
     hd = cfg.head_dim
     q = linear(p["wq"], x).reshape(B, 1, -1, hd)
     k = linear(p["wk"], x).reshape(B, 1, -1, hd)
     v = linear(p["wv"], x).reshape(B, 1, -1, hd)
     q, k = gqa_rope(cfg, q, k, positions)
-    row = index.reshape(1).long()
-    k_cache.index_copy_(1, row, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, row, v.to(v_cache.dtype))
-    ka, va = _rank_kv(k_cache, v_cache, q.shape[2], _kv_split(p, cfg, tp),
-                      cfg, tp)
-    o = attn_core(q, ka, va, scale=1.0 / math.sqrt(hd), q_offset=index,
-                  kv_valid_len=index + 1, use_pallas=cfg.use_pallas)
+    k, v = k.to(k_cache.dtype), v.to(v_cache.dtype)
+    scale = 1.0 / math.sqrt(hd)
+    if sp is None:
+        row = index.reshape(1).long()
+
+        def core(qr, ka, va):
+            return attn_core(qr, ka, va, scale=scale, q_offset=index,
+                             kv_valid_len=index + 1,
+                             use_pallas=cfg.use_pallas)
+    else:
+        Sb = k_cache.shape[1]
+        local = index - sp.rank * Sb
+        row = local.clamp(0, Sb - 1).reshape(1).long()
+        mine = (local >= 0) & (local < Sb)
+        k = torch.where(mine, k, k_cache.index_select(1, row))
+        v = torch.where(mine, v, v_cache.index_select(1, row))
+        valid = (local + 1).clamp(0, Sb).to(torch.int32)
+
+        def core(qr, ka, va):
+            o, lse = attn_partial(qr, ka, va, valid, scale=scale,
+                                  use_pallas=cfg.use_pallas)
+            return TP.combine_partials(o, lse, sp).to(qr.dtype)
+    k_cache.index_copy_(1, row, k)
+    v_cache.index_copy_(1, row, v)
+    o = _attend(q, k_cache, v_cache, _kv_split(p, cfg, tp), cfg, tp, core)
     return _out(p, o.reshape(B, 1, -1), tp), k_cache, v_cache
 
 

@@ -48,6 +48,13 @@ prefill returns, and a decode step writes, this rank's block of the caches
 the logits are this rank's vocab columns where ``cfg.vocab_tp``
 (``tensor_parallel.gather_vocab`` makes them whole).
 
+Sequence-parallel serving (the ``sp`` of a prefill and of ``decode``,
+``tensor_parallel.SeqPar``): every rank runs the prefill of the whole
+prompt and keeps its block of each layer's K/V, positions [r * rows, (r +
+1) * rows) of the cache, zero past the prompt; a decode step attends over
+the block and combines the partials over the data group
+(``attention.gqa_decode``). A split prefill is not implemented.
+
 Modes: ``forward(..., mode='train')`` full logits; ``mode='prefill'`` last-token
 logits + filled caches; ``decode(...)`` single-token step against caches,
 which writes the caches in place.
@@ -175,7 +182,7 @@ def dense_block_full(p, x, cfg: ModelConfig, positions, *, return_kv: bool,
 
 
 def dense_block_decode(p, x, cfg: ModelConfig, positions, cache, index,
-                       tp=None):
+                       tp=None, sp=None):
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, cfg.use_pallas)
     if cfg.use_mla:
         h, c1, c2 = attn.mla_decode(p["attn"], h, cfg, positions,
@@ -183,7 +190,7 @@ def dense_block_decode(p, x, cfg: ModelConfig, positions, cache, index,
         new_cache = {"c_kv": c1, "k_rope": c2}
     else:
         h, ck, cv = attn.gqa_decode(p["attn"], h, cfg, positions,
-                                    cache["k"], cache["v"], index, tp)
+                                    cache["k"], cache["v"], index, tp, sp)
         new_cache = {"k": ck, "v": cv}
     x = x + h
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, cfg.use_pallas)
@@ -195,16 +202,18 @@ def dense_block_decode(p, x, cfg: ModelConfig, positions, cache, index,
 
 
 def _dense_stack_full(stacked, x, aux, cfg: ModelConfig, positions,
-                      prefill: bool, grad: bool, tp=None):
+                      prefill: bool, grad: bool, tp=None, sp=None):
     """The attention blocks of a stack in order: (x, aux plus the blocks'
-    MoE aux losses, their prefill caches stacked or None)."""
+    MoE aux losses, their prefill caches stacked or None; with ``sp`` each
+    layer's block of the sequence, ``_seq_block``)."""
     block = _remat(cfg, dense_block_full, grad)
     kvs = []
     for lp in _unbind(stacked):
         x, kv, a = block(lp, x, cfg, positions, return_kv=prefill, tp=tp)
         if a is not None:
             aux = aux + a
-        kvs.append(kv)
+        kvs.append(kv if kv is None or sp is None
+                   else tuple(_seq_block(t, sp) for t in kv))
     if not prefill:
         return x, aux, None
     return x, aux, _kv_dict(cfg, [torch.stack(t) for t in zip(*kvs)])
@@ -370,8 +379,19 @@ def vocab_group(cfg: ModelConfig, tp):
     return tp if cfg.vocab_tp else None
 
 
+def _seq_block(t: torch.Tensor, sp) -> torch.Tensor:
+    """This rank's block of positions of a layer's prefill K or V (B, S,
+    ...): rows [r * sp.rows, (r + 1) * sp.rows) of the cache, those past
+    the prompt zero. Cut as each layer makes it, so the whole prompt's K/V
+    of one layer at a time is on the rank."""
+    lo = min(sp.rank * sp.rows, t.shape[1])
+    part = t[:, lo:min(lo + sp.rows, t.shape[1])]
+    pad = [0, 0] * (t.ndim - 2) + [0, sp.rows - part.shape[1]]
+    return torch.nn.functional.pad(part, pad)
+
+
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            *, mode: str = "train", tp=None
+            *, mode: str = "train", tp=None, sp=None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, Any]]]:
     """Full-sequence forward.
 
@@ -385,7 +405,9 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     ``tp.split_rows`` (whose logits are then those of the group's rows).
     The logits are this rank's vocab columns where ``cfg.vocab_tp`` (else
     whole), and a prefill's caches this rank's blocks by
-    ``sharding.cache_pspec``.
+    ``sharding.cache_pspec``; with ``sp`` (``tensor_parallel.SeqPar``, a
+    prefill) its K/V are this rank's block of the cache's sequence, of
+    ``sp.rows`` positions.
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill', got {mode!r}")
@@ -410,6 +432,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                                         return_kv=prefill, tp=tp)
             if prefill:
                 ssm_caches.append(c)
+                if sp is not None:
+                    kv = tuple(_seq_block(t, sp) for t in kv)
                 ks.append(kv[0])
                 vs.append(kv[1])
         if tail:
@@ -424,9 +448,10 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         if _first_dense(cfg):
             x, aux_total, caches["dense_layers"] = _dense_stack_full(
                 params["dense_layers"], x, aux_total, cfg, positions, prefill,
-                grad, tp)
+                grad, tp, sp)
         x, aux_total, caches["layers"] = _dense_stack_full(
-            params["layers"], x, aux_total, cfg, positions, prefill, grad, tp)
+            params["layers"], x, aux_total, cfg, positions, prefill, grad, tp,
+            sp)
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, cfg.use_pallas)
     if prefill:
@@ -445,7 +470,7 @@ def _kv_dict(cfg, kvs):
 
 # ====================================================================== decode
 def decode(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-           cache: Dict[str, Any], tp=None
+           cache: Dict[str, Any], tp=None, sp=None
            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step. batch: tokens (B,1) or embeds (B,1,d) + positions.
 
@@ -454,7 +479,9 @@ def decode(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     shares those tensors and carries ``index + 1``. Nothing here waits on the
     device. With ``tp`` the parameters and caches are this rank's blocks and
     the logits its vocab columns, as in ``forward``; the collectives run in
-    one order on every rank, ``index`` staying on the device."""
+    one order on every rank, ``index`` staying on the device. With ``sp``
+    the attention caches are this rank's block of the sequence (see the
+    module docstring)."""
     index = cache["index"]
     positions = batch["positions"]
     vtp = vocab_group(cfg, tp)
@@ -474,7 +501,8 @@ def decode(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                                         _layer(cache["ssm_groups"], (g, i)),
                                         tp)
             x, _ = dense_block_decode(shared, x, cfg, positions,
-                                      _layer(cache["attn"], g), index, tp)
+                                      _layer(cache["attn"], g), index, tp,
+                                      sp)
         for i in range(tail):
             x, _ = ssm_block_decode(_layer(params["ssm_tail"], i), x, cfg,
                                     _layer(cache["ssm_tail"], i), tp)
@@ -484,6 +512,6 @@ def decode(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             for i in range(n):
                 x, _ = dense_block_decode(_layer(params[stack], i), x, cfg,
                                           positions, _layer(cache[stack], i),
-                                          index, tp)
+                                          index, tp, sp)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, cfg.use_pallas)
     return _logits(params, cfg, x, vtp), new_cache

@@ -206,7 +206,9 @@ def test_run_cell_per_family(family, shape, multi_pod):
     # model ranks
     heads = {"dense": {"num_heads": 16},
              "moe": {"num_heads": 16, "num_kv_heads": 16,
-                     "num_experts": 16}}.get(family, {})
+                     "num_experts": 16},
+             "hybrid": {"d_model": 128, "num_heads": 16,
+                        "num_kv_heads": 16}}.get(family, {})
     rec = D.run_cell(arch, shape, multi_pod, smoke(arch, **heads),
                      verbose=False)
     assert rec["status"] == "ok", rec.get("traceback")
@@ -268,9 +270,24 @@ def test_run_cell_per_family(family, shape, multi_pod):
         assert coll == {"all-reduce": n * rows * cfg.d_model * 2,
                         "count": n, "total": n * rows * cfg.d_model * 2}
     else:
-        # long_500k: the one-rank decode of the whole batch of 1, no
-        # collective (sequence-parallel decode, ROADMAP item 12h)
-        assert coll["total"] == 0 and "12h" in rec["program"]
+        # long_500k: the sequence-parallel decode of the batch of 1, a
+        # rank's block of the cache 524,288 / 16 positions long; beside the
+        # same step on 16 model ranks alone (the whole cache a rank), the
+        # data group's two all-reduces a shared-block call: the max of the
+        # partials' log-sum-exp (B x heads a rank, f32) and the sum of
+        # (w * o, w) (B x heads x head_dim + B x heads, f32)
+        cfg = get_config(arch, **smoke(arch, **heads))
+        assert rec["rows_per_rank"] == 1 and rec["program"] == "per rank"
+        assert rec["seq_parallel"] == {"data_ranks": 16,
+                                       "block_positions": 524288 // 16}
+        alone, _ = D.lower_cell(arch, shape, False, smoke(arch, **heads),
+                                mesh=abstract_mesh(data=1, model=16))
+        base = alone.run().collective_bytes()
+        calls = cfg.num_layers // cfg.attn_every
+        h = cfg.num_heads // 16
+        assert coll["all-reduce"] - base["all-reduce"] == calls * 4 * (
+            h + h * cfg.head_dim + h)
+        assert coll["count"] - base["count"] == 2 * calls
     assert "split" not in rec and "tensor_parallel" not in coll
 
 
@@ -296,10 +313,11 @@ def test_tp16_cell_matmul_flops_on_the_fake_group_equal_real_ranks():
 
 def test_run_cell_skips_what_the_port_cannot_split():
     """Cells whose tensor-parallel program the port lacks are skipped with
-    the reason: 28 heads over 16 model ranks (the train cell, and the
-    prefill and decode cells too), SSD heads that do not divide. The hybrid family's tp16 train cell runs (its heads, 16 SSD and
-    16 attention heads at this width, split over the 16 model ranks) with
-    the split gated norm's collectives."""
+    the reason: SSD heads that do not divide. The hybrid family's tp16
+    train cell runs (its heads, 16 SSD and 16 attention heads at this
+    width, split over the 16 model ranks) with the split gated norm's
+    collectives. 28 query heads over 16 model ranks run too (the train,
+    prefill and decode cells), in 32 padded slots, the record saying so."""
     over = smoke("zamba2-7b", d_model=128, num_heads=16, num_kv_heads=16)
     rec = D.run_cell("zamba2-7b", "train_4k", False, over, verbose=False)
     assert rec["status"] == "ok", rec.get("traceback")
@@ -311,7 +329,66 @@ def test_run_cell_skips_what_the_port_cannot_split():
     for shape in ("train_4k", "prefill_32k", "decode_32k"):
         rec = D.run_cell("qwen2-vl-7b", shape, False,
                          smoke("qwen2-vl-7b", num_heads=28), verbose=False)
-        assert rec["status"] == "skipped" and "28 query heads" in rec["why"]
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert rec["program"] == "per rank"
+        heads = rec["heads"]
+        assert (heads["heads"], heads["slots"], heads["slots_per_rank"],
+                heads["padding_only_ranks"]) == (28, 32, 2, 0)
+        assert heads["padding_matmul_flops"] > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _new_cells_on_real_ranks(shape):
+    """The cells of ``NEW_CELLS`` on ``shape`` run by 4 real gloo ranks,
+    one spawn: [(matmul FLOPs, collective bytes) per rank] by cell."""
+    from torch_ranks import dryrun_cells_on_ranks, run_ranks
+    cells = [(arch, smoke(arch, **extra), kind)
+             for arch, extra, kind, s in NEW_CELLS if s == shape]
+    B = 1 if shape == (2, 2) else 4
+    out = run_ranks(dryrun_cells_on_ranks, 4, cells, shape, B, 16,
+                    timeout=240)
+    return [[r[i] for r in out] for i in range(len(cells))]
+
+
+# the cells this slice adds, at smoke size: query heads padded to slots
+# (6 heads over 4 model ranks, train and decode) and the sequence-parallel
+# decode of one request (the hybrid's cache over 2 data ranks)
+NEW_CELLS = [
+    ("qwen2-vl-7b", {"num_heads": 6, "num_kv_heads": 2}, "train", (1, 4)),
+    ("musicgen-medium", {"num_heads": 6, "num_kv_heads": 6}, "decode",
+     (1, 4)),
+    ("zamba2-7b", {}, "decode", (2, 2))]
+
+
+@pytest.mark.parametrize("i", range(len(NEW_CELLS)),
+                         ids=[f"{a}-{k}-{s[0]}x{s[1]}"
+                              for a, _, k, s in NEW_CELLS])
+def test_new_cells_on_the_fake_group_equal_real_ranks(i):
+    """The padded heads' cells (4 requests of 16 tokens on (1, 4)) and the
+    sequence-parallel decode (1 request, a cache of 16 positions over 2
+    data ranks of a (2, 2) mesh): the per-rank program's matmul FLOPs and
+    collective bytes on rank 0 of the fake process group equal
+    ``opprof``'s count of the same program on rank 0 of 4 real gloo ranks,
+    and the collective bytes on every rank. Where the heads are padded the
+    ranks' attention FLOPs differ with their real heads, rank 0's the
+    most."""
+    arch, extra, kind, shape = NEW_CELLS[i]
+    over = smoke(arch, **extra)
+    B = 1 if shape == (2, 2) else 4
+    c, _ = D.lower_cell(arch, None, False, over,
+                        shape=ShapeConfig(f"{kind}_{B}x16", 16, B, kind),
+                        mesh=abstract_mesh(data=shape[0], model=shape[1]))
+    assert c.per_rank
+    fake = c.run()
+    assert fake.collective_bytes()["all-reduce"] > 0
+    j = [k for k, cell in enumerate(c for c in NEW_CELLS if c[3] == shape)
+         if cell == NEW_CELLS[i]][0]
+    ranks = _new_cells_on_real_ranks(shape)[j]
+    assert ranks[0][0] == fake.matmul_flops
+    for flops, real in ranks:
+        assert flops <= fake.matmul_flops
+        assert real == fake.collective_bytes()
+    assert (len({flops for flops, _ in ranks}) > 1) == (shape == (1, 4))
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m"])

@@ -791,6 +791,101 @@ def test_tensor_parallel_step_on_ranks_sharing_the_card(cuda, arch, world):
     assert g_gap < 1e-4 and p_gap < 1e-4
 
 
+# ------------------------------------------- the softmax partial (lse mode)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("valid", [0, 1, 300, 512])
+def test_decode_kernel_lse_mode_vs_plain(cuda, valid, G, hd, dtype):
+    """``decode_attention(..., return_lse=True)`` on a 512-row block: o (f32
+    whatever the inputs' dtype) within TOL of the plain partial, the
+    log-sum-exp within 2e-5 (f32) or 1e-3 (bf16; an f32 sum in both, of
+    bf16 products summed in another order), -inf and o zero where no row
+    is valid."""
+    rng = np.random.default_rng(valid + G + hd)
+    dt = DTYPES[dtype]
+    B, S, KV = 2, 512, 2
+    q = _randn(rng, (B, 1, KV * G, hd), dt, cuda)
+    k, v = (_randn(rng, (B, S, KV, hd), dt, cuda) for _ in range(2))
+    vl = torch.tensor([valid], dtype=torch.int32, device=cuda)
+    o, lse = da_ops.decode_attention(q, k, v, vl, scale=hd ** -0.5,
+                                     return_lse=True)
+    po, pl = da_ref.decode_attention_partial_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), vl,
+        scale=hd ** -0.5)
+    assert o.dtype == torch.float32 and lse.shape == (B, KV * G)
+    assert (o.transpose(1, 2) - po).abs().max().item() < TOL[dtype]
+    if valid == 0:
+        assert torch.isneginf(lse).all() and (o == 0).all()
+    else:
+        lse_tol = 2e-5 if dtype == "float32" else 1e-3
+        assert (lse - pl).abs().max().item() < lse_tol
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n,valid", [(2, 700), (4, 1), (4, 1024)])
+def test_decode_kernel_blocks_combine_to_the_whole_cache(cuda, n, valid,
+                                                         dtype):
+    """The lse mode on n blocks of a cache (zamba2-7b's 112-wide heads),
+    combined (``ref.combine_partials_ref``), equals the kernel over the
+    whole cache within TOL; blocks past ``valid`` weigh nothing."""
+    rng = np.random.default_rng(n + valid)
+    dt = DTYPES[dtype]
+    B, S, H, hd = 1, 1024, 8, 112
+    q = _randn(rng, (B, 1, H, hd), dt, cuda)
+    k, v = (_randn(rng, (B, S, H, hd), dt, cuda) for _ in range(2))
+    whole = da_ops.decode_attention(
+        q, k, v, torch.tensor([valid], dtype=torch.int32, device=cuda),
+        scale=hd ** -0.5)
+    Sb, os_, lses = S // n, [], []
+    for r in range(n):
+        vl = torch.tensor([min(max(valid - r * Sb, 0), Sb)],
+                          dtype=torch.int32, device=cuda)
+        o, lse = da_ops.decode_attention(
+            q, k[:, r * Sb:(r + 1) * Sb], v[:, r * Sb:(r + 1) * Sb], vl,
+            scale=hd ** -0.5, return_lse=True)
+        os_.append(o[:, 0])
+        lses.append(lse)
+    got = da_ref.combine_partials_ref(torch.stack(os_), torch.stack(lses))
+    assert (got - whole[:, 0].float()).abs().max().item() < TOL[dtype]
+
+
+def test_decode_kernel_lse_mode_refusals(cuda):
+    """The lse mode takes what the kernel takes: it refuses a head width
+    the bf16 kernel was not built for, and gradients."""
+    q = torch.randn((1, 1, 4, 48), device=cuda, dtype=torch.bfloat16)
+    k = torch.randn((1, 64, 4, 48), device=cuda, dtype=torch.bfloat16)
+    vl = torch.tensor([8], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        da_ops.decode_attention(q, k, k, vl, scale=0.1, return_lse=True)
+    qf = torch.randn((1, 1, 4, 64), device=cuda, requires_grad=True)
+    kf = torch.randn((1, 64, 4, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        da_ops.decode_attention(qf, kf, kf, vl, scale=0.1, return_lse=True)
+    with pytest.raises(TypeError, match="valid_len"):
+        da_ops.decode_attention(qf.detach(), kf, kf, 8, scale=0.1,
+                                return_lse=True)
+
+
+def test_sequence_parallel_decode_on_ranks_sharing_the_card(cuda):
+    """zamba2-7b's smoke config (f32), one request on a (2, 1) mesh of
+    gloo ranks sharing the card, the cache's 16 positions over ``data``
+    (blocks of 8; a prompt of 7, 8 new tokens across the boundary): every
+    rank's tokens equal the one-rank kernel path's, the teacher-forced
+    logits within 1e-5 of each step's largest, every rank's decode
+    launches those of one rank's ``generate``."""
+    from repro_torch.distributed.serve_step import kernel_launches
+    from torch_ranks import run_ranks, seq_decode_on_card
+    cfg = get_smoke_config("zamba2-7b", dtype="float32")
+    out = run_ranks(seq_decode_on_card, 2, 7, 8, 16, timeout=300)
+    want_tokens, want_logits = out[0][2]
+    for tokens, launches, _, logits in out:
+        np.testing.assert_array_equal(tokens, want_tokens)
+        assert launches == kernel_launches(cfg, 8, tp=1)
+        err = np.abs(logits - want_logits).max(axis=(1, 2))
+        assert (err <= 1e-5 * np.abs(want_logits).max(axis=(1, 2))).all()
+
+
 # ------------------------------------------------ a second card, one process
 @pytest.fixture
 def two_cards():

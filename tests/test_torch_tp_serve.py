@@ -293,12 +293,16 @@ def test_gather_vocab_then_sample_equals_sample_of_the_whole(temperature,
 
 
 def test_unsupported_config_raises_with_the_reason():
-    """A config the port cannot split is never served whole: 6 query heads
-    over 4 model ranks raise with ``unsupported``'s reason."""
+    """A config the port cannot split is never served whole: the hybrid's
+    8 SSD heads over 16 model ranks raise with ``unsupported``'s reason
+    (6 query heads over 4 model ranks, refused before query heads were
+    padded to slots, are served: tests/test_torch_tp_heads.py)."""
     from repro_torch.distributed import tensor_parallel as TPm
-    cfg = get_smoke_config("stablelm-3b", num_heads=6, num_kv_heads=6)
-    with pytest.raises(NotImplementedError, match="6 query heads"):
-        TPm.serve_layout(cfg, abstract_mesh(data=1, model=4), 4)
+    cfg = get_smoke_config("zamba2-7b")
+    with pytest.raises(NotImplementedError, match="8 SSD heads"):
+        TPm.serve_layout(cfg, abstract_mesh(data=1, model=16), 4)
+    six = get_smoke_config("stablelm-3b", num_heads=6, num_kv_heads=6)
+    assert TPm.unsupported(six, abstract_mesh(data=1, model=4)) is None
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "zamba2-7b",

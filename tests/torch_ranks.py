@@ -291,15 +291,20 @@ def vocab_ops_on_ranks(rank, world, table, tokens, logits, labels):
 
 
 def tp_step_on_ranks(rank, world, arch, mesh_shape, params, batch, opt,
-                     compress=False):
+                     compress=False, overrides=None, more_steps=0):
     """One tensor-parallel ``make_train_step`` of the f32 smoke config of
-    ``arch`` on a (data, model) mesh of ``mesh_shape``, from the whole
-    weights ``params`` (numpy), with each kernel launch played by its plain
-    version. Returns numpy and plain values: the metrics; the gradients and
-    updated parameters and moments gathered whole; this rank's gradients
-    of the leaves whole on every rank; each moment's local shape beside
-    the shape of its ``local_slices(zero1_spec)`` block; the launches (and
-    the split-row RMSNorm's among them, ``fused_rmsnorm split``)."""
+    ``arch`` (``overrides`` on it) on a (data, model) mesh of
+    ``mesh_shape``, from the whole weights ``params`` (numpy), with each
+    kernel launch played by its plain version. Returns numpy and plain
+    values: the metrics; the gradients and updated parameters and moments
+    gathered whole; this rank's gradients of the leaves whole on every
+    rank; each moment's local shape beside the shape of its
+    ``local_slices(zero1_spec)`` block of the (head-padded) leaf; the
+    launches (and the split-row RMSNorm's among them, ``fused_rmsnorm
+    split``); this rank's coordinate. Where the heads are padded to slots,
+    ``padding``: after ``more_steps`` more steps, the largest |value| of
+    this rank's parameter and moment entries in padding slots, and how
+    many there are."""
     import torch
     from repro_torch import bridge
     from repro_torch import tree as T
@@ -309,7 +314,7 @@ def tp_step_on_ranks(rank, world, arch, mesh_shape, params, batch, opt,
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import adamw
     mods = play_launches()
-    cfg = get_smoke_config(arch, dtype="float32")
+    cfg = get_smoke_config(arch, dtype="float32", **(overrides or {}))
     mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device="cpu")
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     B = tb["tokens"].shape[0]
@@ -331,19 +336,46 @@ def tp_step_on_ranks(rank, world, arch, mesh_shape, params, batch, opt,
         return {p: t.numpy().copy() for p, t in T.flatten(tree)}
     shapes = {}
     for path, m in T.flatten(state.mu):
-        full = layout.shapes[path]
+        full = layout.padded_shapes[path]
         want = SH.local_slices(layout.moment_specs[path], full, mesh)
         shapes[path] = (tuple(m.shape),
                         tuple(s.stop - s.start for s in want))
-    return {"coord": mesh.coordinate(),
-            "metrics": {k: float(v) for k, v in metrics.items()},
-            "grads": numpy(layout.gather_params(grads)),
-            "params": numpy(layout.gather_params(new)),
-            "mu": numpy(layout.gather_moments(state.mu)),
-            "nu": numpy(layout.gather_moments(state.nu)),
-            "whole_grads": {p: g.numpy().copy() for p, g in T.flatten(grads)
-                            if not layout.split_over_model(p)},
-            "moment_shapes": shapes, "launches": launches}
+    out = {"coord": mesh.coordinate(),
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": numpy(layout.gather_params(grads)),
+           "params": numpy(layout.gather_params(new)),
+           "mu": numpy(layout.gather_moments(state.mu)),
+           "nu": numpy(layout.gather_moments(state.nu)),
+           "whole_grads": {p: g.numpy().copy() for p, g in T.flatten(grads)
+                           if not layout.split_over_model(p)},
+           "moment_shapes": shapes, "launches": launches}
+    if layout.heads is not None:          # the steps update ``new`` in place
+        out["padding"] = _padding_after(layout, new, state, tb, step,
+                                        more_steps)
+    return out
+
+
+def _padding_after(layout, params, state, batch, step, steps):
+    """(the largest |value| of this rank's parameter and moment entries in
+    padding head slots after ``steps`` more steps, their number)."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.distributed import tensor_parallel as TPm
+    for _ in range(steps):
+        params, state, _ = step(params, state, batch)
+    worst, n = 0.0, 0
+    for (path, p), m, v in zip(T.flatten(params), T.leaves(state.mu),
+                               T.leaves(state.nu)):
+        if TPm.head_dim_of(path) is None:
+            continue
+        pad = layout.block(path, torch.ones(layout.shapes[path])) == 0
+        blk = layout.moment_block(path)
+        mpad = pad if blk is None else pad[blk[1]]
+        for t, mask in ((p, pad), (m, mpad), (v, mpad)):
+            if mask.any():
+                worst = max(worst, float(t[mask].abs().amax()))
+            n += int(mask.sum())
+    return worst, n
 
 
 def tp_train_on_ranks(rank, world, arch, mesh_shape, params, runs):
@@ -524,7 +556,9 @@ def tp_serve_on_ranks(rank, world, mesh_shape, cases):
     rank's cache blocks after the prefill and after the last step; the
     logits of ``launch.serve.teacher_forced`` on ``forced`` (the whole
     batch's); the tokens of ``generate`` at temperature 0.7 from a
-    generator seeded 5."""
+    generator seeded 5. A case may end in a dict of ``overrides`` on the
+    config and ``max_len``, the caches' capacity (default prompt + new: a
+    sequence-parallel decode's blocks are of max_len / data)."""
     import torch
     from repro_torch import bridge
     from repro_torch import tree as T
@@ -538,16 +572,21 @@ def tp_serve_on_ranks(rank, world, mesh_shape, cases):
     mods["decode_attention"] = _count_decode_attention()
     mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device="cpu")
     out = []
-    for arch, params, prompts, forced, new in cases:
-        cfg = get_smoke_config(arch, dtype="float32")
+    for arch, params, prompts, forced, new, *extra in cases:
+        extra = extra[0] if extra else {}
+        cfg = get_smoke_config(arch, dtype="float32",
+                               **extra.get("overrides", {}))
         B, S = prompts.shape
+        max_len = extra.get("max_len") or S + new
         layout = TPm.serve_layout(cfg, mesh, B)
+        sp = layout.seq_par(max_len)
         local = layout.shard_params(bridge.to_torch(params, device="cpu"))
         for mod in mods.values():
             mod.launches = 0
         mods["fused_rmsnorm"].split_launches = 0
         tokens = serve.generate(local, cfg, torch.from_numpy(prompts),
-                                max_new_tokens=new, mesh=mesh)
+                                max_new_tokens=new, mesh=mesh,
+                                max_len=max_len)
         launches = {name: mod.launches for name, mod in mods.items()}
         launches["fused_rmsnorm_split"] = mods["fused_rmsnorm"].split_launches
 
@@ -555,14 +594,14 @@ def tp_serve_on_ranks(rank, world, mesh_shape, cases):
         vtp = M.vocab_group(cfg, tp)
         rows = layout.my_rows(torch.from_numpy(forced))
         b = rows.shape[0]
-        prefill = ss.make_prefill_step(cfg, tp)
-        decode = ss.make_decode_step(cfg, tp)
+        prefill = ss.make_prefill_step(cfg, tp, sp)
+        decode = ss.make_decode_step(cfg, tp, sp)
         lg, cache = prefill(local, {
             "tokens": rows[:, :S].contiguous(),
             "positions": serve._positions(cfg, b, S, device="cpu")})
         steps = [TPm.gather_vocab(lg, vtp)[:, 0]]
         after_prefill = {p: t.numpy().copy() for p, t in T.flatten(cache)}
-        cache = ss.pad_cache(cache, cfg, S + new)
+        cache = ss.pad_cache(cache, cfg, max_len if sp is None else sp.rows)
         for t in range(new - 1):
             lg, cache = decode(local, {
                 "tokens": rows[:, S + t:S + t + 1].contiguous(),
@@ -570,15 +609,17 @@ def tp_serve_on_ranks(rank, world, mesh_shape, cases):
                                               device="cpu")}, cache)
             steps.append(TPm.gather_vocab(lg, vtp)[:, 0])
         helper = serve.teacher_forced(local, cfg, torch.from_numpy(forced),
-                                      S, layout=layout, warm=False)[2]
+                                      S, layout=layout, warm=False,
+                                      max_len=max_len)[2]
         sampled = serve.generate(local, cfg, torch.from_numpy(prompts),
                                  max_new_tokens=new, temperature=0.7,
                                  generator=torch.Generator().manual_seed(5),
-                                 mesh=mesh)
+                                 mesh=mesh, max_len=max_len)
         out.append({"tokens": tokens.numpy(), "launches": launches,
                     "helper_logits": helper.numpy(),
                     "sampled": sampled.numpy(),
                     "split_rows": bool(tp is not None and tp.split_rows),
+                    "seq_rows": sp.rows if sp is not None else None,
                     "row0": mesh.axes_index(layout.batch_axes) * b,
                     "logits": torch.stack(steps).numpy(),
                     "prefill_cache": after_prefill,
@@ -607,3 +648,64 @@ def gather_vocab_on_ranks(rank, world, logits, temperature, split_rows):
     full = TPm.gather_vocab(mine, tp)
     gen = torch.Generator().manual_seed(0)
     return ss.sample(full, gen, temperature, logits.shape[-1] - 3).numpy()
+
+
+def combine_on_ranks(rank, world, o, lse):
+    """``tensor_parallel.combine_partials`` of this rank's partial (o[rank]
+    (B, 1, H, hd), lse[rank] (B, H)) over a (world, 1) mesh's data group."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as TPm
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((world, 1), ("data", "model"), device="cpu")
+    sp = TPm.SeqPar(mesh.group(("data",)), world,
+                    mesh.coordinate()["data"], 0)
+    return TPm.combine_partials(torch.from_numpy(o[rank]),
+                                torch.from_numpy(lse[rank]), sp).numpy()
+
+
+def seq_decode_on_card(rank, world, prompt_len, new, capacity):
+    """One request of zamba2-7b's f32 smoke config served sequence-parallel
+    on a (world, 1) mesh of ranks that share CUDA card 0 over gloo, the
+    kernels launched on the card; rank 0 also runs the one-rank kernel path.
+    Returns (tokens, this rank's launches, rank 0's one-rank (tokens,
+    teacher-forced logits), this rank's teacher-forced logits)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import tensor_parallel as TPm
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    mods = {name: __import__(f"repro_torch.kernels.{name}.ops",
+                             fromlist=["ops"])
+            for name in ("flash_attention", "decode_attention",
+                         "fused_rmsnorm", "ssd")}
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_smoke_config("zamba2-7b", dtype="float32")
+    mesh = make_mesh((world, 1), ("data", "model"), device=dev)
+    layout = TPm.serve_layout(cfg, mesh, 1)
+    whole = M.init_params(cfg, seed=0, device=dev)
+    local = layout.shard_params(whole)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                            generator=gen, device=dev, dtype=torch.int32)
+    ref = None
+    if not rank:
+        tok = serve.generate(whole, cfg, prompts, max_new_tokens=new,
+                             max_len=capacity)
+        lg = serve.teacher_forced(whole, cfg, tok, prompt_len, warm=False,
+                                  max_len=capacity)[2]
+        ref = (tok.cpu().numpy(), lg.cpu().numpy())
+    for mod in mods.values():
+        mod.launches = 0
+    mods["fused_rmsnorm"].split_launches = 0
+    tokens = serve.generate(local, cfg, prompts, max_new_tokens=new,
+                            mesh=mesh, max_len=capacity)
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    launches["fused_rmsnorm_split"] = mods["fused_rmsnorm"].split_launches
+    logits = serve.teacher_forced(local, cfg, tokens, prompt_len,
+                                  layout=layout, warm=False,
+                                  max_len=capacity)[2]
+    return tokens.cpu().numpy(), launches, ref, logits.cpu().numpy()
