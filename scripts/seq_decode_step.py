@@ -50,10 +50,13 @@ from repro_torch.models import model as M  # noqa: E402
 
 SEED, CHUNK, STEPS = 0, 4096, 5
 # the two layouts each differ from one rank's by at most the bf16 limits
-# chip_smoke.py holds them to: the tensor-parallel serving of zamba2-7b
-# (TPS_BF16_TOL) and the sequence-parallel decode (SEQ_BF16_TOL)
+# chip_smoke.py set for them: the tensor-parallel serving of zamba2-7b at
+# full size (TP_SERVE_FULL_TOL, which chip_smoke.py held phase 13 (b) to
+# before that phase's depth was cut) and the sequence-parallel decode
+# (SEQ_BF16_TOL)
 import chip_smoke as C  # noqa: E402
-LIMIT = C.TPS_BF16_TOL["zamba2-7b"] + C.SEQ_BF16_TOL
+TP_SERVE_FULL_TOL = 0.2
+LIMIT = TP_SERVE_FULL_TOL + C.SEQ_BF16_TOL
 
 
 def _gen(dev, *key):

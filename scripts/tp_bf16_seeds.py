@@ -1,9 +1,10 @@
 """Read the bf16 tensor-parallel gaps of ``chip_smoke.py``'s phases 12 (b)
 and 13 (b) on other draws of the weights, without holding them to their
-limits: for each seed, phase 12 (b)'s relative loss gaps (stablelm-3b at
-full depth and zamba2-7b at 13 layers, 3 training steps on 2 ranks against
+limits: for each seed, phase 12 (b)'s relative loss gaps (stablelm-3b and
+zamba2-7b at ``TP_BF16``'s depths, 3 training steps on 2 ranks against
 a one-rank run of the same weights) and phase 13 (b)'s logit gaps
-(chatglm3-6b and zamba2-7b at full size, 8 x 1,024 + 32 on 2 ranks,
+(chatglm3-6b and zamba2-7b at full width and ``TPS_BF16_DEPTH``'s
+layers, 8 x 1,024 + 32 on 2 ranks,
 teacher-forced on a one-rank run's tokens, max|diff|/max|logit| of the
 worst step). The prompts and the training batch stay those of the script's
 seed; only the weights change. Then phase 13's decode-shape reading of the
@@ -54,7 +55,7 @@ def main():
                                         "timed_by")}}
     for seed in seeds:
         t0 = time.perf_counter()
-        _, train = C.tp_bf16_on_card(torch, card, None, seed, hold=False)
+        _, train = C.tp_bf16_on_card(torch, card, seed, hold=False)
         _, serve = C.tps_bf16_on_card(torch, card, seed, hold=False)
         out["seeds"][seed] = {"train_loss_gaps": train,
                               "serve_logit_gap": serve}

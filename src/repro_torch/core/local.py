@@ -11,7 +11,10 @@ simulator — routing policies, retries, speculation, and profiling included:
     partition (callables declaring a ``mesh`` kwarg receive their
     partition's submesh). With ``mesh=make_local_mesh()`` (the cards of
     this process) and ``n_partitions=N``, min(N, cards) partitions run at
-    once, each task on its own partition's card.
+    once, each task on its own partition's card. A partition of several
+    cards (``make_local_mesh(mp)``, or fewer partitions than cards) runs
+    its task on a group of ranks spawned over its cards
+    (``launch/ranks.py``), which the task's walltime, if it has one, kills.
 
 Prefer the Session API (``repro_torch.runtime``) in new code.
 """

@@ -728,17 +728,22 @@ def unsupported(cfg, mesh) -> Optional[str]:
 def local_device(mesh):
     """The device of a one-device local mesh (``make_local_mesh``, a Flux
     partition of one card), where a step runs as on one rank; None for any
-    other mesh. A local mesh of several devices raises NotImplementedError:
-    a step over them runs data- or tensor-parallel in one process, which
-    the port does not have (its parallelism runs over ranks; ROADMAP item
-    8d)."""
+    other mesh. A local mesh of several devices raises NotImplementedError
+    when a step is made over it in the calling process: the port's data and
+    tensor parallelism run over ranks, so such a step runs in a group of
+    ranks spawned over the mesh's devices, each with a mesh over the group
+    (``launch/ranks.run_on_mesh``, which the flux executor calls for a task
+    on such a partition)."""
     if mesh is None or getattr(mesh, "devices", None) is None:
         return None
     if mesh.size > 1:
         raise NotImplementedError(
-            f"a step over the {mesh.size} local devices of {mesh!r} in one "
-            f"process (ROADMAP item 8d): carve one device a partition, or "
-            f"run a mesh over ranks (make_host_mesh under a launcher)")
+            f"a step over the {mesh.size} local devices of {mesh!r} runs in "
+            f"a group of ranks, one a device: call it through "
+            f"launch.ranks.run_on_mesh(mesh, fn, ...), or submit it as a "
+            f"flux task on the partition (the flux executor spawns the "
+            f"group), or run a mesh over ranks (make_host_mesh under a "
+            f"launcher)")
     return mesh.device
 
 

@@ -198,7 +198,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig, *,
     A one-device local mesh (a Flux partition of one card,
     ``make_local_mesh``) is one rank: no collective runs, and the batch
     must lie on its device. A local mesh of several devices raises
-    NotImplementedError (ROADMAP item 8d)."""
+    NotImplementedError: a step over it runs on a group of ranks spawned
+    over its devices (``launch/ranks.run_on_mesh``, the flux executor's
+    route for such a partition), each rank's step made over the group's
+    mesh."""
     if grad_compression not in (None, "int8"):
         raise ValueError(f"unknown grad_compression {grad_compression!r}")
     layout = TP.train_layout(cfg, mesh)

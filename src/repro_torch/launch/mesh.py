@@ -14,9 +14,11 @@ this rank's coordinate, and the process group of a set of axes. Four kinds:
   * local: the devices of this process (``make_local_mesh``), in an array
     of the mesh's shape, ``devices``, as ``jax.sharding.Mesh.devices``. It
     is what Flux partitions are carved from: each partition a range of
-    cards, each co-scheduled task placed on its card
-    (``Mesh.placement``). It has no process groups: a step over several
-    of its devices is ROADMAP item 8d;
+    cards. A task on a partition of one card runs in its worker thread,
+    placed on its card (``Mesh.placement``); a step over several of its
+    devices runs in a group of ranks spawned over them, one a device
+    (``launch/ranks.run_on_mesh``), each with a mesh over the group's
+    ranks. A local mesh has no process groups of its own;
   * abstract: axis names and sizes with no ranks, for computing the specs of
     the production meshes (``abstract_mesh``, as JAX's ``AbstractMesh``;
     ``make_production_mesh``).
@@ -27,7 +29,10 @@ process without a launcher is the (1, 1) mesh that ``train()``,
 ``generate(mesh=)`` and the CLIs take), ``make_local_mesh`` the cards.
 
 The backend is the caller's: NCCL for a mesh on the card, gloo on the CPU.
-Nothing switches between them on its own.
+Nothing switches between them on its own. A rank group over a local mesh
+takes ``mesh_backend``'s: NCCL where the mesh's devices are distinct cards,
+gloo where they are CPU devices or where a card repeats (ranks sharing one
+card, which NCCL refuses).
 """
 from __future__ import annotations
 
@@ -205,7 +210,9 @@ def make_local_mesh(model_parallel: int = 1, *, device="cuda",
     """A (n / mp, mp) mesh of axes ("data", "model") over the local devices
     of this process, in order: the ``torch.cuda.device_count()`` cards (for
     ``device="cuda"``), or ``devices`` where given (the CPU tests pass a
-    list of CPU devices). Raises where mp does not divide n."""
+    list of CPU devices). A card may be listed more than once: a partition
+    of it then runs its ranks on one card, over gloo (``mesh_backend``).
+    Raises where mp does not divide n."""
     if devices is None:
         dev = resolve_device(device)
         if dev.type != "cuda":
@@ -226,6 +233,21 @@ def make_local_mesh(model_parallel: int = 1, *, device="cuda",
     shape = (n // model_parallel, model_parallel)
     return Mesh(dict(zip(("data", "model"), shape)),
                 devices=arr.reshape(shape))
+
+
+def mesh_backend(mesh) -> str:
+    """The process group backend of a rank group over the local ``mesh``:
+    "nccl" where its devices are distinct cards, "gloo" where they are CPU
+    devices or where a card repeats. Raises for a mesh of both."""
+    devices = list(mesh.devices.flat)
+    kinds = {d.type for d in devices}
+    if kinds == {"cpu"}:
+        return "gloo"
+    if kinds != {"cuda"}:
+        raise ValueError(f"a rank group spans CPU devices or cards, not "
+                         f"{sorted(map(str, devices))}")
+    return "nccl" if len({d.index for d in devices}) == len(devices) \
+        else "gloo"
 
 
 def make_host_mesh(model_parallel: int = 1, *, device="cuda") -> Mesh:

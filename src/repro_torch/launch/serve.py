@@ -73,8 +73,10 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *,
     whole batch (gathered over its axes) and keeps its rows, so no two
     requests share their noise. A one-device local mesh (a Flux partition
     of one card, ``make_local_mesh``) serves as one rank, the prompts on
-    its device; a local mesh of several devices raises NotImplementedError
-    (ROADMAP item 8d)."""
+    its device; a local mesh of several devices raises NotImplementedError:
+    ``generate`` over it runs on a group of ranks spawned over its devices
+    (``launch/ranks.run_on_mesh``, the flux executor's route for such a
+    partition), each with the group's mesh."""
     B, S = prompts.shape
     dev = resolve_device(prompts.device)
     layout = TP.serve_layout(cfg, mesh, B)

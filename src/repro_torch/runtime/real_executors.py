@@ -13,7 +13,11 @@ Backends mirror the simulation split:
     Task callables that declare a ``mesh`` keyword receive their partition's
     submesh, and every task runs inside its partition's placement
     (``Mesh.placement``): on a mesh over the local cards its card is the
-    current device of the thread, as JAX places a step on its submesh.
+    current device of the thread, as JAX places a step on its submesh. A
+    partition of several local devices runs its task on a group of ranks
+    spawned over them (``launch/ranks.RankGroup``), each calling the task
+    with ``mesh=`` a mesh over the group, as JAX runs a step over its
+    submesh's devices; the task's result is rank 0's.
   * ``popen``    — external executables launched as subprocesses
     (``TaskDescription.executable`` + ``arguments``); stdout becomes
     ``task.result``.
@@ -413,7 +417,8 @@ class RealFunctionExecutor(RealExecutorBase):
 class RealPartitionExecutor(RealExecutorBase):
     """Flux-style co-scheduling executor: one task owns a partition (a
     device mesh) at a time; partitions run concurrently, each task inside
-    its partition mesh's placement."""
+    its partition mesh's placement, or, on a partition of several local
+    devices, on a group of ranks spawned over them (``_run_on_ranks``)."""
 
     kind = "flux"
     accepts_static = True
@@ -427,6 +432,10 @@ class RealPartitionExecutor(RealExecutorBase):
         self._part_q: "queue.Queue" = queue.Queue()
         for p in self.partitions:
             self._part_q.put(p)
+        self._groups: Dict[str, object] = {}     # uid -> its live RankGroup
+        # uid -> the last rank group's summary (backend, spawn_s, wall_s,
+        # pids, each rank's report: device, launches, peak memory)
+        self.rank_groups: Dict[str, dict] = {}
 
     def accepts(self, task: Task) -> bool:
         return task.description.fn is not None
@@ -436,6 +445,9 @@ class RealPartitionExecutor(RealExecutorBase):
         try:
             d = task.description
             task.partition = getattr(part, "index", None)
+            if (part is not None and part.mesh.devices is not None
+                    and part.mesh.size > 1):
+                return self._run_on_ranks(task, part)
             kwargs = dict(d.kwargs)
             if part is not None and _accepts_kw(d.fn, "mesh"):
                 kwargs["mesh"] = part.mesh
@@ -447,7 +459,57 @@ class RealPartitionExecutor(RealExecutorBase):
             with part.mesh.placement():
                 return d.fn(*d.args, **kwargs)
         finally:
+            # a rank group has ended every rank by now: the next task
+            # never shares the partition's cards with a dying group
             self._part_q.put(part)
+
+    def _run_on_ranks(self, task: Task, part):
+        """The task on a group of ranks over the partition's devices: each
+        rank calls it with ``mesh=`` the group's mesh and the checkpoint
+        keywords (a picklable manager of ``checkpoint_dir``, the same
+        ``resume_from`` on every rank); returns rank 0's value. A callable
+        or argument that does not pickle, a rank's error or death, the
+        walltime, ``fail_task`` and ``cancel`` fail the task; it never runs
+        in this thread, on fewer devices or on another backend instead."""
+        from repro_torch.launch.ranks import RankGroup
+        d = task.description
+        kwargs = self._resume_kwargs(task, dict(d.kwargs))
+        group = RankGroup(part.mesh, d.fn, d.args, kwargs)
+        eng = self.engine
+        with eng.lock:
+            if task.done:                 # failed or canceled meanwhile
+                return None
+            self._groups[task.uid] = group
+        try:
+            return group.run()        # the walltime kills it (fail_task)
+        finally:
+            with eng.lock:
+                self._groups.pop(task.uid, None)
+                self.rank_groups[task.uid] = group.summary()
+
+    def _kill_group(self, task: Task, reason: str):
+        with self.engine.lock:
+            group = self._groups.get(task.uid)
+        if group is not None:
+            group.kill(reason)
+
+    def fail_task(self, task: Task, reason: str = "executor kill") -> bool:
+        """As the base's, and the task's rank group, if it has one, is
+        killed (its partition frees once every rank has exited)."""
+        failed = super().fail_task(task, reason)
+        self._kill_group(task, reason)
+        return failed
+
+    def cancel(self, task: Task):
+        super().cancel(task)
+        self._kill_group(task, "canceled")
+
+    def shutdown(self):
+        with self.engine.lock:
+            groups = list(self._groups.values())
+        for group in groups:
+            group.kill("session closed")
+        super().shutdown()
 
 
 class SubprocessExecutor(RealExecutorBase):

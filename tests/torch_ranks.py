@@ -709,3 +709,99 @@ def seq_decode_on_card(rank, world, prompt_len, new, capacity):
                                   layout=layout, warm=False,
                                   max_len=capacity)[2]
     return tokens.cpu().numpy(), launches, ref, logits.cpu().numpy()
+
+
+# ------------------------------------------- flux tasks on rank groups
+# Callables of flux tasks on partitions of several CPU devices: the flux
+# executor spawns a rank group over the partition and each rank calls the
+# task with ``mesh=`` the group's mesh (``repro_torch.launch.ranks``).
+def flux_train_step(arch, params, batch, opt, mesh=None):
+    """One ``make_train_step`` of the f32 smoke config of ``arch`` over the
+    rank mesh from the whole numpy ``params``, on the global numpy
+    ``batch``: the loss (a tensor), the updated leaves gathered whole
+    (tensors), this rank's coordinate and the launches played."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch import tree as T
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import train_step as TS
+    from repro_torch.optim import adamw
+    mods = play_launches()
+    cfg = get_smoke_config(arch, dtype="float32")
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    step = TS.make_train_step(cfg, adamw.OptimizerConfig(**opt), mesh=mesh,
+                              dp_axes=SH.batch_axes(mesh, cfg,
+                                                    tb["tokens"].shape[0]))
+    layout = step.layout
+    local = layout.shard_params(bridge.to_torch(params, device="cpu"))
+    new, _, metrics = step(local, adamw.init(local, layout), tb)
+    return {"loss": metrics["loss"], "coord": mesh.coordinate(),
+            "shape": mesh.shape, "world": torch.distributed.get_world_size(),
+            "params": dict(T.flatten(layout.gather_params(new))),
+            "launches": {n: m.launches for n, m in mods.items()}}
+
+
+def flux_generate(arch, params, prompts, new, mesh=None):
+    """``generate`` of the f32 smoke config of ``arch`` over the rank mesh,
+    from the whole numpy ``params``: the tokens (a tensor)."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import tensor_parallel as TPm
+    from repro_torch.launch.serve import generate
+    cfg = get_smoke_config(arch, dtype="float32")
+    layout = TPm.serve_layout(cfg, mesh, prompts.shape[0])
+    local = layout.shard_params(bridge.to_torch(params, device="cpu"))
+    return generate(local, cfg, torch.from_numpy(prompts),
+                    max_new_tokens=new, mesh=mesh)
+
+
+def flux_train(arch, steps, opt, ckpt_every=0, checkpoint=None,
+               resume_from=None, mesh=None):
+    """``launch/train.py``'s ``train()`` of the f32 smoke config of ``arch``
+    over the rank mesh (4 x 16 tokens a step), checkpointing into the
+    manager's directory where the task has one and resuming where the
+    executor names a step: the losses of the steps run, and the step it
+    resumed from."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import train
+    from repro_torch.optim import adamw
+    cfg = get_smoke_config(arch, dtype="float32")
+    out = train(cfg, steps=steps, global_batch=4, seq_len=16, mesh=mesh,
+                ckpt_dir=checkpoint.directory if checkpoint else "",
+                ckpt_every=ckpt_every, resume=resume_from is not None,
+                opt_cfg=adamw.OptimizerConfig(**opt), quiet=True,
+                device="cpu")
+    return {"losses": out["losses"], "resume_from": resume_from}
+
+
+def flux_barrier(directory, n, timeout=60.0, mesh=None):
+    """Wait until ``n`` ranks (of any groups) have entered: each leaves a
+    file in ``directory``. Passes only where the groups run at once."""
+    import os
+    import time
+    open(os.path.join(directory, str(os.getpid())), "w").close()
+    deadline = time.monotonic() + timeout
+    while len(os.listdir(directory)) < n:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{len(os.listdir(directory))} of {n} ranks "
+                               f"entered in {timeout} s")
+        time.sleep(0.05)
+    return mesh.shape
+
+
+def flux_raise(bad_rank, mesh=None):
+    """Rank ``bad_rank`` raises; the others wait for it in a collective."""
+    import torch
+    import torch.distributed as dist
+    if dist.get_rank() == bad_rank:
+        raise ValueError(f"rank {bad_rank} fails on purpose")
+    dist.all_reduce(torch.ones(1))
+    return "unreachable"
+
+
+def flux_sleep(seconds, mesh=None):
+    import time
+    time.sleep(seconds)
+    return seconds
