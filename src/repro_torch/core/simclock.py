@@ -87,7 +87,11 @@ class VirtualClock:
 
 
 class RealClock:
-    """Wall clock; schedule() uses daemon timer threads."""
+    """Wall clock; schedule() uses daemon timer threads. ``now()`` is the
+    seconds of ``time.monotonic()`` since ``origin_ns``, the clock's
+    ``time.monotonic_ns()`` at its start: a stamp taken on that clock
+    elsewhere (``core/spans.py``) maps onto ``now()``'s axis by
+    ``(ns - origin_ns) / 1e9``."""
 
     # dead timers are pruned in batches: the liveness filter is O(n), so
     # rebuilding the list on every schedule() turns sustained scheduling
@@ -97,7 +101,8 @@ class RealClock:
     PRUNE_THRESHOLD = 256
 
     def __init__(self):
-        self._t0 = time.monotonic()
+        self.origin_ns = time.monotonic_ns()
+        self._t0 = self.origin_ns / 1e9
         self._timers: List[threading.Timer] = []
         self._prune_at = self.PRUNE_THRESHOLD
 

@@ -14,10 +14,13 @@ On a mesh of several ranks the step is ZeRO-1 over ``data`` and splits the
 model over ``model`` (``distributed/tensor_parallel.py``): under tp16 the
 layers and the vocabulary, under dp_all the vocabulary alone.
 
-The update is ``optim.adamw.update``, which writes the new parameters and
-moments into the trees it is given: ``train_step`` returns the caller's
-parameter tree, updated in place, and a new ``OptState`` over the same
-moment tensors.
+The step, its forward and backward (a microbatch's each) and its update
+are spans of ``core/spans.py`` (``step``, ``step.forward``,
+``step.backward``, ``step.update``), recorded only while a span trace is
+on. The update is ``optim.adamw.update``, which writes the new parameters
+and moments into the trees it is given: ``train_step`` returns the
+caller's parameter tree, updated in place, and a new ``OptState`` over the
+same moment tensors.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import spans
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.compression import make_local_grad_fn
 from repro_torch.models import model as M
@@ -94,11 +98,13 @@ def make_grad_fn(cfg: ModelConfig, *, accum_steps: int = 1,
     def one(params, batch):
         alias = [p.detach().requires_grad_() for p in T.leaves(params)]
         with torch.enable_grad():
-            loss, metrics = loss_fn(T.unflatten(params, alias), batch)
+            with spans.span("step.forward", device=True):
+                loss, metrics = loss_fn(T.unflatten(params, alias), batch)
             # a leaf the loss does not reach (the token table when the batch
             # brings embeddings) gets zeros, as under jax.grad
-            grads = torch.autograd.grad(loss, alias, allow_unused=True,
-                                        materialize_grads=True)
+            with spans.span("step.backward", device=True):
+                grads = torch.autograd.grad(loss, alias, allow_unused=True,
+                                            materialize_grads=True)
         return list(grads), {k: v.detach() for k, v in metrics.items()}
 
     def grad_fn(params, batch):
@@ -220,12 +226,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig, *,
                                      group_loss=group_loss)
 
     def train_step(params, opt_state, batch):
-        TP.check_local(mesh, batch["labels"], "the batch")
-        grads, metrics = grad_fn(params, batch)
-        params, opt_state, om = adamw.update(opt_cfg, opt_state, grads, params,
-                                             layout)
-        metrics.update(om)
-        return params, opt_state, metrics
+        with spans.span("step"):
+            TP.check_local(mesh, batch["labels"], "the batch")
+            grads, metrics = grad_fn(params, batch)
+            with spans.span("step.update", device=True):
+                params, opt_state, om = adamw.update(opt_cfg, opt_state,
+                                                     grads, params, layout)
+            metrics.update(om)
+            return params, opt_state, metrics
 
     # its parts, for callers that read the gradients or gather the blocks
     train_step.grad_fn, train_step.layout = grad_fn, layout

@@ -5,7 +5,10 @@ columnar event trace and task columns after the run, so the hot path pays
 nothing beyond the appends it already makes — plus the streaming layer
 (:mod:`repro_torch.observability.stream`): O(Δ) trace cursors, incremental
 aggregators that reconcile with the post-hoc pass at drain, online health
-alerts, and the ``watch`` live dashboard.
+alerts, and the ``watch`` live dashboard — and the program's own spans
+(:mod:`repro_torch.core.spans`, exported here as ``spans``: the train
+step's parts and each task's payload, off by default, on the clock of the
+task stamps).
 
 See ``python -m repro_torch.observability --help`` for the CLI and
 the JAX package's src/repro/runtime/README.md ("Observability") for the
@@ -23,6 +26,8 @@ from repro_torch.observability.stream import (
     StreamingLevel, StreamingThroughput, ThroughputDropRule, TraceCursor,
     Watcher, render_frame)
 from repro_torch.observability.export import chrome_trace, export_chrome_trace
+from repro_torch.core import spans
+from repro_torch.core.spans import Span, SpanTrace
 from repro_torch.observability.report import (REPORT_VERSION, RunReport,
                                               render_payload)
 
@@ -35,6 +40,6 @@ __all__ = [
     "StreamingBreakdown", "Watcher", "LiveSampler", "render_frame",
     "Alert", "HealthRule", "HealthMonitor", "StallRule",
     "ThroughputDropRule", "QueueRunawayRule", "ServiceLatencyRule",
-    "chrome_trace", "export_chrome_trace",
+    "chrome_trace", "export_chrome_trace", "spans", "Span", "SpanTrace",
     "REPORT_VERSION", "RunReport", "render_payload",
 ]

@@ -15,6 +15,11 @@ denominator every trace viewer accepts:
 * ``"C"`` (counter) tracks for the reconstructed timeseries — core
   occupancy, scheduler hold depth, completion throughput — so the gauge
   curves render under the slices;
+* ``"X"`` events for the program's own spans when given a span trace
+  (``core/spans.py``): one process, one thread a recording
+  thread, each span on the task slices' axis (its monotonic stamps less
+  the engine clock's ``origin_ns``), its payload and device
+  milliseconds in ``args``;
 * ``"i"`` (instant) events for chaos injections (``chaos:node_fail`` /
   ``chaos:pilot_fail`` / ``chaos:skip``) and streamed health alerts
   (``obs:alert``), so fault timing lines up visually with its impact;
@@ -129,13 +134,48 @@ def _pack_lanes(starts: np.ndarray, ends: np.ndarray) -> np.ndarray:
     return lanes
 
 
+def _span_events(trace, origin_ns: int, pid: int) -> List[Dict[str, Any]]:
+    """The span trace's finished spans as ``"X"`` rows of process ``pid``,
+    a thread a recording thread, in microseconds after ``origin_ns``."""
+    done = [s for s in trace.spans() if s.end_ns is not None]
+    if not done:
+        return []
+    tid_of: Dict[str, int] = {}
+    for s in done:
+        tid_of.setdefault(s.thread, len(tid_of))
+    events = [{"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+               "args": {"name": "program spans"}}]
+    events += [{"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                "args": {"name": thread}} for thread, tid in tid_of.items()]
+    for s in done:
+        args = {k: v for k, v in s.args.items()
+                if isinstance(v, (str, int, float, bool))}
+        if s.device_ms is not None:
+            args["device_ms"] = s.device_ms
+        events.append({"ph": "X", "name": s.name, "pid": pid,
+                       "tid": tid_of[s.thread],
+                       "ts": int(round((s.start_ns - origin_ns) / 1e3)),
+                       "dur": max(int(round((s.end_ns - s.start_ns) / 1e3)),
+                                  1),
+                       "cat": "span", "args": args})
+    return events
+
+
 def chrome_trace(tasks: Sequence, profiler=None, total_cores: int = 0,
                  dt: float = 1.0, max_slices: int = 20000,
                  extra_counters: Optional[Dict[str, Series]] = None,
-                 services: Sequence = ()) -> Dict[str, Any]:
+                 services: Sequence = (), spans=None,
+                 span_origin_ns: Optional[int] = None) -> Dict[str, Any]:
     """Build the trace-event dict (``json.dump``-ready). See module docs;
     ``extra_counters`` adds caller-provided Series as counter tracks,
-    ``services`` adds request-span processes (same ``max_slices`` cap)."""
+    ``services`` adds request-span processes (same ``max_slices`` cap);
+    ``spans`` (a ``spans.SpanTrace``, read after the run's device work is
+    done) adds the program's spans, uncapped, placed by
+    ``span_origin_ns``: the ``origin_ns`` of the engine's ``RealClock``
+    that stamped ``tasks``."""
+    if spans is not None and span_origin_ns is None:
+        raise ValueError("spans need span_origin_ns, the origin of the "
+                         "clock that stamped the tasks")
     segments = _slice_segments(tasks, services)
     n_total = sum(len(s[1]) for s in segments)
     dropped = 0
@@ -193,6 +233,10 @@ def chrome_trace(tasks: Sequence, profiler=None, total_cores: int = 0,
                            "ts": int(s_us[i]),
                            "dur": max(int(d_us[i]), 1), "cat": "task"})
 
+    span_events = ([] if spans is None else
+                   _span_events(spans, span_origin_ns, len(backends) + 1))
+    events.extend(span_events)
+
     # counter tracks (pid 0 = the run-wide gauges process)
     counters: Dict[str, Series] = {}
     if len(starts):
@@ -228,23 +272,28 @@ def chrome_trace(tasks: Sequence, profiler=None, total_cores: int = 0,
     # sorting the whole array (metadata first via ts absence -> -1)
     # guarantees it per track too
     events.sort(key=lambda e: (e.get("ts", -1), e["pid"], e["tid"]))
-    return {"traceEvents": events,
-            "displayTimeUnit": "ms",
-            "otherData": {"generator": "repro_torch.observability",
-                          "n_slices": int(n_total - dropped),
-                          "n_slices_dropped": int(dropped),
-                          "n_counter_tracks": len(counters),
-                          "n_instants": len(instants)}}
+    other = {"generator": "repro_torch.observability",
+             "n_slices": int(n_total - dropped),
+             "n_slices_dropped": int(dropped),
+             "n_counter_tracks": len(counters),
+             "n_instants": len(instants)}
+    if spans is not None:
+        other["n_spans"] = sum(e["ph"] == "X" for e in span_events)
+    return {"traceEvents": events, "displayTimeUnit": "ms",
+            "otherData": other}
 
 
 def export_chrome_trace(path: str, tasks: Sequence, profiler=None,
                         total_cores: int = 0, dt: float = 1.0,
                         max_slices: int = 20000,
-                        services: Sequence = ()) -> Dict[str, Any]:
+                        services: Sequence = (), spans=None,
+                        span_origin_ns: Optional[int] = None
+                        ) -> Dict[str, Any]:
     """Write the Chrome trace JSON to ``path``; returns the ``otherData``
     summary (including the dropped-slice count — never capped silently)."""
     doc = chrome_trace(tasks, profiler, total_cores=total_cores, dt=dt,
-                       max_slices=max_slices, services=services)
+                       max_slices=max_slices, services=services, spans=spans,
+                       span_origin_ns=span_origin_ns)
     with open(path, "w") as fh:
         json.dump(doc, fh)
     return doc["otherData"]

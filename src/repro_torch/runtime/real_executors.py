@@ -26,6 +26,8 @@ Backends mirror the simulation split:
     (no per-call process spawn, true multi-core parallelism); a collector
     thread commits completions back into the task pipeline.
 
+Each payload runs inside a ``payload`` span (``core/spans.py``,
+recorded only while a span trace is on; the thread-pool executors alone).
 All task state transitions are committed under ``engine.lock`` and followed
 by ``engine.notify()``, so the agent's single-threaded lifecycle logic
 (retries, speculation, campaign stage release) runs unchanged on top.
@@ -42,6 +44,7 @@ import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional
 
+from repro_torch.core import spans
 from repro_torch.core.executors.base import BaseExecutor
 from repro_torch.core.partition import carve_submeshes
 from repro_torch.core.task import Task, TaskState
@@ -119,7 +122,10 @@ class RealExecutorBase(BaseExecutor):
             if wt > 0.0:
                 eng.schedule(wt, self._enforce_walltime, task, attempt)
         try:
-            result = self._payload(task)
+            with spans.span("payload", args={"uid": task.uid,
+                                             "stage": task.description.stage,
+                                             "backend": self.name}):
+                result = self._payload(task)
         except Exception as e:                                # noqa: BLE001
             err = f"{type(e).__name__}: {e}"
             with eng.lock:
