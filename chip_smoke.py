@@ -26,12 +26,17 @@ Phases, each printing its lines; any failed check exits non-zero:
      shape, beside SDPA, and decode attention's device time per call from
      the profiler (split and combine kernels); the SSD scan at zamba2-7b's
      and mamba2-130m's shapes; the host time per call of the wrappers and
-     eager calls of a decode step; at the training path's shapes (flash
-     attention at stablelm-3b's, RMSNorm at 8,192 x 2,560) each kernel's
-     forward beside its backward (its autograd.Function's: the plain version
-     recomputed and its vjp, checked equal to the plain vjp), the plain vjp
-     alone, and the library's forward and backward; flash attention at the
-     MLA shape beside SDPA on the same 128-wide V;
+     eager calls of a decode step; at the training path's shapes flash
+     attention's forward at stablelm-3b's beside its backward kernel (the
+     forward's log-sum-exp launch held against the launch without it and
+     the plain log-sum-exp, the backward against the plain vjp in f32;
+     through autograd, alone and by kernel;
+     ``flash_backward_times``, which ``scripts/flash_backward.py`` runs
+     alone), and RMSNorm's at 8,192 x 2,560 beside its backward (its
+     autograd.Function's: the plain version recomputed and its vjp, checked
+     equal to the plain vjp), each beside the plain vjp alone and the
+     library's forward and backward; flash attention at the MLA shape
+     beside SDPA on the same 128-wide V;
   5. main paths, each served with ``serve_batch`` at full width with random
      bf16 weights from a seed: 8 requests of 1,024 prompt tokens, 32 greedy
      new tokens, with the kernels' launch counts set to 0 just before and
@@ -51,12 +56,13 @@ Phases, each printing its lines; any failed check exits non-zero:
      (torch.profiler), for each of the five, and the per-launch device
      time of the kernels there;
   7. training through ``make_train_step`` (AdamW, remat "full", the kernels
-     in every forward and recompute, the plain versions' vjps in the
-     backward) with random bf16 weights from a seed: stablelm-3b at full
+     in every forward and recompute, in the backward flash attention's
+     backward kernel and the other kernels' plain vjps) with random bf16
+     weights from a seed: stablelm-3b at full
      width and depth (32 layers, d_model 2,560) and mamba2-130m at full
      size, five steps each on one fixed batch of 8 x 1,024 tokens; each
      loss finite and the fifth below the first, each step's launch counts
-     exact; one more step in its two parts (forward and backward, then the
+     and flash backwards by route (``flash_backwards``) exact; one more step in its two parts (forward and backward, then the
      update) with every leaf's gradient finite and nonzero; step time,
      tokens/s, peak memory and the model-FLOP share. Then the kernel path's
      f32 gradients against the plain path's (stablelm-3b at full width and 4
@@ -606,6 +612,115 @@ def rel_err(a, b):
     return max_err(a, b) / (b.float().abs().max().item() + 1e-9)
 
 
+# the flash backward kernel against the plain vjp computed in f32, per
+# gradient max|diff| / max|want| (tests/test_torch_gpu.py's BWD_TOL): P and
+# dS rounded to bf16 as tensor-core operands and each gradient once to bf16
+FLASH_BWD_TOL = 1e-2
+# the forward's log-sum-exp against the plain version's in f32, max|diff| /
+# max|want|: both in f32 from the same bf16 scores, summed in other orders
+FLASH_LSE_TOL = 1e-5
+
+
+def flash_backward_times(torch, F, timer, q, k, v, scale, card):
+    """Phase 4's flash attention at stablelm-3b's training shape (bf16 q, k,
+    v of (B, S, H, hd)): the forward kernel and its log-sum-exp launch; the
+    backward kernel through its autograd.Function (the training path's
+    call), its launch alone and the device time of each of its two kernels
+    (profiler: ``flash_bwd_dq``, which also writes D, and
+    ``flash_bwd_wgmma``), beside its bound; the plain version and its vjp
+    (still the route of f32 and of the widths the kernel lacks); SDPA's
+    forward and backward, the library's yardstick. The log-sum-exp launch's
+    output is held equal in every bit to the launch without it, and its
+    log-sum-exp within FLASH_LSE_TOL of the plain version's; the kernel's
+    gradients against the plain vjp in f32 (FLASH_BWD_TOL), one backward
+    launch and no plain vjp counted. Returns the record."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    B, S, H, hd = q.shape
+    pairs = B * H * S * (S + 1) // 2
+    gen = torch.Generator(device=q.device).manual_seed(SEED + 1)
+    dy = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+    b0 = (fa_ops.backward_launches, fa_ops.plain_backward_calls)
+    y = fa_ops.flash_attention(*leaves, scale=scale)
+    check(y.grad_fn.name() == "FlashAttentionBackward",
+          f"flash attention under grad took {y.grad_fn.name()}, not the "
+          f"backward kernel's route")
+    got = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    torch.cuda.synchronize()
+    check((fa_ops.backward_launches, fa_ops.plain_backward_calls)
+          == (b0[0] + 1, b0[1]), "the backward was not one backward launch")
+    f32 = [a.detach().float().requires_grad_() for a in (q, k, v)]
+    want = torch.autograd.grad(fa_ops.plain(*f32, scale=scale), f32,
+                               dy.float())
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    del f32, want
+    print(f"[check] flash backward kernel at {tuple(q.shape)} bf16 vs the "
+          f"plain vjp in f32: dq, dk, dv max|diff| / max|want| "
+          + ", ".join(f"{e:.2e}" for e in errs)
+          + f" (limit {FLASH_BWD_TOL})", flush=True)
+    check(max(errs) < FLASH_BWD_TOL, f"flash backward errors {errs}")
+    o, lse = fa_ops._launch_lse(q, k, v, scale=scale)
+    same = torch.equal(y, o) and torch.equal(
+        o, fa_ops._launch(q, k, v, scale=scale))
+    check(same, "the forward with its log-sum-exp is not the forward "
+          "without it, bit for bit")
+    lse_err = rel_err(lse, fa_ops.plain_lse(q, k, v, scale=scale)[1])
+    print(f"[check] flash forward's log-sum-exp at {tuple(q.shape)} bf16 vs "
+          f"the plain version's: max|diff| / max|want| {lse_err:.2e} (limit "
+          f"{FLASH_LSE_TOL}); its output equal in every bit to the launch "
+          f"without it", flush=True)
+    check(lse_err < FLASH_LSE_TOL, f"flash log-sum-exp error {lse_err}")
+    y_p = fa_ops.plain(*leaves, scale=scale)
+    lv = [a.transpose(1, 2) for a in leaves]
+    y_l = F.scaled_dot_product_attention(*lv, is_causal=True, scale=scale)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fa_ops._launch_bwd(q, k, v, o, lse, dy, scale=scale)
+        torch.cuda.synchronize()
+    # the two kernels, by name
+    parts = {(re.search(r"flash_bwd_\w+", name) or [name[:40]])[0]:
+             round(ms / 10, 5) for name, ms, _ in device_rows(prof)}
+    r = dict(
+        ms=timer(lambda: fa_ops.flash_attention(q, k, v, scale=scale), 50),
+        lse_ms=timer(lambda: fa_ops._launch_lse(q, k, v, scale=scale), 50),
+        bwd_ms=timer(lambda: torch.autograd.grad(y, leaves, dy,
+                                                 retain_graph=True), 20),
+        bwd_launch_ms=timer(lambda: fa_ops._launch_bwd(q, k, v, o, lse, dy,
+                                                       scale=scale), 20),
+        bwd_parts_ms=parts, bwd_errors=errs, lse_error=lse_err,
+        plain_ms=timer(lambda: fa_ops.plain(q, k, v, scale=scale), 10),
+        vjp_ms=timer(lambda: torch.autograd.grad(y_p, leaves, dy,
+                                                 retain_graph=True), 10),
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            *(a.transpose(1, 2) for a in (q, k, v)), is_causal=True,
+            scale=scale), 50),
+        library_bwd_ms=timer(lambda: torch.autograd.grad(
+            y_l, lv, dy.transpose(1, 2), retain_graph=True), 20),
+        # the two products forward, q, k, v read and o written once; five
+        # in the backward (S = Q K^T again, dP, dV, dK, dQ), q, k, v, o, dO
+        # read and dq, dk, dv written once
+        flops=4 * hd * pairs, bytes=2 * 4 * q.numel(), dtype="bfloat16")
+    add_bound(r)
+    bwd = dict(flops=10 * hd * pairs, bytes=2 * 8 * q.numel(),
+               dtype="bfloat16")
+    add_bound(bwd)
+    r.update(bwd_bound_ms=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"])
+    print(f"[time] flash_attention at stablelm-3b's training shape "
+          f"{tuple(q.shape)} bf16: forward kernel {r['ms']:.4f} ms (with its "
+          f"log-sum-exp {r['lse_ms']:.4f}; bound {r['bound_ms']:.4f}, "
+          f"{r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it); backward "
+          f"kernel {r['bwd_ms']:.4f} ms through autograd, {r['bwd_launch_ms']:.4f}"
+          f" ms its launch alone (bound {r['bwd_bound_ms']:.4f}, "
+          f"{r['bwd_bound_by']}; {r['bwd_bound_ms'] / r['bwd_launch_ms']:.1%} "
+          f"of it; device ms by kernel {parts}); plain forward "
+          f"{r['plain_ms']:.4f} ms, its vjp {r['vjp_ms']:.4f} ms; library "
+          f"forward {r['library_ms']:.4f} ms, backward "
+          f"{r['library_bwd_ms']:.4f} ms  [{card}]", flush=True)
+    del y, y_p, y_l, got, o, lse
+    return r
+
+
 def device_rows(prof):
     """(name, device ms, count) of the device-side events (kernels, copies)
     of a profile: CPU ops would count twice."""
@@ -759,6 +874,8 @@ def main():
     # the bf16 kernels run on the tensor cores: flash attention through wgmma
     # (HGMMA), decode attention and the SSD scan through mma.sync (HMMA)
     for name, kernel, opcode in (("flash_attention", "flash_fwd_wgmma", "HGMMA"),
+                                 ("flash_attention", "flash_bwd_dq", "HGMMA"),
+                                 ("flash_attention", "flash_bwd_wgmma", "HGMMA"),
                                  ("decode_attention", "decode_fwd_split_mma",
                                   "HMMA"),
                                  ("ssd", "ssd_fwd_mma", "HMMA")):
@@ -770,7 +887,7 @@ def main():
               f"{sum(counts.values()) - sum(tc.values())} elsewhere", flush=True)
         check(tc and min(tc.values()) > 0,
               f"a bf16 {kernel} instantiation has no {opcode}: {tc}")
-        if name == "flash_attention":
+        if kernel == "flash_fwd_wgmma":
             # MLA's prefill: q/k 192 wide, v 128 (the template's mangling)
             mla = [n for fn, n in tc.items() if "ILi192ELi128E" in fn]
             print(f"[build] flash_attention (192, 128) instantiation for "
@@ -1199,73 +1316,59 @@ def main():
         else:
             results["ssd"]["mamba2_130m_shape"] = r
 
-    # The training path's shapes (stablelm-3b, bf16): each kernel's forward
-    # beside its backward, which is its autograd.Function's (the plain
-    # version recomputed from the saved inputs, and its vjp), the plain vjp
-    # alone, and the library call's forward and backward.
+    # The training path's shapes (stablelm-3b, bf16): flash attention's
+    # forward beside its backward kernel (flash_backward_times); RMSNorm's
+    # forward beside its backward, which is its autograd.Function's (the
+    # plain version recomputed from the saved inputs, and its vjp), the
+    # plain vjp alone, and the library call's forward and backward.
     q, k, v, scale = inputs["flash_attention/stablelm-3b"]
-    pairs = B * q.shape[2] * S * (S + 1) // 2
+    results["flash_attention"]["train_shape_hd80"] = flash_backward_times(
+        torch, F, timer, q, k, v, scale, card)
     xt, wt, _ = inputs[f"fused_rmsnorm/{B * S}x{sl3.d_model}"]
     n, dim = xt.numel(), xt.shape[-1]
-    for name, label, args, kernel, plain, lib, work in (
-            ("flash_attention", "train_shape_hd80", (q, k, v),
-             lambda q, k, v: fa_ops.flash_attention(q, k, v, scale=scale),
-             lambda q, k, v: fa_ops.plain(q, k, v, scale=scale),
-             lambda q, k, v: F.scaled_dot_product_attention(
-                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                 is_causal=True, scale=scale),
-             # the two products forward; five in the backward (S = Q K^T
-             # again, dV, dP, dQ, dK); q, k, v, o (and dO, dq, dk, dv) once
-             dict(flops=4 * q.shape[3] * pairs, bytes=2 * 4 * q.numel(),
-                  bwd_flops=10 * q.shape[3] * pairs, bwd_bytes=2 * 8 * q.numel())),
-            ("fused_rmsnorm", f"train_shape_{B * S}x{dim}", (xt, wt),
-             lambda x, w: rn_ops.rmsnorm(x, w, eps=eps),
-             lambda x, w: rn_ref.rmsnorm_ref(x, w, eps=eps),
-             lambda x, w: F.rms_norm(x, (dim,), weight=1.0 + w, eps=eps),
-             # x read, out written (and x, dy read, dx written, w and dw)
-             dict(flops=4 * n, bytes=2 * (2 * n + dim), bwd_flops=8 * n,
-                  bwd_bytes=2 * (3 * n + 2 * dim)))):
-        leaves = [a.detach().requires_grad_() for a in args]
-        y = kernel(*leaves)
-        check(y.grad_fn is not None and "Backward" in y.grad_fn.name(),
-              f"{name} under grad returned {y.grad_fn} (no autograd.Function)")
-        dy = randn(*y.shape, dtype=y.dtype)
-        y_p, y_l = plain(*leaves), lib(*leaves)
-        got = torch.autograd.grad(y, leaves, dy, retain_graph=True)
-        want = torch.autograd.grad(y_p, leaves, dy, retain_graph=True)
-        check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"{name} backward is not the plain version's vjp")
-        r = dict(
-            ms=timer(lambda: kernel(*args), 50),
-            bwd_ms=timer(lambda: torch.autograd.grad(y, leaves, dy,
-                                                     retain_graph=True), 10),
-            plain_ms=timer(lambda: plain(*args), 10),
-            vjp_ms=timer(lambda: torch.autograd.grad(y_p, leaves, dy,
-                                                     retain_graph=True), 10),
-            library_ms=timer(lambda: lib(*args), 50),
-            library_bwd_ms=timer(lambda: torch.autograd.grad(
-                y_l, leaves, dy.transpose(1, 2) if name == "flash_attention"
-                else dy, retain_graph=True), 20),
-            flops=work["flops"], bytes=work["bytes"], dtype="bfloat16")
-        add_bound(r)
-        bwd = dict(flops=work["bwd_flops"], bytes=work["bwd_bytes"],
-                   dtype="bfloat16")
-        add_bound(bwd)
-        r.update(bwd_bound_ms=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"],
-                 vjp_share=r["vjp_ms"] / r["bwd_ms"])
-        results[name][label] = r
-        del y, y_p, y_l, leaves, got, want
-        print(f"[time] {name} at stablelm-3b's training shape "
-              f"{tuple(args[0].shape)} bf16: forward kernel {r['ms']:.4f} ms "
-              f"(bound {r['bound_ms']:.4f}, {r['bound_by']}; "
-              f"{r['bound_ms'] / r['ms']:.1%} of it); backward (the plain "
-              f"version recomputed + its vjp) {r['bwd_ms']:.4f} ms (bound "
-              f"{r['bwd_bound_ms']:.4f}, {r['bwd_bound_by']}; "
-              f"{r['bwd_bound_ms'] / r['bwd_ms']:.1%} of it), of which the "
-              f"plain vjp alone {r['vjp_ms']:.4f} ms ({r['vjp_share']:.1%}); "
-              f"plain forward {r['plain_ms']:.4f} ms; library forward "
-              f"{r['library_ms']:.4f} ms, backward {r['library_bwd_ms']:.4f} "
-              f"ms  [{card}]", flush=True)
+    leaves = [a.detach().requires_grad_() for a in (xt, wt)]
+    y = rn_ops.rmsnorm(*leaves, eps=eps)
+    check(y.grad_fn is not None and "Backward" in y.grad_fn.name(),
+          f"fused_rmsnorm under grad returned {y.grad_fn} (no "
+          f"autograd.Function)")
+    dy = randn(*y.shape, dtype=y.dtype)
+    y_p = rn_ref.rmsnorm_ref(*leaves, eps=eps)
+    y_l = F.rms_norm(leaves[0], (dim,), weight=1.0 + leaves[1], eps=eps)
+    got = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    want = torch.autograd.grad(y_p, leaves, dy, retain_graph=True)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "fused_rmsnorm backward is not the plain version's vjp")
+    r = dict(
+        ms=timer(lambda: rn_ops.rmsnorm(xt, wt, eps=eps), 50),
+        bwd_ms=timer(lambda: torch.autograd.grad(y, leaves, dy,
+                                                 retain_graph=True), 10),
+        plain_ms=timer(lambda: rn_ref.rmsnorm_ref(xt, wt, eps=eps), 10),
+        vjp_ms=timer(lambda: torch.autograd.grad(y_p, leaves, dy,
+                                                 retain_graph=True), 10),
+        library_ms=timer(lambda: F.rms_norm(xt, (dim,), weight=1.0 + wt,
+                                            eps=eps), 50),
+        library_bwd_ms=timer(lambda: torch.autograd.grad(
+            y_l, leaves, dy, retain_graph=True), 20),
+        # x read, out written (and x, dy read, dx written, w and dw)
+        flops=4 * n, bytes=2 * (2 * n + dim), dtype="bfloat16")
+    add_bound(r)
+    bwd = dict(flops=8 * n, bytes=2 * (3 * n + 2 * dim), dtype="bfloat16")
+    add_bound(bwd)
+    r.update(bwd_bound_ms=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"],
+             vjp_share=r["vjp_ms"] / r["bwd_ms"])
+    results["fused_rmsnorm"][f"train_shape_{B * S}x{dim}"] = r
+    del y, y_p, y_l, leaves, got, want
+    print(f"[time] fused_rmsnorm at stablelm-3b's training shape "
+          f"{tuple(xt.shape)} bf16: forward kernel {r['ms']:.4f} ms "
+          f"(bound {r['bound_ms']:.4f}, {r['bound_by']}; "
+          f"{r['bound_ms'] / r['ms']:.1%} of it); backward (the plain "
+          f"version recomputed + its vjp) {r['bwd_ms']:.4f} ms (bound "
+          f"{r['bwd_bound_ms']:.4f}, {r['bwd_bound_by']}; "
+          f"{r['bwd_bound_ms'] / r['bwd_ms']:.1%} of it), of which the "
+          f"plain vjp alone {r['vjp_ms']:.4f} ms ({r['vjp_share']:.1%}); "
+          f"plain forward {r['plain_ms']:.4f} ms; library forward "
+          f"{r['library_ms']:.4f} ms, backward {r['library_bwd_ms']:.4f} "
+          f"ms  [{card}]", flush=True)
 
     # host time to issue one call at the decode step's shapes: at batch 8 a
     # decode step is a chain of small launches, so this bounds its speed.
@@ -1981,7 +2084,8 @@ def train_and_hold(torch, cfg, ops_of, card, dev):
     checked. Returns the launch counts of one step and the median step
     time in seconds."""
     from repro_torch import tree as T
-    from repro_torch.distributed.train_step import (kernel_launches,
+    from repro_torch.distributed.train_step import (flash_backwards,
+                                                    kernel_launches,
                                                     make_grad_fn,
                                                     make_train_step)
     from repro_torch.models import model as M
@@ -2005,23 +2109,31 @@ def train_and_hold(torch, cfg, ops_of, card, dev):
           f"init in {time.perf_counter() - t0:.1f} s; batch {B} x {S} tokens, "
           f"remat {cfg.remat!r}", flush=True)
     want = kernel_launches(cfg)
+    fa_ops = ops_of["flash_attention"]
+    want_bwd = flash_backwards(cfg)
     torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
     for i in range(TRAIN_STEPS):
         for ops in ops_of.values():
             ops.launches = 0
+        fa_ops.backward_launches = fa_ops.plain_backward_calls = 0
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, batch)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         launches = {name: ops.launches for name, ops in ops_of.items()}
+        backwards = {"backward_launches": fa_ops.backward_launches,
+                     "plain_backward_calls": fa_ops.plain_backward_calls}
         losses.append(m["loss"].item())
         print(f"[train] {arch} step {i + 1}: loss {losses[-1]:.6f}, grad_norm "
               f"{m['grad_norm'].item():.4f}, lr {m['lr'].item():.3e}, "
-              f"{step_s[-1]:.4f} s; launches {launches}", flush=True)
+              f"{step_s[-1]:.4f} s; launches {launches}; flash backwards "
+              f"{backwards}", flush=True)
         check(math.isfinite(losses[-1]), f"{arch} step {i + 1} loss not finite")
         check(launches == want, f"{arch} train step launches {launches} != "
               f"{want}")
+        check(backwards == want_bwd, f"{arch} train step flash backwards "
+              f"{backwards} != {want_bwd}")
         step_launches = launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(losses[-1] < losses[0], f"{arch} loss did not fall on one batch: "
@@ -2086,12 +2198,12 @@ def profile_train_step(torch, arch, grad_fn, opt_cfg, params, opt, batch,
     rows = sorted(device_rows(prof), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     mine = {key: sum(ms for k, ms, _ in rows if key in k)
-            for key in ("flash_fwd", "rmsnorm_", "ssd_fwd")}
+            for key in ("flash_fwd", "flash_bwd", "rmsnorm_", "ssd_fwd")}
 
     def kind(k):
         low = k.lower()
         if "gemm" in low or "nvjet" in low:
-            # f32 operands: the plain attention vjp's products (no TF32)
+            # f32 operands: a plain vjp's products (no TF32)
             f32 = "f32f32_f32f32" in low or "sgemm" in low
             return "f32 GEMM" if f32 else "GEMM"
         if "elementwise" in low or "copy" in low:

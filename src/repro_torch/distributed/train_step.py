@@ -24,6 +24,7 @@ same moment tensors.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -137,8 +138,9 @@ def kernel_launches(cfg: ModelConfig, model_ranks: int = 1,
     at ``accum_steps=1``) with ``cfg.use_pallas``, by kernel. Each layer's
     forward launches its kernels once, and once more in its recompute under
     remat 'full' or 'dots' (which keeps only matrix products); the final
-    norm launches once; the backward (the plain versions' vjps) launches
-    none. An attention block (dense, MoE, the MoE family's leading dense
+    norm launches once; the backward relaunches no forward (flash
+    attention's backward kernel is counted apart: ``flash_backwards``). An
+    attention block (dense, MoE, the MoE family's leading dense
     layers) runs flash attention and 2 RMSNorms, 3 with MLA (its
     ``kv_norm``); a Mamba2 block the SSD scan, its input norm and its gated
     norm; the hybrid's shared block runs once per group, never under remat
@@ -164,6 +166,26 @@ def kernel_launches(cfg: ModelConfig, model_ranks: int = 1,
             "decode_attention": 0,
             "fused_rmsnorm": runs * norms + 2 * shared + 1,
             "ssd": runs * scans}
+
+
+def flash_backwards(cfg: ModelConfig, model_ranks: int = 1,
+                    rank: int = 0) -> Dict[str, int]:
+    """The flash-attention backwards of one ``make_grad_fn(cfg)`` pass (one
+    step at ``accum_steps=1``) with ``cfg.use_pallas``, by route, as the
+    wrapper counts them: ``backward_launches`` where its backward kernel
+    takes the config's dtype and head widths
+    (``flash_attention.ops.kernel_backward``), else ``plain_backward_calls``
+    (the plain vjp). One per attention call of the forward without remat
+    (``kernel_launches``), which a recompute does not add to."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    calls = kernel_launches(dataclasses.replace(cfg, remat="none"),
+                            model_ranks, rank)["flash_attention"]
+    hd, hd_v = ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                 cfg.v_head_dim) if cfg.use_mla
+                else (cfg.head_dim, cfg.head_dim))
+    kernel = fa_ops.kernel_backward(getattr(torch, cfg.dtype), hd, hd_v)
+    return {"backward_launches": calls if kernel else 0,
+            "plain_backward_calls": 0 if kernel else calls}
 
 
 def split_norm_launches(cfg: ModelConfig, model_ranks: int) -> int:

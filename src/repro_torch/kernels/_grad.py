@@ -2,13 +2,15 @@
 attention, RMSNorm, the SSD scan), and the gradient their kernels get.
 
 A CPU tensor takes the kernel's plain PyTorch version; a tensor on
-``KERNEL_DEVICE`` launches the kernel or raises. Neither the reference's
-Pallas kernels nor these CUDA kernels have a backward. Where a gradient is
-asked (grad mode on and an input requiring grad), the launch runs inside
-``PlainVJP``, an ``autograd.Function`` whose forward launches the kernel and
-whose backward is the vector-Jacobian product of the plain version,
-recomputed from the saved inputs. Without grad the launch is called
-directly, with no ``Function`` around it.
+``KERNEL_DEVICE`` launches the kernel or raises. The reference's Pallas
+kernels have no backward; of these CUDA kernels flash attention has one, at
+the dtype and widths it is built for (``flash_attention.ops.FlashAttention``,
+handed to ``call`` as ``vjp``). Elsewhere, where a gradient is asked (grad
+mode on and an input requiring grad), the launch runs inside ``PlainVJP``,
+an ``autograd.Function`` whose forward launches the kernel and whose
+backward is the vector-Jacobian product of the plain version, recomputed
+from the saved inputs. Without grad the launch is called directly, with no
+``Function`` around it.
 """
 from __future__ import annotations
 
@@ -19,11 +21,13 @@ import torch
 KERNEL_DEVICE = "cuda"
 
 
-def call(launch, plain, *inputs, **static):
+def call(launch, plain, *inputs, vjp=None, **static):
     """``plain(*inputs, **static)`` on CPU tensors, else ``launch`` with the
-    same arguments, under ``PlainVJP`` where a gradient is asked. ``inputs``
-    are tensors (or None, for an absent optional one), the first deciding
-    the device; ``static`` holds the rest, passed as keywords."""
+    same arguments, under ``PlainVJP`` where a gradient is asked, or
+    ``vjp(*inputs, **static)`` there where given (a route with a backward of
+    its own). ``inputs`` are tensors (or None, for an absent optional one),
+    the first deciding the device; ``static`` holds the rest, passed as
+    keywords."""
     dev = inputs[0].device.type
     if dev != KERNEL_DEVICE:
         if dev == "cpu":
@@ -32,6 +36,8 @@ def call(launch, plain, *inputs, **static):
                          f"{inputs[0].device}")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in inputs):
+        if vjp is not None:
+            return vjp(*inputs, **static)
         return PlainVJP.apply(launch, plain, static, *inputs)
     return launch(*inputs, **static)
 

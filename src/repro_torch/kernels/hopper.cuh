@@ -1,6 +1,7 @@
 // PTX wrappers for the Hopper (sm_90a) kernels of the port: mbarriers, TMA
 // tile copies, wgmma and its shared-memory descriptors, the mma.sync /
-// ldmatrix / cp.async instructions and bulk copies to global memory.
+// ldmatrix / cp.async instructions, bulk copies between global and shared
+// memory and named barriers.
 // Included by csrc/<name>.cu after common.cuh; _build.py hashes every *.cuh
 // of kernels/ into each library's name, so an edit here rebuilds them all.
 #pragma once
@@ -468,6 +469,24 @@ __device__ __forceinline__ void bulk_wait() {
 // order this thread's writes to shared memory before copies that read it
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory by the copy engine, completing on `bar` (after
+// mbar_expect_tx)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ------------------------------------------------------- named barriers
+// barrier `id` (1-15; 0 is __syncthreads') among `threads` threads, a
+// multiple of 32
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
 }
 
 }  // namespace

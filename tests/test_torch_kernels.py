@@ -70,6 +70,59 @@ def test_flash_attention_vs_jax_pallas(shape, dtype):
     assert _err(got, oracle) < ATTN_TOL[dtype]
 
 
+@pytest.mark.parametrize("S", [1, 5, 64, 130])
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_flash_backward_plain_version_is_autograds(G, S):
+    """``ref.attention_bwd_ref`` (FA2's gradient from o, the log-sum-exp and
+    dO, over the whole masked score matrix) against autograd through
+    ``ref.attention_ref``, f32: 1e-5 of each gradient's largest and 1e-6
+    absolute (the same sums in another order; at S = 1 dq and dk are 0).
+    The log-sum-exp against torch.logsumexp of the masked scaled scores."""
+    B, KV, hd = 2, 2, 16
+    rng = np.random.default_rng(G * 1000 + S)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   for s in ((B, G * KV, S, hd), (B, KV, S, hd),
+                             (B, KV, S, hd), (B, G * KV, S, hd)))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, lse = fa_ref.attention_ref(*leaves, scale=0.3, return_lse=True)
+    torch.testing.assert_close(o, fa_ref.attention_ref(q, k, v, scale=0.3),
+                               rtol=0, atol=0)
+    scores = torch.einsum("bhqd,bhsd->bhqs", q,
+                          k.repeat_interleave(G, dim=1)) * 0.3
+    causal = torch.ones(S, S, dtype=torch.bool).tril()
+    want_lse = torch.logsumexp(scores.masked_fill(~causal, float("-inf")), -1)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-6)
+    want = torch.autograd.grad(o, leaves, do)
+    got = fa_ref.attention_bwd_ref(q, k, v, o.detach(), lse.detach(), do,
+                                   scale=0.3)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()) + 1e-6)
+
+
+@pytest.mark.parametrize("shape", [(2, 200, 4, 2, 80), (1, 130, 4, 1, 64)])
+def test_flash_backward_plain_version_vs_jax(shape):
+    """The port's plain backward, in the model layout (``ops.plain_bwd`` of
+    ``ops.plain_lse``'s o and log-sum-exp), against jax.vjp of the JAX
+    package's flash attention oracle on the same inputs, f32: 2e-5 of each
+    gradient's largest (sums in another order)."""
+    import jax
+    B, S, H, KV, hd = shape
+    (jq, q), (jk, k), (jv, v), (jdo, do) = _inputs(
+        [(B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd)],
+        "float32")
+    _, vjp = jax.vjp(lambda q, k, v: j_fa.flash_attention(
+        q, k, v, scale=0.125, use_pallas=False), jq, jk, jv)
+    want = vjp(jdo)
+    o, lse = fa_ops.plain_lse(q, k, v, scale=0.125)
+    got = fa_ops.plain_bwd(q, k, v, o, lse, do, scale=0.125)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        assert _err(g, w) < 2e-5 * float(np.abs(w).max())
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape,valid", [
     ((2, 512, 4, 2, 64), 301),

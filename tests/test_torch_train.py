@@ -255,18 +255,23 @@ def test_remat_rejects_an_unknown_policy():
 def _kernels_as_plain(monkeypatch):
     """CPU tensors routed as CUDA tensors are, into the kernels' launches,
     each launch played by its kernel's plain version (no grad, counted as a
-    launch)."""
-    def launch(mod):
+    launch): flash attention's forward with its log-sum-exp by
+    ``plain_lse``, its backward launch by ``plain_bwd`` (counted in
+    ``backward_launches``)."""
+    def launch(mod, plain, counter="launches"):
         def run(*args, **static):
             with torch.no_grad():
-                out = mod.plain(*args, **static)
-            mod.launches += 1
+                out = plain(*args, **static)
+            setattr(mod, counter, getattr(mod, counter) + 1)
             return out
         return run
 
     monkeypatch.setattr(_grad, "KERNEL_DEVICE", "cpu")
     for mod in (fa_ops, rn_ops, ssd_ops):
-        monkeypatch.setattr(mod, "_launch", launch(mod))
+        monkeypatch.setattr(mod, "_launch", launch(mod, mod.plain))
+    monkeypatch.setattr(fa_ops, "_launch_lse", launch(fa_ops, fa_ops.plain_lse))
+    monkeypatch.setattr(fa_ops, "_launch_bwd",
+                        launch(fa_ops, fa_ops.plain_bwd, "backward_launches"))
     yield
 
 
@@ -308,18 +313,83 @@ def _same_grads(fn_kernel, fn_plain, inputs, seed=3):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
+def _backwards():
+    return fa_ops.backward_launches, fa_ops.plain_backward_calls
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_function_gradients_are_the_plain_vjp(monkeypatch, dtype):
+    """f32 takes the plain vjp: autograd's gradients through the plain
+    version, bit for bit. bf16 takes the backward kernel's route, its launch
+    played by ``ref.attention_bwd_ref``: the same output, and gradients
+    within one bf16 rounding of the plain vjp's (both sum in f32 from the
+    same inputs and round once to bf16, the sums in another order: 2^-7 of
+    the largest), equal to the plain backward of the saved log-sum-exp."""
     rng = np.random.default_rng(0)
     B, S, H, KV, hd = 2, 24, 4, 2, 16
     q, k, v = (rng.standard_normal(s).astype(np.float32)
                for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
     with _kernels_as_plain(monkeypatch):
-        n0 = fa_ops.launches
-        _same_grads(lambda *t: fa_ops.flash_attention(*t, scale=0.25),
-                    lambda *t: fa_ops.plain(*t, scale=0.25),
-                    _leaves_requiring_grad(q, k, v, dtype=dtype))
+        n0, b0 = fa_ops.launches, _backwards()
+        if dtype == torch.float32:
+            _same_grads(lambda *t: fa_ops.flash_attention(*t, scale=0.25),
+                        lambda *t: fa_ops.plain(*t, scale=0.25),
+                        _leaves_requiring_grad(q, k, v, dtype=dtype))
+            assert _backwards() == (b0[0], b0[1] + 1)
+        else:
+            a = _leaves_requiring_grad(q, k, v, dtype=dtype)
+            b = [t.detach().clone().requires_grad_() for t in a]
+            out = fa_ops.flash_attention(*a, scale=0.25)
+            assert out.grad_fn.name() == "FlashAttentionBackward"
+            torch.testing.assert_close(out, fa_ops.plain(*b, scale=0.25),
+                                       rtol=0, atol=0)
+            r = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(
+                np.float32)).to(dtype)
+            got = torch.autograd.grad(out, a, r)
+            want = torch.autograd.grad(fa_ops.plain(*b, scale=0.25), b, r)
+            o, lse = fa_ops.plain_lse(*a, scale=0.25)
+            same = fa_ops.plain_bwd(*a, o, lse, r, scale=0.25)
+            for x, y, z in zip(got, want, same):
+                torch.testing.assert_close(x, z, rtol=0, atol=0)
+                assert float((x.float() - y.float()).abs().max()) <= \
+                    2 ** -7 * float(y.float().abs().max())
+            assert _backwards() == (b0[0] + 1, b0[1])
         assert fa_ops.launches == n0 + 1      # forward only; no relaunch
+
+
+ROUTES = [(torch.bfloat16, hd, hd, True) for hd in fa_ops.BACKWARD_DIMS] + [
+    (torch.bfloat16, 160, 160, False), (torch.bfloat16, 256, 256, False),
+    (torch.bfloat16, 192, 128, False), (torch.float32, 80, 80, False),
+    (torch.float32, 128, 128, False)]
+
+
+@pytest.mark.parametrize("dtype,hd,hd_v,kernel", ROUTES)
+def test_flash_route_is_chosen_from_dtype_and_width(monkeypatch, dtype, hd,
+                                                    hd_v, kernel):
+    """On the kernels' device the gradient's route follows the input alone:
+    bf16 at the backward kernel's equal widths takes ``FlashAttention``
+    (one backward launch), anything else the plain vjp (one plain backward);
+    a CPU tensor off that device runs the plain version under autograd,
+    with no ``Function`` and neither count."""
+    assert fa_ops.kernel_backward(dtype, hd, hd_v) is kernel
+    rng = np.random.default_rng(hd + hd_v)
+    shapes = ((1, 8, 2, hd), (1, 8, 1, hd), (1, 8, 1, hd_v))
+    inputs = _leaves_requiring_grad(
+        *(rng.standard_normal(s).astype(np.float32) for s in shapes),
+        dtype=dtype)
+    b0 = _backwards()
+    out = fa_ops.flash_attention(*inputs, scale=0.3)
+    assert "Flash" not in out.grad_fn.name()
+    assert "PlainVJP" not in out.grad_fn.name()
+    out.float().sum().backward()
+    assert _backwards() == b0
+    with _kernels_as_plain(monkeypatch):
+        out = fa_ops.flash_attention(*inputs, scale=0.3)
+        assert out.grad_fn.name() == ("FlashAttentionBackward" if kernel
+                                      else "PlainVJPBackward")
+        out.float().sum().backward()
+        assert _backwards() == ((b0[0] + 1, b0[1]) if kernel
+                                else (b0[0], b0[1] + 1))
 
 
 @pytest.mark.parametrize("gated", [False, True])
@@ -418,3 +488,34 @@ def test_kernel_path_gradients_and_launches(monkeypatch, arch, remat):
     for (path, g), w in zip(T.flatten(got), T.leaves(want)):
         assert bool((g != 0).any()), path
         assert _rel(g, w) < 1e-5, path
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_kernel_path_bf16_takes_the_flash_backward(monkeypatch, remat):
+    """stablelm-3b's smoke config in bf16 (head width 16): each attention
+    call's gradient takes the backward kernel's route (its launch played by
+    the plain backward), once a layer a step whether or not the layer is
+    recomputed, and never the plain vjp (``flash_backwards``); the forward
+    launches stay ``kernel_launches``'. Gradients against the plain path
+    per leaf under 2e-2 of its largest: both run bf16 activations, and the
+    two backwards round dq, dk and dv to bf16 at other points (the worst
+    leaf reads 0.0085)."""
+    cfg = get_smoke_config("stablelm-3b", dtype="bfloat16", remat=remat)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    _, tb = _batch(cfg)
+    want, mw = TS.make_grad_fn(dataclasses.replace(cfg, use_pallas=False))(
+        params, tb)
+    with _kernels_as_plain(monkeypatch):
+        before, b0 = _launches(), _backwards()
+        got, mg = TS.make_grad_fn(cfg)(params, tb)
+        after, b1 = _launches(), _backwards()
+    assert {k: after[k] - before[k] for k in after} == \
+        TS.kernel_launches(cfg)
+    assert TS.flash_backwards(cfg) == {"backward_launches": cfg.num_layers,
+                                       "plain_backward_calls": 0}
+    assert {"backward_launches": b1[0] - b0[0],
+            "plain_backward_calls": b1[1] - b0[1]} == TS.flash_backwards(cfg)
+    assert float(mg["loss"]) == float(mw["loss"])
+    for (path, g), w in zip(T.flatten(got), T.leaves(want)):
+        assert bool((g != 0).any()), path
+        assert _rel(g.float(), w.float()) < 2e-2, path
